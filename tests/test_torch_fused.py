@@ -1,0 +1,409 @@
+"""PyTorch port, the W4A8 fused decode step as a whole, against the JAX
+reference's ``decode_step_fused`` (Pallas kernels in interpret mode).
+
+Params come from the reference's ``bench.build_compressed_llama_params``,
+fused and int8-factored by the reference, flattened to numpy and loaded with
+the port's ``fused_params_from_numpy``; prompts are drawn with numpy. Each
+step starts both programs from the reference's cache, and a code the two
+programs round to different sides of an edge is replayed with the
+reference's rounding before the step is held to the tight bound
+(:func:`_step_both`)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+from ee274_convexcaldera_llm_quantization_tpu.models import fused as JF
+from ee274_convexcaldera_llm_quantization_tpu.models import llama as JL
+from ee274_convexcaldera_llm_quantization_tpu.models.config import (
+    TINY, TINY_MHA)
+from ee274_convexcaldera_llm_quantization_tpu.ops import kernels as JK
+from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
+from ee274_convexcaldera_llm_quantization_tpu_torch.interop import (
+    fused_params_from_numpy)
+from ee274_convexcaldera_llm_quantization_tpu_torch.models import fused as TF
+from ee274_convexcaldera_llm_quantization_tpu_torch.models import llama as TL
+from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+    config as TC)
+from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as TK
+
+# logits: the JAX suite's fused-path bound (tests/test_flash_attention.py)
+LOGIT_RTOL, LOGIT_ATOL = 2e-4, 2e-5
+
+
+def _flatten(obj, prefix, arrays, meta):
+    def key(name):
+        return f"{prefix}.{name}" if prefix else name
+    if obj is None:
+        return
+    if isinstance(obj, (jax.Array, np.ndarray)):
+        arrays[prefix] = np.asarray(obj)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            value = getattr(obj, f.name)
+            if f.metadata.get("static"):
+                meta[key(f.name)] = value
+            else:
+                _flatten(value, key(f.name), arrays, meta)
+    elif hasattr(obj, "_fields"):
+        for name in obj._fields:
+            _flatten(getattr(obj, name), key(name), arrays, meta)
+    elif isinstance(obj, (tuple, list)):
+        for i, value in enumerate(obj):
+            _flatten(value, key(str(i)), arrays, meta)
+    else:
+        raise TypeError(f"cannot flatten {type(obj).__name__} at {prefix}")
+
+
+def _jax_params(config):
+    p = bench.build_compressed_llama_params(config, num_bits=4, rank=16,
+                                            seed=0)
+    return JF.quantize_factors_int8_fused(JF.fuse_stacked(p))
+
+
+def _to_port(jparams, device="cpu"):
+    arrays, meta = {}, {}
+    _flatten(jparams, "", arrays, meta)
+    return fused_params_from_numpy(arrays, meta, device=device)
+
+
+_PARAMS = {}
+
+
+def _params(name):
+    if name not in _PARAMS:
+        config = {"tiny": TINY, "tiny-mha": TINY_MHA}[name]
+        jp = _jax_params(config)
+        _PARAMS[name] = (config, jp, _to_port(jp))
+    return _PARAMS[name]
+
+
+def _port_config(config):
+    return TC.PRESETS[{TINY: "tiny", TINY_MHA: "tiny-mha"}[config]]
+
+
+def _assert_caches_match(tc, jc):
+    """K/V codes equal: both caches start each step from the same state and
+    a rounding flip of a K/V code is replayed with the reference's code
+    (:func:`_step_both`). K/V scales are absmax / 127 of f32 rows the step
+    computed, held to the step's own bound: a bf16 cast before a factor dot
+    rounds on its own edges (spacing 2^-8), which the replay does not
+    cover, and moved a scale by 1.2e-5 relative over these seeds."""
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)))
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(getattr(tc, name).numpy(),
+                                   np.asarray(getattr(jc, name)),
+                                   rtol=LOGIT_RTOL)
+
+
+class _Rounding:
+    """Records every int8 rounding of activations and KV on both sides.
+
+    Activations round to int8 before every W4A8 matmul and the head, and
+    K/V round to int8 for the cache, so one f32 ulp of difference upstream
+    (sums in another order, ``exp``, ``cos``, a bf16 cast) can put a value
+    on opposite sides of a rounding edge in the two programs, and the codes
+    differ by one. Within the context the reference's and the port's
+    ``quantize_activations_int8`` and ``quantize_kv`` append ``(codes,
+    x / scale)`` per call in call order; ``force`` maps a port call index
+    to ``(mask, codes)`` that replace the port's codes there, so a step can
+    be replayed with the reference's rounding at its knife edges.
+
+    The reference records through ``jax.debug.callback`` in a fresh jit of
+    ``decode_step_fused``; JAX's caches are cleared on entry and exit so
+    that no trace made before holds the recorder and none made inside
+    outlives it.
+    """
+
+    def __init__(self):
+        self.jax, self.port, self.force = [], [], {}
+
+    def _jax_wrap(self, orig, kv):
+        def wrapped(x, *args):
+            codes, scale = orig(x, *args)
+            ratio = x.astype(jnp.float32) / (scale[..., None] if kv
+                                             else scale)
+            jax.debug.callback(
+                lambda c, r: self.jax.append((np.array(c), np.array(r))),
+                codes, ratio, ordered=True)
+            return codes, scale
+        return wrapped
+
+    def _port_wrap(self, orig, kv):
+        def wrapped(x, *args):
+            codes, scale = orig(x, *args)
+            forced = self.force.get(len(self.port))
+            if forced is not None:
+                codes = torch.where(torch.from_numpy(forced[0]),
+                                    torch.from_numpy(forced[1]), codes)
+            ratio = x.float() / (scale[..., None] if kv else scale)
+            self.port.append((codes.numpy().copy(), ratio.numpy().copy()))
+            return codes, scale
+        return wrapped
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (JK, "quantize_activations_int8"), (JL, "quantize_kv"),
+            (TK, "quantize_activations_int8"), (TL, "quantize_kv"))]
+        for (m, n, orig), wrap in zip(self.saved, (
+                self._jax_wrap, self._jax_wrap, self._port_wrap,
+                self._port_wrap)):
+            setattr(m, n, wrap(orig, n == "quantize_kv"))
+        jax.clear_caches()
+        self.jax_step = jax.jit(
+            JF.decode_step_fused.__wrapped__,
+            static_argnames=("config", "interpret", "staged_kv",
+                             "attn_dots"))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, orig in self.saved:
+            setattr(m, n, orig)
+        jax.clear_caches()
+        return False
+
+
+# A rounding flip: the two programs' values before rounding agree to well
+# under one code and the codes differ by exactly one. An f32 ulp of a code
+# is ~1e-5; a bf16 cast upstream of a factor dot left up to 9e-3 over these
+# seeds (five head-input codes on one step).
+FLIP_RATIO_TOL = 5e-2
+# Codes a step may round the other way before the port, replayed with the
+# reference's codes there, agrees within the logits bound.
+MAX_FLIPS = 16
+# Un-replayed, one flip cascades through the tiny random-weight model:
+# 1.2e-2 relative was the largest reading over these seeds (PERF.md).
+FLIP_LOGIT_REL = 3e-2
+
+
+def _step_both(rec, params, tokens, pos, jcache, tcache, **kw):
+    """One step of the reference and the port from the same cache.
+
+    ``tcache`` is overwritten with ``jcache`` first. When the port rounds
+    a code to the other side of an edge, the port's step is replayed with
+    the reference's codes at that edge (each must be a rounding flip, see
+    ``FLIP_RATIO_TOL``), up to ``MAX_FLIPS`` times, and the replay is held
+    to the tight bound. Returns ``(reference logits, jcache, tcache,
+    readings)``: the codes replayed, and the logits' rel-Frobenius
+    difference before and after the replay."""
+    config, jparams, tparams = params
+    pre = [np.array(a) for a in jcache]
+    rec.jax.clear()
+    jl, jcache = rec.jax_step(jparams, jnp.asarray(tokens), jnp.asarray(pos),
+                              jcache, config, interpret=True, **kw)
+    jl = np.asarray(jl)
+    jax.effects_barrier()
+    ref_codes = list(rec.jax)
+    rec.force = {}
+    flips, first_rel = 0, None
+    while True:
+        for name, a in zip(("k", "v", "k_scale", "v_scale"), pre):
+            getattr(tcache, name).copy_(torch.from_numpy(a))
+        rec.port.clear()
+        tl, tcache = TF.decode_step_fused(
+            tparams, torch.from_numpy(tokens.astype(np.int64)),
+            torch.from_numpy(pos), tcache, _port_config(config), **kw)
+        tl = tl.numpy()
+        if first_rel is None:
+            first_rel = float(np.linalg.norm(tl - jl) / np.linalg.norm(jl))
+        assert len(rec.port) == len(ref_codes) > 0
+        at = next((i for i, (a, b) in enumerate(zip(ref_codes, rec.port))
+                   if not np.array_equal(a[0], b[0])), None)
+        if at is None:
+            break
+        (jc, jr), (tc, tr) = ref_codes[at], rec.port[at]
+        m = jc != tc
+        assert np.abs(jc[m].astype(np.int32) - tc[m]).max() == 1, at
+        assert np.abs(jr[m] - tr[m]).max() <= FLIP_RATIO_TOL, at
+        rec.force[at] = (m, jc)
+        flips += int(m.sum())
+        assert flips <= MAX_FLIPS, f"{flips} rounding flips in one step"
+    rec.force = {}
+    np.testing.assert_allclose(tl, jl, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    np.testing.assert_array_equal(tl.argmax(-1), jl.argmax(-1))
+    assert first_rel <= FLIP_LOGIT_REL, first_rel
+    _assert_caches_match(tcache, jcache)
+    rel = float(np.linalg.norm(tl - jl) / np.linalg.norm(jl))
+    return jl, jcache, tcache, dict(flips=flips, before=first_rel, after=rel)
+
+
+def _loop_over_seeds(name, seeds, attn_dots):
+    """Six steps per seeded prompt (three prompt tokens, then the
+    reference's greedy tokens), each step from the reference's cache."""
+    params = _params(name)
+    config = params[0]
+    B, T, prompt_len, steps = 2, 16, 3, 6
+    readings = []
+    with _Rounding() as rec:
+        for seed in seeds:
+            prompt = np.random.default_rng(seed).integers(
+                0, config.vocab_size, size=(B, prompt_len)).astype(np.int32)
+            jcache = JL.HeadMajorQuantKVCache.create(config, B, T)
+            tcache = TL.HeadMajorQuantKVCache.create(
+                _port_config(config), B, T, device="cpu")
+            tok = prompt[:, 0]
+            flip_steps, before, after = [], 0.0, 0.0
+            for step in range(steps):
+                pos = np.full((B,), step, np.int32)
+                jl, jcache, tcache, r = _step_both(
+                    rec, params, tok, pos, jcache, tcache,
+                    staged_kv="uniform", attn_dots=attn_dots)
+                if r["flips"]:
+                    flip_steps.append((step, r["flips"]))
+                    before = max(before, r["before"])
+                after = max(after, r["after"])
+                tok = (prompt[:, step + 1] if step + 1 < prompt_len
+                       else jl.argmax(-1).astype(np.int32))
+            readings.append(f"seed {seed}: (step, codes replayed) "
+                            f"{flip_steps}; logits rel-Frobenius: worst "
+                            f"replayed step {before:.2e} before its replay, "
+                            f"worst step {after:.2e}")
+    # `pytest -s` shows the readings that PERF.md records
+    print(f"\n{name} attn_dots={attn_dots}:\n  " + "\n  ".join(readings))
+
+
+SEEDS = range(8)
+
+
+class TestDecodeStepVsReference:
+    @pytest.mark.parametrize("name", ["tiny", "tiny-mha"])
+    def test_greedy_loop_matches(self, name):
+        # every seeded prompt, each step held to the tight bound; steps
+        # where one program rounds a code the other way are replayed with
+        # the reference's rounding there (see _step_both)
+        _loop_over_seeds(name, SEEDS, "i8")
+
+    def test_ragged_positions_and_uniform_guard(self):
+        # staged_kv=True with ragged rows, and "uniform" given ragged rows:
+        # the reference's guard falls back to per-row commits, which the
+        # port's indexed commit always performs
+        params = _params("tiny")
+        config = params[0]
+        B, T = 3, 16
+        with _Rounding() as rec:
+            for seed in range(4):
+                tokens = np.random.default_rng(100 + seed).integers(
+                    0, config.vocab_size, size=(2, B)).astype(np.int32)
+                for staged in (True, "uniform"):
+                    jcache = JL.HeadMajorQuantKVCache.create(config, B, T)
+                    tcache = TL.HeadMajorQuantKVCache.create(
+                        _port_config(config), B, T, device="cpu")
+                    for tok, pos in zip(tokens, ([0, 4, 9], [1, 5, 10])):
+                        _, jcache, tcache, _ = _step_both(
+                            rec, params, tok, np.asarray(pos, np.int32),
+                            jcache, tcache, staged_kv=staged,
+                            attn_dots="i8")
+                    # each row's K landed at its own column
+                    for b, p in enumerate([1, 5, 10]):
+                        assert tcache.k_scale[0, b, :, p].min() > 0
+
+    def test_f32_dots_match(self):
+        # the f32-dots twin over the same multi-step loop: its attention
+        # rounds nothing, but activations and K/V still round to int8
+        for name in ("tiny", "tiny-mha"):
+            _loop_over_seeds(name, SEEDS, "f32")
+
+
+class TestPortSurface:
+    def test_bench_params_shapes_match_reference(self):
+        jp = bench.build_compressed_llama_params(TINY, num_bits=4, rank=16,
+                                                 seed=0)
+        tp = bench_params.build_compressed_llama_params(
+            TC.TINY, num_bits=4, rank=16, seed=0, device="cpu")
+        ja, jm, ta, tm = {}, {}, {}, {}
+        _flatten(jp, "", ja, jm)
+        for name in ("embed", "final_norm", "lm_head.w"):
+            ta[name] = getattr(tp, name) if "." not in name else tp.lm_head.w
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                     "up_proj", "down_proj"):
+            lin = getattr(tp.layers, proj)
+            for f in ("packed", "scales", "L", "R", "global_scale"):
+                ta[f"layers.{proj}.{f}"] = getattr(lin, f)
+            for f in ("num_bits", "group_size", "out_features",
+                      "in_features", "mode"):
+                assert getattr(lin, f) == jm[f"layers.{proj}.{f}"], (proj, f)
+        for name, t in ta.items():
+            assert tuple(t.shape) == ja[name].shape, name
+            assert str(t.dtype).split(".")[-1] == ja[name].dtype.name, name
+
+    def test_fuse_and_quantize_match_reference(self):
+        # the port's fuse_stacked + quantize_factors_int8_fused on the
+        # reference's unfused params give the reference's fused params
+        jp = bench.build_compressed_llama_params(TINY, num_bits=4, rank=16,
+                                                 seed=0)
+        from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+            compressed as TCm, stacked as TS)
+
+        def lin(j):
+            return TCm.CalderaLinear(
+                packed=torch.from_numpy(np.array(j.packed)),
+                scales=torch.from_numpy(np.array(j.scales)),
+                L=torch.from_numpy(np.array(j.L.astype(jnp.float32))).to(
+                    torch.bfloat16),
+                R=torch.from_numpy(np.array(j.R.astype(jnp.float32))).to(
+                    torch.bfloat16),
+                global_scale=torch.from_numpy(np.array(j.global_scale)),
+                num_bits=j.num_bits, group_size=j.group_size,
+                out_features=j.out_features, in_features=j.in_features,
+                mode=j.mode)
+        lp = jp.layers
+        layers = TS.LayerParams(
+            attn_norm=torch.from_numpy(np.array(lp.attn_norm)),
+            mlp_norm=torch.from_numpy(np.array(lp.mlp_norm)),
+            **{n: lin(getattr(lp, n)) for n in (
+                "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")})
+        head = TCm.DenseLinear(w=torch.from_numpy(
+            np.array(jp.lm_head.w.astype(jnp.float32))).to(torch.bfloat16))
+        tp = TF.quantize_factors_int8_fused(TF.fuse_stacked(TS.StackedModelParams(
+            embed=torch.zeros(1), layers=layers,
+            final_norm=torch.from_numpy(np.array(jp.final_norm)),
+            lm_head=head)))
+        ref = _params("tiny")[2]
+        for g in ("qkv", "gateup"):
+            a, b = getattr(tp.layers, g), getattr(ref.layers, g)
+            assert (a.splits, a.ranks, a.num_bits) == (b.splits, b.ranks,
+                                                        b.num_bits)
+            for f in ("packed", "scales", "R", "R_scale", "global_scale"):
+                assert torch.equal(getattr(a, f), getattr(b, f)), (g, f)
+            for x, y in zip(a.Ls + a.L_scales, b.Ls + b.L_scales):
+                assert torch.equal(x, y), g
+        assert torch.equal(tp.lm_head.w8, ref.lm_head.w8)
+        assert torch.equal(tp.lm_head.scales, ref.lm_head.scales)
+
+    def test_no_quiet_cpu_fallback(self):
+        if torch.cuda.is_available():
+            cache = TL.HeadMajorQuantKVCache.create(TC.TINY, 1, 8)
+            assert cache.k.is_cuda
+            return
+        with pytest.raises(RuntimeError, match="cuda"):
+            TL.HeadMajorQuantKVCache.create(TC.TINY, 1, 8)
+        with pytest.raises(RuntimeError, match="cuda"):
+            bench_params.build_compressed_llama_params(TC.TINY)
+        with pytest.raises(RuntimeError, match="cuda"):
+            _to_port(_params("tiny")[1], device="cuda")
+
+    @pytest.mark.parametrize("flag", [
+        dict(mlp_kernel=True), dict(attn_o_kernel=True),
+        dict(attn_kernel="ab"), dict(tp_axis="tp"),
+        dict(proj_kernel="persistent"), dict(staged_kv=False),
+        dict(attn_dots="bf16")])
+    def test_unported_flags_raise(self, flag):
+        _, _, tparams = _params("tiny")
+        cache = TL.HeadMajorQuantKVCache.create(TC.TINY, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TF.decode_step_fused(tparams, torch.tensor([1]),
+                                 torch.tensor([0], dtype=torch.int32), cache,
+                                 TC.TINY, **flag)
+
+    def test_unported_factor_paths_raise(self):
+        _, _, tparams = _params("tiny")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TF.quantize_factors_int8_fused(tparams, fuse_factor_kernel="l")
