@@ -9,12 +9,16 @@ factors and KV with f32 per-row / per-(token, head) scales).
 - ``ops.kernels``   — W4A8 stacked matmul and int8 matmul wrappers (CUDA
                       kernels on the card, plain torch on the CPU), packing
                       and activation quantization.
-- ``ops.attention`` — staged flash-decode attention over the head-major
-                      int8 KV cache.
+- ``ops.attention`` — flash-decode attention over the head-major int8 KV
+                      cache (staged, inline, all-batch) and causal flash
+                      prefill.
 - ``ops._build``    — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use
                       and binds them with ``ctypes``.
-- ``models``        — config presets, the Llama pieces of the decode step,
-                      compressed linears, and the fused decode step.
+- ``models``        — config presets, the Llama pieces (caches, plain
+                      attention, head), compressed linears, and the fused
+                      prefill and decode steps.
+- ``serve``         — sampling, the continuous-batching scheduler and the
+                      fused-path ``FastServingEngine``.
 - ``interop``       — load fused params handed over as numpy arrays.
 - ``bench_params``  — seeded synthetic packed weights built on the device.
 

@@ -1,2 +1,2 @@
 """Model side of the port: configs, Llama pieces, compressed linears and the
-fused W4A8 decode step."""
+fused W4A8 prefill and decode steps."""

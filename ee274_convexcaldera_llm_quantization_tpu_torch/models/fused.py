@@ -1,13 +1,14 @@
-"""Fused-projection W4A8 decode step, in PyTorch.
+"""Fused-projection W4A8 prefill and decode steps, in PyTorch.
 
 Counterpart of ``ee274_convexcaldera_llm_quantization_tpu.models.fused``
-for the serving main path: q/k/v and gate/up concatenate along the output
+for the serving path: q/k/v and gate/up concatenate along the output
 dimension so each layer makes four W4A8 matmul launches (qkv, o, gate+up,
-down) and one staged flash-decode attention launch, all hand-written CUDA
-kernels on the card; the int8 lm_head adds one int8 matmul launch per step.
-Activation quantization, RMSNorm, RoPE, KV quantization, SiLU and the
-low-rank factor dots stay plain PyTorch, as the reference leaves them to
-XLA.
+down) and one attention launch, all hand-written CUDA kernels on the card
+(flash prefill for a prompt; staged, inline or all-batch flash decode for a
+step over the head-major int8 cache); the int8 lm_head adds one int8 matmul
+launch per call. Activation quantization, RMSNorm, RoPE, KV quantization,
+SiLU, the low-rank factor dots and the attention over the token-major
+caches stay plain PyTorch, as the reference leaves them to XLA.
 
 Fusion keeps the math of the unfused projections: packed codes, row scales
 and biases concatenate along N; the ``R`` factors concatenate along the rank
@@ -30,11 +31,13 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models.compressed import (
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
     ModelConfig)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.llama import (
-    HeadMajorQuantKVCache)
+    HeadMajorQuantKVCache, KVCache, QuantKVCache)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.stacked import (
     StackedModelParams, _low_rank_layer)
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import attention as AT
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
+
+_NEG_INF = -1e30
 
 
 @dataclasses.dataclass
@@ -212,6 +215,33 @@ def _not_ported(what: str, item: str):
                                f"{item})")
 
 
+def _check_cache(cache):
+    if not isinstance(cache, (HeadMajorQuantKVCache, QuantKVCache, KVCache)):
+        raise TypeError(f"unknown cache type {type(cache).__name__}")
+
+
+def _qkv(lp: FusedLayerStack, l: int, x: torch.Tensor, cos, sin,
+         config: ModelConfig, lead: Tuple[int, int]):
+    """RMSNorm, the fused qkv projection and RoPE for the rows ``x``
+    (N, h); q/k/v come back as (*lead, heads, head_dim)."""
+    y = llama.rms_norm(x, lp.attn_norm[l], config.rms_norm_eps)
+    q, k, v = _apply_fused(lp.qkv, l, y)
+    D = config.head_dim
+    q = llama.apply_rope(q.reshape(*lead, config.num_heads, D), cos, sin)
+    k = llama.apply_rope(k.reshape(*lead, config.num_kv_heads, D), cos, sin)
+    return q, k, v.reshape(*lead, config.num_kv_heads, D)
+
+
+def _mlp_and_o(lp: FusedLayerStack, l: int, x: torch.Tensor,
+               attn: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """The rest of a layer: o_proj residual, RMSNorm, gate/up, SiLU, down
+    residual."""
+    x = x + _apply_plain(lp.o_proj, l, attn)
+    y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
+    gate, up = _apply_fused(lp.gateup, l, y)
+    return x + _apply_plain(lp.down_proj, l, gate * torch.sigmoid(gate) * up)
+
+
 def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor):
     """Write each row's staged K/V (all layers) at column ``pos[b]`` of the
     cache, in place: one indexed write per cache tensor. Positions past the
@@ -228,10 +258,19 @@ def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor):
     cache.v_scale[:, rows, :, col] = svs.transpose(0, 1)
 
 
+def _last_logits(params: FusedStackedParams, x: torch.Tensor, last_pos,
+                 config: ModelConfig) -> torch.Tensor:
+    """Logits (vocab,) of row ``last_pos`` of ``x`` (the last row when
+    None; clamped into range, as the reference's dynamic slice is)."""
+    n = x.shape[0]
+    i = n - 1 if last_pos is None else min(max(int(last_pos), 0), n - 1)
+    return llama._logits(x[i:i + 1], params.embed, params.final_norm,
+                         params.lm_head, config)[0]
+
+
 def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
-                      pos: torch.Tensor, cache: HeadMajorQuantKVCache,
-                      config: ModelConfig, staged_kv="uniform",
-                      mlp_kernel: bool = False,
+                      pos: torch.Tensor, cache, config: ModelConfig,
+                      staged_kv=False, mlp_kernel: bool = False,
                       attn_o_kernel: bool = False,
                       attn_dots: str = "f32",
                       head_pallas: bool = False,
@@ -242,75 +281,228 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
 
     ``tokens`` (B,) int and ``pos`` (B,) int32 on the params' device; the
     step computes on that device. Returns ``(logits (B, vocab) f32,
-    cache)``. The cache tensors are **updated in place** (the reference
-    donates them): this step's K/V are staged per layer and committed once
-    at the end, each row at its own ``pos[b]``.
+    cache)``; the cache tensors are **updated in place** (the reference
+    donates them). ``cache`` is a :class:`HeadMajorQuantKVCache` (flash
+    attention kernels), a token-major int8 :class:`QuantKVCache` or a bf16
+    :class:`KVCache` (plain attention, as the reference's XLA path).
 
-    ``staged_kv``: "uniform" (the bench's lockstep batch) or True (ragged
-    positions). The reference's uniform commit writes column ``pos[0]`` for
-    every row and guards against ragged positions by falling back to the
-    per-row commit; here both modes take the per-row indexed write, one
-    launch per cache tensor, so ragged positions stay correct under
-    "uniform" by construction. ``attn_dots``: "i8" (the main path) or
-    "f32". ``head_pallas`` is accepted and has no effect: the int8 head
-    always runs the int8 matmul kernel on the card and its plain version on
-    the CPU. Other flag values are not ported yet and raise.
+    ``staged_kv`` (head-major cache only): False writes each layer's K/V
+    at column ``pos[b]`` before the inline attention (tokens ``<= pos``);
+    True or "uniform" stage them, attend the cache's tokens ``< pos`` plus
+    the staged token, and commit once at the end. The reference's
+    "uniform" commit writes column ``pos[0]`` for every row and falls back
+    to per-row writes for ragged positions; here both modes take the
+    per-row indexed write, so ragged positions stay correct by
+    construction. ``attn_kernel``: "row" or "ab" (the all-batch kernel's
+    block partition; head-major only). ``attn_dots``: "i8" or "f32".
+    ``head_pallas`` is accepted and has no effect: the int8 head always
+    runs the int8 matmul kernel on the card and its plain version on the
+    CPU. Other flag values are not ported yet and raise.
     """
-    if staged_kv not in ("uniform", True):
-        raise _not_ported(f"staged_kv={staged_kv!r} (the inline path)",
-                          "Queue B item 4 and Queue A item 6")
-    if not isinstance(cache, HeadMajorQuantKVCache):
-        raise _not_ported(f"the {type(cache).__name__} cache",
-                          "Queue A item 3")
+    if attn_kernel not in ("row", "ab"):
+        raise ValueError(f"unknown attn_kernel {attn_kernel!r}")
+    if staged_kv not in (False, True, "uniform"):
+        raise ValueError(f"unknown staged_kv {staged_kv!r}")
+    _check_cache(cache)
+    head_major = isinstance(cache, HeadMajorQuantKVCache)
+    if attn_kernel == "ab" and not head_major:
+        raise ValueError("attn_kernel='ab' requires a HeadMajorQuantKVCache "
+                         f"(got {type(cache).__name__})")
+    if staged_kv and not head_major:
+        raise ValueError("staged_kv requires a HeadMajorQuantKVCache")
     if mlp_kernel:
         raise _not_ported("mlp_kernel=True", "Queue B item 12")
     if attn_o_kernel:
         raise _not_ported("attn_o_kernel=True", "Queue B item 13")
-    if attn_kernel == "ab":
-        raise _not_ported("attn_kernel='ab'", "Queue B item 8")
-    if attn_kernel != "row":
-        raise ValueError(f"unknown attn_kernel {attn_kernel!r}")
     if tp_axis is not None:
         raise _not_ported("tp_axis", "Queue A item 19")
     if proj_kernel == "persistent":
         raise _not_ported("proj_kernel='persistent'", "Queue B item 14")
     if proj_kernel != "grid":
         raise ValueError(f"unknown proj_kernel {proj_kernel!r}")
+    if head_major:
+        AT._check_dots(attn_dots)
     del head_pallas
     resolve_device(tokens.device)
     lp = params.layers
     B = tokens.shape[0]
     Lk, KVH, D = config.num_layers, config.num_kv_heads, config.head_dim
-    H = config.num_heads
-    kv_groups = H // KVH
+    kv_groups = config.num_heads // KVH
     dev = tokens.device
+    T = cache.k.shape[3] if head_major else cache.k.shape[2]
     x = params.embed[tokens].float()
     cos, sin = llama.rope_tables(config, pos[:, None])
-    staging = (torch.empty((Lk, B, KVH, D), dtype=torch.int8, device=dev),
-               torch.empty((Lk, B, KVH), dtype=torch.float32, device=dev),
-               torch.empty((Lk, B, KVH, D), dtype=torch.int8, device=dev),
-               torch.empty((Lk, B, KVH), dtype=torch.float32, device=dev))
-    sk, sks, sv, svs = staging
+    rows = torch.arange(B, device=dev)
+    col = pos.long()
+    mask = None
+    if not head_major:
+        valid = torch.arange(T, device=dev)[None, :] <= col[:, None]
+        mask = torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
+    if staged_kv:
+        staging = (
+            torch.empty((Lk, B, KVH, D), dtype=torch.int8, device=dev),
+            torch.empty((Lk, B, KVH), dtype=torch.float32, device=dev),
+            torch.empty((Lk, B, KVH, D), dtype=torch.int8, device=dev),
+            torch.empty((Lk, B, KVH), dtype=torch.float32, device=dev))
     for l in range(Lk):
-        y = llama.rms_norm(x, lp.attn_norm[l], config.rms_norm_eps)
-        q, k, v = _apply_fused(lp.qkv, l, y)
-        q = llama.apply_rope(q.reshape(B, 1, H, D), cos, sin)
-        k = llama.apply_rope(k.reshape(B, 1, KVH, D), cos, sin)
-        v = v.reshape(B, 1, KVH, D)
-        kq, ksc = llama.quantize_kv(k[:, 0])
-        vq, vsc = llama.quantize_kv(v[:, 0])
-        sk[l], sks[l], sv[l], svs[l] = kq, ksc, vq, vsc
-        kf = kq.float() * ksc[..., None]
-        vf = vq.float() * vsc[..., None]
-        attn = AT.flash_decode_q8_staged(
-            q[:, 0].reshape(B, KVH, kv_groups, D), cache.k, cache.v,
-            cache.k_scale, cache.v_scale, kf, vf, l, pos,
-            dots=attn_dots).reshape(B, config.q_dim)
-        x = x + _apply_plain(lp.o_proj, l, attn)
-        y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
-        gate, up = _apply_fused(lp.gateup, l, y)
-        x = x + _apply_plain(lp.down_proj, l, gate * torch.sigmoid(gate) * up)
-    _commit(cache, staging, pos)
+        q, k, v = _qkv(lp, l, x, cos, sin, config, (B, 1))
+        if head_major:
+            kq, ksc = llama.quantize_kv(k[:, 0])
+            vq, vsc = llama.quantize_kv(v[:, 0])
+            qh = q[:, 0].reshape(B, KVH, kv_groups, D)
+            if staged_kv:
+                for buf, val in zip(staging, (kq, ksc, vq, vsc)):
+                    buf[l] = val
+                kf = kq.float() * ksc[..., None]
+                vf = vq.float() * vsc[..., None]
+                if attn_kernel == "ab":
+                    attn = AT.flash_decode_q8_ab(
+                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                        kf, vf, l, pos, staged=True, dots=attn_dots)
+                else:
+                    attn = AT.flash_decode_q8_staged(
+                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                        kf, vf, l, pos, dots=attn_dots)
+            else:
+                # per-row write at pos[b] (clamped, as the reference's
+                # dynamic_update_slice), then attend tokens <= pos
+                ccol = col.clamp(0, T - 1)
+                cache.k[l][rows, :, ccol] = kq
+                cache.v[l][rows, :, ccol] = vq
+                cache.k_scale[l][rows, :, ccol] = ksc
+                cache.v_scale[l][rows, :, ccol] = vsc
+                if attn_kernel == "ab":
+                    attn = AT.flash_decode_q8_ab(
+                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                        None, None, l, pos, staged=False, dots=attn_dots)
+                else:
+                    attn = AT.flash_decode_q8(
+                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                        l, pos, dots=attn_dots)
+        elif isinstance(cache, QuantKVCache):
+            kq, ksc = llama.quantize_kv(k[:, 0])
+            vq, vsc = llama.quantize_kv(v[:, 0])
+            cache.k[l][rows, col] = kq
+            cache.v[l][rows, col] = vq
+            cache.k_scale[l][rows, col] = ksc
+            cache.v_scale[l][rows, col] = vsc
+            attn = llama._attention_q8(q, cache.k[l], cache.v[l],
+                                       cache.k_scale[l], cache.v_scale[l],
+                                       mask)
+        else:
+            cache.k[l][rows, col] = k[:, 0].to(cache.k.dtype)
+            cache.v[l][rows, col] = v[:, 0].to(cache.v.dtype)
+            attn = llama._attention(q, cache.k[l], cache.v[l], mask)
+        x = _mlp_and_o(lp, l, x, attn.reshape(B, config.q_dim), config)
+    if staged_kv:
+        _commit(cache, staging, pos)
     logits = llama._logits(x, params.embed, params.final_norm,
                            params.lm_head, config)
     return logits, cache
+
+
+def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
+                            slot: int, cache, config: ModelConfig,
+                            last_pos: Optional[int] = None,
+                            flash: bool = False):
+    """Prefill one (1, S) prompt into batch row ``slot`` of the cache, on
+    the fused path.
+
+    The prompt's own causal self-attention runs on the f32 K/V of this
+    call: :func:`ops.attention.flash_prefill` (a CUDA kernel on the card)
+    when ``flash``, else the plain attention with a causal mask. The K/V of
+    all S tokens (a bucket's pad tokens too) are written into the cache at
+    columns ``0 .. S-1``, in place. Returns ``(logits (vocab,) f32 of row
+    last_pos (the last row when None), cache)``.
+    """
+    _check_cache(cache)
+    resolve_device(tokens.device)
+    lp = params.layers
+    S = tokens.shape[1]
+    dev = tokens.device
+    x = params.embed[tokens[0]].float()
+    cos, sin = llama.rope_tables(config, torch.arange(S, device=dev)[None])
+    mask = None
+    if not flash:
+        causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+        mask = torch.where(causal, 0.0, _NEG_INF)[None, None, None]
+    for l in range(config.num_layers):
+        q, k, v = _qkv(lp, l, x, cos, sin, config, (1, S))
+        if flash:
+            attn = AT.flash_prefill(q, k, v)
+        else:
+            attn = llama._attention(q, k, v, mask)
+        _write_prompt_kv(cache, l, slot, 0, k, v)
+        x = _mlp_and_o(lp, l, x, attn.reshape(S, config.q_dim), config)
+    return _last_logits(params, x, last_pos, config), cache
+
+
+def _write_prompt_kv(cache, l: int, slot: int, start: int, k, v):
+    """Write (1, C, KVH, D) K/V of consecutive positions from ``start``
+    into row ``slot`` of layer ``l`` (quantized for the int8 caches)."""
+    C = k.shape[1]
+    if isinstance(cache, KVCache):
+        cache.k[l, slot, start:start + C] = k[0].to(cache.k.dtype)
+        cache.v[l, slot, start:start + C] = v[0].to(cache.v.dtype)
+        return
+    kq, ksc = llama.quantize_kv(k)          # (1, C, KVH, D), (1, C, KVH)
+    vq, vsc = llama.quantize_kv(v)
+    kq, ksc, vq, vsc = kq[0], ksc[0], vq[0], vsc[0]
+    if isinstance(cache, HeadMajorQuantKVCache):
+        kq, vq = kq.transpose(0, 1), vq.transpose(0, 1)
+        ksc, vsc = ksc.T, vsc.T
+        cols = (slice(None), slice(start, start + C))
+    else:
+        cols = (slice(start, start + C),)
+    cache.k[(l, slot) + cols] = kq
+    cache.v[(l, slot) + cols] = vq
+    cache.k_scale[(l, slot) + cols] = ksc
+    cache.v_scale[(l, slot) + cols] = vsc
+
+
+def prefill_chunk_fused(params: FusedStackedParams, tokens: torch.Tensor,
+                        slot: int, offset: int, cache, config: ModelConfig,
+                        last_pos: Optional[int] = None):
+    """Prefill one (1, C) chunk of a prompt at position ``offset`` into
+    batch row ``slot`` (chunked prefill for continuous batching).
+
+    The chunk's K/V are written at ``offset`` first (clamped so the chunk
+    fits, as the reference's dynamic_update_slice); then the chunk attends
+    every cache position ``<= offset + i`` of its row (earlier chunks and
+    itself, causally) with the plain attention over that row. ``last_pos``
+    is chunk-relative; the logits (vocab,) are meaningful on a prompt's last
+    chunk. Returns ``(logits, cache)``; the cache is updated in place.
+    """
+    _check_cache(cache)
+    resolve_device(tokens.device)
+    head_major = isinstance(cache, HeadMajorQuantKVCache)
+    lp = params.layers
+    C = tokens.shape[1]
+    dev = tokens.device
+    T = cache.k.shape[3] if head_major else cache.k.shape[2]
+    x = params.embed[tokens[0]].float()
+    positions = offset + torch.arange(C, device=dev)
+    cos, sin = llama.rope_tables(config, positions[None])
+    valid = torch.arange(T, device=dev)[None, :] <= positions[:, None]
+    mask = torch.where(valid, 0.0, _NEG_INF)[None, None, None]
+    start = min(max(int(offset), 0), T - C)
+    for l in range(config.num_layers):
+        q, k, v = _qkv(lp, l, x, cos, sin, config, (1, C))
+        _write_prompt_kv(cache, l, slot, start, k, v)
+        if head_major:
+            attn = llama._attention_q8(
+                q, cache.k[l, slot].transpose(0, 1)[None],
+                cache.v[l, slot].transpose(0, 1)[None],
+                cache.k_scale[l, slot].T[None],
+                cache.v_scale[l, slot].T[None], mask)
+        elif isinstance(cache, QuantKVCache):
+            attn = llama._attention_q8(
+                q, cache.k[l, slot][None], cache.v[l, slot][None],
+                cache.k_scale[l, slot][None], cache.v_scale[l, slot][None],
+                mask)
+        else:
+            attn = llama._attention(q, cache.k[l, slot][None],
+                                    cache.v[l, slot][None], mask)
+        x = _mlp_and_o(lp, l, x, attn.reshape(C, config.q_dim), config)
+    return _last_logits(params, x, last_pos, config), cache
+

@@ -1,2 +1,2 @@
-"""Kernels of the decode step: CUDA sources in ``csrc/``, wrappers and plain
-PyTorch versions in ``kernels`` and ``attention``."""
+"""Kernels of the prefill and decode steps: CUDA sources in ``csrc/``,
+wrappers and plain PyTorch versions in ``kernels`` and ``attention``."""

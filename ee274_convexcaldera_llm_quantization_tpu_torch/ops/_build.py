@@ -41,11 +41,22 @@ ENTRIES = {
         # xq, sx, w8, scales, out, M, N, K, stream
         "int8_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
-    "flash_decode_staged": {
+    "flash_decode": {
         # q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
         # block_t, scale, i8, stream
         "flash_decode_staged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, ks, vs, pos, out, B, KVH, G, D, T, block_t, scale, i8,
+        # stream
+        "flash_decode_inline_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # as staged, then staged (0/1) before the stream
+        "flash_decode_ab_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "flash_prefill": {
+        # q, k, v, out, B, S, H, KVH, D, scale, stream
+        "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
 }
 

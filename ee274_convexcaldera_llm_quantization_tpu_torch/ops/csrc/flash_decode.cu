@@ -1,18 +1,36 @@
-// Staged flash-decode attention over a head-major int8 KV cache.
+// Flash-decode attention over a head-major int8 KV cache: one query token
+// per (b, kv-head) with G grouped query heads, online softmax over the live
+// token blocks of one layer (int8 codes, per-(token, head) f32 scales).
 //
-// Replaces the TPU kernel ee274_convexcaldera_llm_quantization_tpu/ops/
-// attention.py::flash_decode_q8_staged (_flash_decode_q8_staged_kernel):
-// one query token per (b, kv-head) with G grouped query heads attends the
-// cache tokens < pos[b] of one layer (int8 codes, per-(token, head) f32
-// scales) plus the staged f32 K/V of the current token, by online softmax.
+// One kernel template, three entry points, each replacing one TPU kernel of
+// ee274_convexcaldera_llm_quantization_tpu/ops/attention.py:
+// - flash_decode_staged_launch: flash_decode_q8_staged
+//   (_flash_decode_q8_staged_kernel). The cache holds the tokens < pos[b];
+//   the staged f32 K/V of the current token add one online-softmax update
+//   at the end (pos 0 attends the current token alone).
+// - flash_decode_inline_launch: flash_decode_q8 (_flash_decode_q8_kernel).
+//   The current token is already in the cache: the tokens <= pos[b] are
+//   attended (pos 0 attends token 0), the live blocks are t <= pos / bt,
+//   and there is no current-token update.
+// - flash_decode_ab_launch: flash_decode_q8_ab (_flash_decode_q8_ab_kernel),
+//   staged or inline. The TPU kernel attends a (Bb, KVH) slab of rows per
+//   program with a per-slab compute guard (a block runs while any row of
+//   the slab is live). A block that is past a row's last live block is
+//   fully masked for that row and leaves its softmax state exactly as it
+//   was (alpha = 1, p = 0, and in i8 the quantized p is 0), so the slab
+//   guard does not change the result: this per-(b, kv-head) CTA over the
+//   row's own live blocks, walking ab's block partition (the caller passes
+//   _ab_blocks' block_t, which in dots="i8" is part of the result), computes
+//   the ab kernel's function. The slab exists on the TPU to make fewer,
+//   larger DMAs; on the GPU every (b, head) stream is already one CTA.
 //
-// Bound on an H100: the live K/V codes and scales (2 * pos * (D + 4) bytes
-// per (b, head); at most 17.3 MB per layer at B = 8, KVH = 32, T = 256).
-// Design:
+// Bound on an H100: the live K/V codes and scales (2 * live * (D + 4) bytes
+// per (b, head)); the operations are 4 * G * D per live token, far below
+// the card's rate. Design:
 // - one CTA per (b, kv-head); a loop inside the CTA walks the live token
-//   blocks t <= (pos - 1) / block_t, which takes the place of the TPU's
-//   sequential grid axis, and skips the tokens >= pos of the last block
-//   (their probabilities are exactly 0, so nothing is read for them);
+//   blocks, which takes the place of the TPU's sequential grid axis, and
+//   skips the masked tokens of the last block (their probabilities are
+//   exactly 0, so nothing is read for them);
 // - one thread per live token computes its logits from its K row (16-byte
 //   loads, all in flight together); the four warps split the block's tokens
 //   for p @ V (4-byte loads, 128 B per warp and token) and add their
@@ -24,6 +42,8 @@
 //   exact integer sums (__dp4a for QK). The block partition is therefore
 //   part of the result, and the blocks here are the reference's blocks.
 //   I8 = false is dots="f32", the exactness twin.
+// - block_t is at most 256 (logits of a whole block sit in shared memory);
+//   the wrappers raise on a larger block rather than re-partition it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,20 +71,20 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // q (B, KVH, G, D) f32; k, v (B, KVH, T, D) int8 of the selected layer;
-// ks, vs (B, KVH, T) f32; kn, vn (B, KVH, D) f32; pos (B) int32;
-// out (B, KVH, G, D) f32.
-template <bool I8>
+// ks, vs (B, KVH, T) f32; kn, vn (B, KVH, D) f32 (read only when STAGED);
+// pos (B) int32; out (B, KVH, G, D) f32.
+template <bool I8, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_staged_kernel(const float* __restrict__ q,
-                           const int8_t* __restrict__ k,
-                           const int8_t* __restrict__ v,
-                           const float* __restrict__ ks,
-                           const float* __restrict__ vs,
-                           const float* __restrict__ kn,
-                           const float* __restrict__ vn,
-                           const int* __restrict__ pos,
-                           float* __restrict__ out, int KVH, int G, int D,
-                           int T, int bt, float scale) {
+flash_decode_kernel(const float* __restrict__ q,
+                    const int8_t* __restrict__ k,
+                    const int8_t* __restrict__ v,
+                    const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const float* __restrict__ kn,
+                    const float* __restrict__ vn,
+                    const int* __restrict__ pos,
+                    float* __restrict__ out, int KVH, int G, int D, int T,
+                    int bt, float scale) {
   __shared__ float qf[kMaxG * kMaxD];
   __shared__ __align__(16) int8_t qi[kMaxG * kMaxD];
   __shared__ float lg[kMaxG * kMaxBT];  // logits, then p * vs
@@ -78,8 +98,9 @@ flash_decode_staged_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int P = pos[b];
-  const int nblk = P > 0 ? min((P - 1) / bt + 1, T / bt) : 0;
+  // cache tokens attended: < pos (staged) or <= pos (inline), at most T
+  const int P = min(STAGED ? pos[b] : pos[b] + 1, T);
+  const int nblk = P > 0 ? (P - 1) / bt + 1 : 0;
   const int dw = D / 4;
 
   const float* qb = q + (size_t)bh * G * D;
@@ -113,7 +134,7 @@ flash_decode_staged_kernel(const float* __restrict__ q,
 
   for (int t = 0; t < nblk; ++t) {
     const int t0 = t * bt;
-    const int nvalid = min(bt, P - t0);  // tokens < pos in this block, >= 1
+    const int nvalid = min(bt, P - t0);  // attended tokens in this block
 
     // 1. logits of the live tokens: one thread per token, its K row read as
     //    16-byte vectors (D / 16 loads in flight), q from shared memory
@@ -258,7 +279,17 @@ flash_decode_staged_kernel(const float* __restrict__ q,
     __syncthreads();
   }
 
-  // 4. the staged current token (f32 dots), then normalize
+  if (!STAGED) {
+    // inline: every row attends at least token 0, so s > 0
+    if (tid < D) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < G) out[((size_t)bh * G + g) * D + tid] = acc[g] / s_s[g];
+    }
+    return;
+  }
+
+  // 4. staged: the current token (f32 dots), then normalize
   for (int g = warp; g < G; g += kWarps) {
     float part = 0.f;
     for (int d = lane; d < D; d += 32)
@@ -286,15 +317,12 @@ flash_decode_staged_kernel(const float* __restrict__ q,
   }
 }
 
-}  // namespace
-
-extern "C" int flash_decode_staged_launch(
-    const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* k_new, const void* v_new, const void* pos,
-    void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
-    int i8, void* stream) {
-  if (G < 1 || G > kMaxG || D < 16 || D > kMaxD || D % 16 != 0 ||
-      block_t < 1 || block_t > kMaxBT || T % block_t != 0)
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* k_new, const void* v_new,
+           const void* pos, void* out, int B, int KVH, int G, int D, int T,
+           int block_t, float scale, int i8, bool staged, void* stream) {
+  if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || D < 16 || D > kMaxD ||
+      D % 16 != 0 || block_t < 1 || block_t > kMaxBT || T % block_t != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * KVH);
@@ -307,11 +335,47 @@ extern "C" int flash_decode_staged_launch(
   const auto* vnp = static_cast<const float*>(v_new);
   const auto* pp = static_cast<const int*>(pos);
   auto* op = static_cast<float*>(out);
-  if (i8)
-    flash_decode_staged_kernel<true><<<grid, kThreads, 0, st>>>(
+  if (i8 && staged)
+    flash_decode_kernel<true, true><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
+  else if (i8)
+    flash_decode_kernel<true, false><<<grid, kThreads, 0, st>>>(
+        qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
+  else if (staged)
+    flash_decode_kernel<false, true><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
   else
-    flash_decode_staged_kernel<false><<<grid, kThreads, 0, st>>>(
+    flash_decode_kernel<false, false><<<grid, kThreads, 0, st>>>(
         qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int flash_decode_staged_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* k_new, const void* v_new, const void* pos,
+    void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
+    int i8, void* stream) {
+  return launch(q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
+                block_t, scale, i8, true, stream);
+}
+
+extern "C" int flash_decode_inline_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* pos, void* out, int B, int KVH, int G, int D,
+    int T, int block_t, float scale, int i8, void* stream) {
+  return launch(q, k, v, ks, vs, nullptr, nullptr, pos, out, B, KVH, G, D, T,
+                block_t, scale, i8, false, stream);
+}
+
+extern "C" int flash_decode_ab_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* k_new, const void* v_new, const void* pos,
+    void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
+    int i8, int staged, void* stream) {
+  if (staged && (k_new == nullptr || v_new == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
+                block_t, scale, i8, staged != 0, stream);
 }

@@ -36,6 +36,19 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as TK
 LOGIT_RTOL, LOGIT_ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs six workers that share the CPU with XLA's own thread
+    pool; torch's default of one thread per core oversubscribes it
+    (tests/test_torch_prefill.py: 47 s alone, 729 s in the parallel suite).
+    These tiny shapes gain nothing from more threads. Modules that import
+    this fixture use it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flatten(obj, prefix, arrays, meta):
     def key(name):
         return f"{prefix}.{name}" if prefix else name
@@ -87,20 +100,31 @@ def _port_config(config):
     return TC.PRESETS[{TINY: "tiny", TINY_MHA: "tiny-mha"}[config]]
 
 
-def _assert_caches_match(tc, jc):
+def _assert_caches_match(tc, jc, scale_rtol=LOGIT_RTOL):
     """K/V codes equal: both caches start each step from the same state and
     a rounding flip of a K/V code is replayed with the reference's code
     (:func:`_step_both`). K/V scales are absmax / 127 of f32 rows the step
     computed, held to the step's own bound: a bf16 cast before a factor dot
     rounds on its own edges (spacing 2^-8), which the replay does not
-    cover, and moved a scale by 1.2e-5 relative over these seeds."""
+    cover, and moved a scale by 1.2e-5 relative over these seeds. A bf16
+    cache holds f32 values rounded to bf16: within one bf16 ulp, or, near
+    zero, an absolute 1e-3 of these O(1) values, which covers the same
+    unreplayed bf16 casts before the factor dots (3.65e-4 beyond one ulp
+    read in a prefill on tiny-mha, tests/test_torch_prefill.py)."""
+    if not hasattr(tc, "k_scale"):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                getattr(tc, name).float().numpy(),
+                np.asarray(getattr(jc, name).astype(jnp.float32)),
+                rtol=2 ** -7, atol=1e-3)
+        return
     for name in ("k", "v"):
         np.testing.assert_array_equal(getattr(tc, name).numpy(),
                                       np.asarray(getattr(jc, name)))
     for name in ("k_scale", "v_scale"):
         np.testing.assert_allclose(getattr(tc, name).numpy(),
                                    np.asarray(getattr(jc, name)),
-                                   rtol=LOGIT_RTOL)
+                                   rtol=scale_rtol)
 
 
 class _Rounding:
@@ -117,13 +141,18 @@ class _Rounding:
     be replayed with the reference's rounding at its knife edges.
 
     The reference records through ``jax.debug.callback`` in a fresh jit of
-    ``decode_step_fused``; JAX's caches are cleared on entry and exit so
-    that no trace made before holds the recorder and none made inside
-    outlives it.
+    ``fn`` (``decode_step_fused`` unless given, with ``static`` as its
+    static arguments); JAX's caches are cleared on entry and exit so that
+    no trace made before holds the recorder and none made inside outlives
+    it. Calls of the reference's own jitted functions inside the context
+    (an engine's) retrace and record too.
     """
 
-    def __init__(self):
+    def __init__(self, fn=None, static=("config", "interpret", "staged_kv",
+                                        "attn_dots", "attn_kernel")):
         self.jax, self.port, self.force = [], [], {}
+        self.fn = JF.decode_step_fused if fn is None else fn
+        self.static = static
 
     def _jax_wrap(self, orig, kv):
         def wrapped(x, *args):
@@ -157,10 +186,8 @@ class _Rounding:
                 self._port_wrap)):
             setattr(m, n, wrap(orig, n == "quantize_kv"))
         jax.clear_caches()
-        self.jax_step = jax.jit(
-            JF.decode_step_fused.__wrapped__,
-            static_argnames=("config", "interpret", "staged_kv",
-                             "attn_dots"))
+        self.jax_step = jax.jit(self.fn.__wrapped__,
+                                static_argnames=self.static)
         return self
 
     def __exit__(self, *exc):
@@ -183,36 +210,29 @@ MAX_FLIPS = 16
 FLIP_LOGIT_REL = 3e-2
 
 
-def _step_both(rec, params, tokens, pos, jcache, tcache, **kw):
-    """One step of the reference and the port from the same cache.
-
-    ``tcache`` is overwritten with ``jcache`` first. When the port rounds
-    a code to the other side of an edge, the port's step is replayed with
-    the reference's codes at that edge (each must be a rounding flip, see
-    ``FLIP_RATIO_TOL``), up to ``MAX_FLIPS`` times, and the replay is held
-    to the tight bound. Returns ``(reference logits, jcache, tcache,
-    readings)``: the codes replayed, and the logits' rel-Frobenius
-    difference before and after the replay."""
-    config, jparams, tparams = params
-    pre = [np.array(a) for a in jcache]
+def _replay(rec, run_jax, run_port, max_flips=None, ratio_tol=None):
+    """Run the reference once (``run_jax()``, recording its roundings),
+    then the port (``run_port()``, which must start from the same state
+    each time it is called) until it rounds every code as the reference:
+    where the port rounds a code to the other side of an edge, it is rerun
+    with the reference's code there (each must be a rounding flip, values
+    before rounding within ``ratio_tol`` of a code, ``FLIP_RATIO_TOL``
+    unless given), up to ``max_flips`` codes (``MAX_FLIPS`` unless given).
+    Returns ``(reference output, port output after the replay, port output
+    before it, codes replayed, the largest flip's value difference)``."""
+    max_flips = MAX_FLIPS if max_flips is None else max_flips
+    ratio_tol = FLIP_RATIO_TOL if ratio_tol is None else ratio_tol
     rec.jax.clear()
-    jl, jcache = rec.jax_step(jparams, jnp.asarray(tokens), jnp.asarray(pos),
-                              jcache, config, interpret=True, **kw)
-    jl = np.asarray(jl)
+    jout = run_jax()
     jax.effects_barrier()
     ref_codes = list(rec.jax)
     rec.force = {}
-    flips, first_rel = 0, None
+    flips, first, worst = 0, None, 0.0
     while True:
-        for name, a in zip(("k", "v", "k_scale", "v_scale"), pre):
-            getattr(tcache, name).copy_(torch.from_numpy(a))
         rec.port.clear()
-        tl, tcache = TF.decode_step_fused(
-            tparams, torch.from_numpy(tokens.astype(np.int64)),
-            torch.from_numpy(pos), tcache, _port_config(config), **kw)
-        tl = tl.numpy()
-        if first_rel is None:
-            first_rel = float(np.linalg.norm(tl - jl) / np.linalg.norm(jl))
+        tout = run_port()
+        if first is None:
+            first = tout
         assert len(rec.port) == len(ref_codes) > 0
         at = next((i for i, (a, b) in enumerate(zip(ref_codes, rec.port))
                    if not np.array_equal(a[0], b[0])), None)
@@ -221,40 +241,95 @@ def _step_both(rec, params, tokens, pos, jcache, tcache, **kw):
         (jc, jr), (tc, tr) = ref_codes[at], rec.port[at]
         m = jc != tc
         assert np.abs(jc[m].astype(np.int32) - tc[m]).max() == 1, at
-        assert np.abs(jr[m] - tr[m]).max() <= FLIP_RATIO_TOL, at
+        worst = max(worst, float(np.abs(jr[m] - tr[m]).max()))
+        assert worst <= ratio_tol, (at, worst)
         rec.force[at] = (m, jc)
         flips += int(m.sum())
-        assert flips <= MAX_FLIPS, f"{flips} rounding flips in one step"
+        assert flips <= max_flips, f"{flips} rounding flips in one call"
     rec.force = {}
+    return jout, tout, first, flips, worst
+
+
+def _reset(tcache, arrays):
+    for name, a in zip(_fields(tcache), arrays):
+        getattr(tcache, name).copy_(_torch_array(a))
+
+
+def _fields(cache):
+    return [f.name for f in dataclasses.fields(cache)]
+
+
+def _torch_array(a):
+    """numpy (bfloat16 included) -> torch, bit for bit."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _step_both(rec, params, tokens, pos, jcache, tcache, **kw):
+    """One step of the reference and the port from the same cache.
+
+    ``tcache`` is overwritten with ``jcache`` first; roundings are replayed
+    (:func:`_replay`) and the replay is held to the tight bound. Returns
+    ``(reference logits, jcache, tcache, readings)``: the codes replayed,
+    and the logits' rel-Frobenius difference before and after the
+    replay."""
+    config, jparams, tparams = params
+    pre = [np.array(a) for a in jcache]
+
+    def run_jax():
+        return rec.jax_step(jparams, jnp.asarray(tokens), jnp.asarray(pos),
+                            jcache, config, interpret=True, **kw)
+
+    def run_port():
+        _reset(tcache, pre)
+        return TF.decode_step_fused(
+            tparams, torch.from_numpy(tokens.astype(np.int64)),
+            torch.from_numpy(pos), tcache, _port_config(config),
+            **kw)[0].numpy()
+
+    (jl, jcache), tl, first, flips, _ = _replay(rec, run_jax, run_port)
+    jl = np.asarray(jl)
     np.testing.assert_allclose(tl, jl, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
     np.testing.assert_array_equal(tl.argmax(-1), jl.argmax(-1))
+    first_rel = _rel(first, jl)
     assert first_rel <= FLIP_LOGIT_REL, first_rel
     _assert_caches_match(tcache, jcache)
-    rel = float(np.linalg.norm(tl - jl) / np.linalg.norm(jl))
-    return jl, jcache, tcache, dict(flips=flips, before=first_rel, after=rel)
+    return jl, jcache, tcache, dict(flips=flips, before=first_rel,
+                                    after=_rel(tl, jl))
 
 
-def _loop_over_seeds(name, seeds, attn_dots):
+_CACHES = {"head": (JL.HeadMajorQuantKVCache, TL.HeadMajorQuantKVCache),
+           "quant": (JL.QuantKVCache, TL.QuantKVCache),
+           "bf16": (JL.KVCache, TL.KVCache)}
+
+
+def _loop_over_seeds(name, seeds, attn_dots="i8", cache="head", T=16,
+                     **kw):
     """Six steps per seeded prompt (three prompt tokens, then the
     reference's greedy tokens), each step from the reference's cache."""
     params = _params(name)
     config = params[0]
-    B, T, prompt_len, steps = 2, 16, 3, 6
+    B, prompt_len, steps = 2, 3, 6
+    jcls, tcls = _CACHES[cache]
     readings = []
     with _Rounding() as rec:
         for seed in seeds:
             prompt = np.random.default_rng(seed).integers(
                 0, config.vocab_size, size=(B, prompt_len)).astype(np.int32)
-            jcache = JL.HeadMajorQuantKVCache.create(config, B, T)
-            tcache = TL.HeadMajorQuantKVCache.create(
-                _port_config(config), B, T, device="cpu")
+            jcache = jcls.create(config, B, T)
+            tcache = tcls.create(_port_config(config), B, T, device="cpu")
             tok = prompt[:, 0]
             flip_steps, before, after = [], 0.0, 0.0
             for step in range(steps):
                 pos = np.full((B,), step, np.int32)
                 jl, jcache, tcache, r = _step_both(
                     rec, params, tok, pos, jcache, tcache,
-                    staged_kv="uniform", attn_dots=attn_dots)
+                    attn_dots=attn_dots, **kw)
                 if r["flips"]:
                     flip_steps.append((step, r["flips"]))
                     before = max(before, r["before"])
@@ -266,7 +341,8 @@ def _loop_over_seeds(name, seeds, attn_dots):
                             f"replayed step {before:.2e} before its replay, "
                             f"worst step {after:.2e}")
     # `pytest -s` shows the readings that PERF.md records
-    print(f"\n{name} attn_dots={attn_dots}:\n  " + "\n  ".join(readings))
+    print(f"\n{name} attn_dots={attn_dots} cache={cache} {kw}:\n  "
+          + "\n  ".join(readings))
 
 
 SEEDS = range(8)
@@ -278,7 +354,7 @@ class TestDecodeStepVsReference:
         # every seeded prompt, each step held to the tight bound; steps
         # where one program rounds a code the other way are replayed with
         # the reference's rounding there (see _step_both)
-        _loop_over_seeds(name, SEEDS, "i8")
+        _loop_over_seeds(name, SEEDS, "i8", staged_kv="uniform")
 
     def test_ragged_positions_and_uniform_guard(self):
         # staged_kv=True with ragged rows, and "uniform" given ragged rows:
@@ -308,7 +384,38 @@ class TestDecodeStepVsReference:
         # the f32-dots twin over the same multi-step loop: its attention
         # rounds nothing, but activations and K/V still round to int8
         for name in ("tiny", "tiny-mha"):
-            _loop_over_seeds(name, SEEDS, "f32")
+            _loop_over_seeds(name, SEEDS, "f32", staged_kv="uniform")
+
+    @pytest.mark.parametrize("staged,attn_kernel,T", [
+        (False, "row", 16), (False, "ab", 256), (True, "ab", 256)])
+    @pytest.mark.parametrize("dots", ["i8", "f32"])
+    def test_inline_and_all_batch_paths(self, staged, attn_kernel, T, dots):
+        # the inline head-major path (K/V written at pos before the
+        # attention) and the all-batch kernel's partition, staged and
+        # inline; T = 256 gives the all-batch kernel two 128-token blocks
+        _loop_over_seeds("tiny", SEEDS, dots, T=T, staged_kv=staged,
+                         attn_kernel=attn_kernel)
+
+    @pytest.mark.parametrize("cache", ["quant", "bf16"])
+    def test_token_major_caches(self, cache):
+        # the token-major int8 and bf16 caches: plain attention with an
+        # additive mask, as the reference's XLA path
+        _loop_over_seeds("tiny", SEEDS, cache=cache)
+
+    def test_default_is_the_inline_path(self):
+        # the reference's default is staged_kv=False: a default step equals
+        # an explicit inline step bit for bit
+        _, _, tparams = _params("tiny")
+        out = []
+        for kw in ({}, dict(staged_kv=False)):
+            cache = TL.HeadMajorQuantKVCache.create(TC.TINY, 2, 16,
+                                                    device="cpu")
+            out.append(TF.decode_step_fused(
+                tparams, torch.tensor([3, 7]),
+                torch.tensor([0, 0], dtype=torch.int32), cache, TC.TINY,
+                **kw))
+        assert torch.equal(out[0][0], out[1][0])
+        assert torch.equal(out[0][1].k, out[1][1].k)
 
 
 class TestPortSurface:
@@ -392,8 +499,9 @@ class TestPortSurface:
 
     @pytest.mark.parametrize("flag", [
         dict(mlp_kernel=True), dict(attn_o_kernel=True),
-        dict(attn_kernel="ab"), dict(tp_axis="tp"),
-        dict(proj_kernel="persistent"), dict(staged_kv=False),
+        dict(attn_kernel="ab", attn_dots="bf16"), dict(tp_axis="tp"),
+        dict(proj_kernel="persistent"), dict(staged_kv=True,
+                                             attn_dots="bf16"),
         dict(attn_dots="bf16")])
     def test_unported_flags_raise(self, flag):
         _, _, tparams = _params("tiny")

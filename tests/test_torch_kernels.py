@@ -187,7 +187,9 @@ class TestHygiene:
             "import sys\n"
             "import ee274_convexcaldera_llm_quantization_tpu_torch.models."
             "fused, ee274_convexcaldera_llm_quantization_tpu_torch.interop, "
-            "ee274_convexcaldera_llm_quantization_tpu_torch.bench_params\n"
+            "ee274_convexcaldera_llm_quantization_tpu_torch.bench_params, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.serve."
+            "fast_engine\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or "
             "m.startswith('ee274_convexcaldera_llm_quantization_tpu.') or "
