@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (W4A8 decode, prefill and the serving engine) on
-one NVIDIA GPU.
+"""Drive the PyTorch port (W4A8 decode, prefill, the serving engines and the
+unfused compressed-model path) on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
@@ -21,7 +21,10 @@ caught):
    512 and 2048; flash prefill at S = 512, 2048, a ragged 300 and a GQA
    shape, beside one SDPA call; the all-batch decode kernel, staged and
    inline, over a 4096-token cache at ragged positions; the inline and
-   staged row decode kernels and the int8 head at the bench shape.
+   staged row decode kernels and the int8 head at the bench shape; the
+   grouped bf16 matmul (bound: 989 TFLOP/s bf16 or bytes; beside one bf16
+   torch.matmul on its weights dequantized beforehand) and the flat W4A8
+   matmul at Llama-2-7B's three projection shapes, M = 8 and 512.
 3. One Llama-2-7B-width, 2-layer model, the same weights on the card and
    the CPU: 40 steps from position 0, each step on the card against the
    plain step on the CPU (from the CPU's cache, and from the card's own)
@@ -42,15 +45,24 @@ caught):
    checked for its exact launches, and the first prefill against the plain
    versions on the card; prints the prefill ms per bucket, the median
    decode tick, tokens/s and wall time.
+6. The unfused path, Llama-2-7B, 32 layers (``phase_unfused``): (a) the
+   grouped ``stacked.decode_step_batched`` at batch 8, context 256, 32
+   steps (224 grouped launches each); (d) ``evaluate_perplexity`` on one
+   1024-token window; (b) ``ServingEngine`` on w4a8 params (224 flat W4A8
+   launches and the head per prefill and tick); (c) the unfused
+   ``FastServingEngine`` on the same params, bf16 cache (greedy tokens
+   equal to (b)'s) and int8 cache.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
 kernel's slice, with every count set to 0 just before it (phase 4's decode
 run for the W4A8, staged attention and int8 head kernels; phase 5 (a) for
-flash prefill and the all-batch kernel, 5 (b) for the inline kernel;
+flash prefill and the all-batch kernel, 5 (b) for the inline kernel; phase
+6 (a) for the grouped kernel, 6 (b) for the flat W4A8 kernel;
 ``launches_per_step`` per decode step or prefill, ``steps`` of them);
 ``ms``, ``plain_ms`` and ``bound_ms`` are per launch at the main path's
-shapes (for the W4A8 kernel, the mean over its four decode projections).
+shapes (for the W4A8 kernels, the mean over one layer's decode
+projections).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +80,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core peak
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 
 
@@ -271,6 +284,118 @@ def phase_kernels(torch, dev, record):
     del w8
     _phase_kernels_prefill(torch, dev, gen, record)
     _phase_kernels_decode(torch, dev, gen, record)
+    _phase_kernels_packed(torch, dev, gen, record)
+
+
+def _phase_kernels_packed(torch, dev, gen, record):
+    """The grouped bf16 matmul and the flat W4A8 matmul at Llama-2-7B's
+    three projection shapes (q/k/v/o 4096 x 4096, gate/up 11008 x 4096,
+    down 4096 x 11008; 4-bit), at decode's M = 8 and prefill's M = 512.
+    The record takes M = 8, the mean time per launch over one layer's seven
+    launches (the unfused path's decode)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+
+    shapes = [("q/k/v/o", 4096, 4096, 4), ("gate/up", 11008, 4096, 2),
+              ("down", 4096, 11008, 1)]
+    for M in (8, 512):
+        # launch-weighted sums over one layer: ms, plain ms, bytes, ops,
+        # library ms (grouped only)
+        sums = {"quantized_matmul": [0.0] * 5,
+                "quantized_matmul_w4a8": [0.0] * 5}
+        for name, N, Kd, count in shapes:
+            P = Kd // 2
+            G = K.resolve_group(4, Kd, None)
+            Lk = max(2, math.ceil(200e6 / (N * P)))
+            packed = torch.randint(0, 256, (Lk, N, P), generator=gen,
+                                   dtype=torch.uint8, device=dev)
+            sg = torch.rand((Lk, N, Kd // G), generator=gen, device=dev) * 0.01
+            sw = torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01
+            x = torch.randn((M, Kd), generator=gen, device=dev)
+            iters = 50 if M == 8 else 10
+
+            # grouped: f32 sums in another order than the plain version's
+            # cuBLAS f32 matmul of the same bf16 values
+            y = K.quantized_matmul(x, packed[1], sg[1], 4)
+            ref = K.quantized_matmul_plain(x, packed[1], sg[1], 4)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            if not torch.allclose(y, ref, rtol=1e-5, atol=tol):
+                raise AssertionError(f"quantized_matmul {name} M={M} "
+                                     "disagrees with plain")
+            xb = x.to(torch.bfloat16)
+            ms = _time_ms(torch, lambda i: K._launch_grouped(
+                xb, packed[i % Lk], sg[i % Lk], 4, G), iters)
+            plain_ms = _time_ms(torch, lambda i: K.quantized_matmul_plain(
+                x, packed[i % Lk], sg[i % Lk], 4), 2, reps=3)
+            # the yardstick: one bf16 torch.matmul on the same weights,
+            # dequantized to bf16 beforehand (not timed)
+            W = [K.dequant_serving_xla(packed[i], sg[i], 4)
+                 for i in range(Lk)]
+            lib_err = float((torch.matmul(xb, W[1].T).float() - ref)
+                            .abs().max())
+            lib_ms = _time_ms(torch, lambda i: torch.matmul(
+                xb, W[i % Lk].T), iters)
+            del W
+            nbytes = M * Kd * 2 + N * P + N * (Kd // G) * 4 + M * N * 4
+            ops = 2 * M * N * Kd
+            bound, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            print(f"quantized_matmul {name} M={M} N={N} K={Kd} 4-bit G={G}: "
+                  f"max diff {err:.3e} (bound rtol 1e-5, atol {tol:.3e}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 "
+                  f"torch.matmul {lib_ms:.4f} ms (max diff {lib_err:.3e}), "
+                  f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
+                  flush=True)
+            rec = record["quantized_matmul"]
+            rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+            for j, v in enumerate((ms, plain_ms, nbytes, ops, lib_ms)):
+                sums["quantized_matmul"][j] += count * v
+
+            # flat W4A8: exact integer sums, f32 epilogue
+            y = K.quantized_matmul_w4a8(x, packed[1], sw[1], 4)
+            ref = K.quantized_matmul_w4a8_plain(x, packed[1], sw[1], 4)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            tol = 1e-6 * float(ref.abs().max())
+            if not torch.allclose(y, ref, rtol=1e-6, atol=tol):
+                raise AssertionError(f"quantized_matmul_w4a8 {name} M={M} "
+                                     "disagrees with plain")
+            xq, sx = K.quantize_activations_int8(x)
+            ms = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
+                xq, sx, packed[i % Lk], sw[i % Lk], None, 4), iters)
+            plain_ms = _time_ms(
+                torch, lambda i: K.quantized_matmul_w4a8_plain(
+                    x, packed[i % Lk], sw[i % Lk], 4), 2, reps=3)
+            nbytes = M * Kd + M * 4 + N * P + N * 4 + M * N * 4
+            bound, by = _bound_ms(nbytes, ops)
+            print(f"quantized_matmul_w4a8 {name} M={M} N={N} K={Kd} 4-bit: "
+                  f"max diff {err:.3e} (bound rtol 1e-6, atol {tol:.3e}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
+                  flush=True)
+            rec = record["quantized_matmul_w4a8"]
+            rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+            for j, v in enumerate((ms, plain_ms, nbytes, ops, 0.0)):
+                sums["quantized_matmul_w4a8"][j] += count * v
+            del packed, sg, sw
+        torch.cuda.empty_cache()
+        for name, tot in sums.items():
+            mean = [t / 7 for t in tot]
+            bound, by = _bound_ms(mean[2], mean[3], BF16_OPS_PER_S
+                                  if name == "quantized_matmul"
+                                  else INT8_OPS_PER_S)
+            print(f"{name} M={M}: one layer's 7 launches, mean per launch "
+                  f"{mean[0]:.4f} ms (plain {mean[1]:.4f}, bound {bound:.4f}"
+                  f" {by}" + (f", bf16 torch.matmul {mean[4]:.4f}"
+                              if name == "quantized_matmul" else "")
+                  + ")", flush=True)
+            if M == 8:
+                record[name].update(
+                    ms=mean[0], plain_ms=mean[1], bound_ms=bound,
+                    bound_by=by,
+                    library_ms=mean[4] if name == "quantized_matmul"
+                    else None)
 
 
 def _phase_kernels_prefill(torch, dev, gen, record):
@@ -470,10 +595,10 @@ def _kv_rel(torch, a, b, pos):
 
 
 def _copy_cache(cache, dev):
-    from ee274_convexcaldera_llm_quantization_tpu_torch.models import llama
-    return llama.HeadMajorQuantKVCache(
-        *(getattr(cache, n).to(dev, copy=True)
-          for n in ("k", "v", "k_scale", "v_scale")))
+    """A copy of any of the port's caches on ``dev``."""
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).to(dev, copy=True)
+        for f in dataclasses.fields(cache)})
 
 
 class _PlainKernels:
@@ -486,6 +611,8 @@ class _PlainKernels:
             attention as AT, kernels as K)
         swaps = [(K, "quantized_matmul_w4a8_stacked",
                   K.quantized_matmul_w4a8_stacked_plain),
+                 (K, "quantized_matmul", K.quantized_matmul_plain),
+                 (K, "quantized_matmul_w4a8", K.quantized_matmul_w4a8_plain),
                  (K, "int8_matmul", K.int8_matmul_plain),
                  (AT, "flash_decode_q8_staged",
                   AT.flash_decode_q8_staged_plain),
@@ -784,25 +911,32 @@ def phase_full(torch, dev, record):
 
 
 class _Watch:
-    """While active, every ``prefill_into_slot_fused`` and
-    ``decode_step_fused`` call (as the engine makes them) is checked:
-    the launches of each kernel in the call equal ``per_prefill`` /
-    ``per_tick`` exactly, and the logits are finite. Each call is timed on
-    the host clock up to a ``torch.cuda.synchronize()``; prefill times are
-    kept per bucket. ``first_prefill(prefill, tokens, last_pos, logits)``
-    runs once, on the first prefill, outside the counts and the times, with
-    the unwatched prefill function."""
+    """While active, every prefill and decode call the engine makes
+    (``module.<names[0]>`` / ``module.<names[1]>``; the fused path's by
+    default) is checked: the launches of each kernel in the call equal
+    ``per_prefill`` / ``per_tick`` exactly, and the logits are finite. Each
+    call is timed on the host clock up to a ``torch.cuda.synchronize()``;
+    prefill times are kept per bucket, and ``counted`` sums the launches of
+    the watched calls. ``first_prefill(prefill, tokens, last_pos, logits)``
+    runs once, after the first prefill, and ``first_tick(decode, args,
+    kw)`` once, before the first tick, both outside the counts and the
+    times, with the unwatched functions."""
 
     def __init__(self, torch, counters, per_prefill, per_tick,
-                 first_prefill=None):
+                 first_prefill=None, first_tick=None, module=None,
+                 names=("prefill_into_slot_fused", "decode_step_fused")):
         self.torch, self.counters = torch, counters
         self.per_prefill, self.per_tick = per_prefill, per_tick
-        self.first_prefill = first_prefill
+        self.first_prefill, self.first_tick = first_prefill, first_tick
+        self.module, self.names = module, names
         self.prefill_ms, self.tick_ms = {}, []
+        self.counted = [0] * len(counters)
 
-    def _wrap(self, fn, expected, on_done):
+    def _wrap(self, fn, expected, on_done, before_call=None):
         def wrapped(*args, **kw):
             torch = self.torch
+            if before_call is not None:
+                before_call(args, kw)
             torch.cuda.synchronize()
             before = [c.launches for c in self.counters]
             t0 = time.perf_counter()
@@ -816,9 +950,15 @@ class _Watch:
                                      f"expected {expected}")
             if not bool(torch.isfinite(logits).all()):
                 raise AssertionError(f"{fn.__name__}: non-finite logits")
+            self.counted = [c + d for c, d in zip(self.counted, delta)]
             on_done(ms, args, kw, logits)
             return logits, cache
         return wrapped
+
+    def _tick_check(self, args, kw):
+        if self.first_tick is not None:
+            first, self.first_tick = self.first_tick, None
+            first(self.saved[1], args, kw)
 
     def _prefill_done(self, ms, args, kw, logits):
         tokens = args[1]
@@ -828,26 +968,29 @@ class _Watch:
             first(self.saved[0], tokens, kw["last_pos"], logits)
 
     def __enter__(self):
-        from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
-            fused)
-        self.saved = (fused.prefill_into_slot_fused, fused.decode_step_fused)
-        fused.prefill_into_slot_fused = self._wrap(
-            self.saved[0], self.per_prefill, self._prefill_done)
-        fused.decode_step_fused = self._wrap(
-            self.saved[1], self.per_tick,
-            lambda ms, *_: self.tick_ms.append(ms))
+        if self.module is None:
+            from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+                fused)
+            self.module = fused
+        m, (pre, dec) = self.module, self.names
+        self.saved = (getattr(m, pre), getattr(m, dec))
+        setattr(m, pre, self._wrap(self.saved[0], self.per_prefill,
+                                   self._prefill_done))
+        setattr(m, dec, self._wrap(self.saved[1], self.per_tick,
+                                   lambda ms, *_: self.tick_ms.append(ms),
+                                   self._tick_check))
         return self
 
     def __exit__(self, *exc):
-        from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
-            fused)
-        fused.prefill_into_slot_fused, fused.decode_step_fused = self.saved
+        for name, fn in zip(self.names, self.saved):
+            setattr(self.module, name, fn)
         return False
 
 
-def _serve(torch, engine, watch, reqs, new_tokens):
+def _serve(torch, engine, watch, reqs, new_tokens, done_out=None):
     """Submit ``reqs``, run the engine to the end under ``watch``, check
-    every completion; returns (wall seconds, tokens generated)."""
+    every completion; returns (wall seconds, tokens generated). The
+    completions are appended to ``done_out`` when given."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.serve.engine import (
         Request)
     for r in reqs:
@@ -863,6 +1006,8 @@ def _serve(torch, engine, watch, reqs, new_tokens):
         if c.finished_reason != "length" or len(c.tokens) != new_tokens:
             raise AssertionError(f"request {c.uid}: {c.finished_reason}, "
                                  f"{len(c.tokens)} tokens")
+    if done_out is not None:
+        done_out.extend(done)
     return wall, sum(len(c.tokens) for c in done)
 
 
@@ -961,6 +1106,235 @@ def phase_serving(torch, dev, params, record):
         torch.cuda.empty_cache()
 
 
+def _views(params, config):
+    """Per-layer ``llama.ModelParams`` over stacked params: every tensor of
+    layer ``l`` indexed (a view, no copy)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        llama, stacked)
+    return llama.ModelParams(
+        params.embed,
+        [stacked.layer_view(params.layers, l)
+         for l in range(config.num_layers)],
+        params.final_norm, params.lm_head)
+
+
+def phase_unfused(torch, dev, record):
+    """The unfused compressed-model path, Llama-2-7B, 32 layers, synthetic
+    weights (seed 0, 4-bit, rank 128):
+
+    (a) ``bench.py --mode grouped``'s flow: grouped stacked params, bf16
+    factors and head, a bf16 cache, batch 8, context 256;
+    ``stacked.decode_step_batched`` 32 steps from position 128 (224
+    grouped launches per step), one step against the plain versions;
+    (d) ``evaluate_perplexity`` on per-layer views of the same params, one
+    seeded 1024-token window (the grouped kernel at M = 1024);
+    (b) ``ServingEngine`` on per-layer views of w4a8 params with int8
+    factors and head (max_slots 8, max_seq_len 1024): 8 seeded requests of
+    16-500 prompt tokens, 16 new tokens, every other one sampled (T 0.8,
+    top-k 50, top-p 0.9); 224 flat W4A8 launches and the head per prefill
+    and tick; the first prefill and the first tick against the plain
+    versions;
+    (c) ``FastServingEngine`` on the same stacked w4a8 params, unfused:
+    the same requests on a bf16 cache (greedy completions equal to (b)'s),
+    then on an int8 cache (reported)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
+    from ee274_convexcaldera_llm_quantization_tpu_torch.evalm import (
+        perplexity)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        llama, stacked)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.engine import (
+        ServingEngine)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.fast_engine \
+        import FastServingEngine
+
+    config = LLAMA2_7B
+    L = config.num_layers
+    t_phase = time.perf_counter()
+    counters = (K.quantized_matmul, K.quantized_matmul_w4a8,
+                K.quantized_matmul_w4a8_stacked, K.int8_matmul)
+    names = ("quantized_matmul", "quantized_matmul_w4a8", "w4a8_stacked",
+             "int8_matmul")
+
+    # (a) the grouped bench flow
+    B, T, steps = 8, 256, 32
+    params = bench_params.build_compressed_llama_params(
+        config, num_bits=4, rank=128, seed=0, mode="grouped", device=dev)
+    cache = llama.KVCache.create(config, B, T, device=dev)
+    gen = torch.Generator().manual_seed(8)
+    tok = torch.randint(0, config.vocab_size, (B,), generator=gen).to(dev)
+
+    def step(i, cache, tok):
+        pos = torch.full((B,), 128 + i, dtype=torch.int32, device=dev)
+        return stacked.decode_step_batched(params, tok, pos, cache, config)
+
+    # one step against the plain versions, from copies of the cache
+    lkern, _ = step(0, _copy_cache(cache, dev), tok)
+    with _PlainKernels():
+        lplain, _ = step(0, _copy_cache(cache, dev), tok)
+    e = _rel(torch, lkern, lplain)
+    print(f"unfused (a) grouped step, kernels vs plain versions on the card: "
+          f"logits rel-Frobenius {e:.3e} (bound {KERN_REL:g})", flush=True)
+    if not (e <= KERN_REL and _same_argmax(torch, lkern, lplain)):
+        raise AssertionError("unfused (a): the grouped kernel disagrees with "
+                             "the plain version")
+    for c in counters:
+        c.launches = 0
+    times = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = step(i, cache, tok)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"unfused (a) step {i}: non-finite logits")
+    got = tuple(c.launches for c in counters)
+    if got != (7 * L * steps, 0, 0, 0):
+        raise AssertionError(f"unfused (a): launches {got}, expected "
+                             f"{(7 * L * steps, 0, 0, 0)}")
+    record["quantized_matmul"].update(launches=got[0],
+                                      launches_per_step=7 * L, steps=steps)
+    med = statistics.median(times[3:])
+    dev_ms = _time_ms(torch, lambda i: step(32, cache, tok), 1, reps=9)
+    print(f"unfused (a) llama2-7b grouped, stacked.decode_step_batched B={B} "
+          f"ctx={T} from pos 128: {steps} steps, {7 * L} quantized_matmul "
+          f"launches each (total {got[0]}); median {med:.3f} ms/step over "
+          f"{len(times) - 3} (min {min(times[3:]):.3f}, max "
+          f"{max(times[3:]):.3f}); {1e3 * B / med:.1f} tok/s; one step as a "
+          f"CUDA graph {dev_ms:.3f} ms of device time (the card idle "
+          f"{1 - dev_ms / med:.1%} of the eager step)", flush=True)
+    del cache
+
+    # (d) perplexity on per-layer views of the grouped params
+    stream = torch.randint(0, config.vocab_size, (1024,),
+                           generator=torch.Generator().manual_seed(9))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ppl = perplexity.evaluate_perplexity(_views(params, config),
+                                         stream.numpy(), config, window=1024,
+                                         batch_size=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = tuple(c.launches for c in counters)
+    if not math.isfinite(ppl) or got != (7 * L, 0, 0, 0):
+        raise AssertionError(f"unfused (d): perplexity {ppl}, launches {got}")
+    print(f"unfused (d) evaluate_perplexity, one 1024-token window, batch 1: "
+          f"perplexity {ppl:.4f} (random weights), {wall:.2f} s wall, "
+          f"{got[0]} quantized_matmul launches at M = 1024", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) ServingEngine on per-layer views of w4a8 params
+    w = stacked.quantize_model_factors_int8(
+        bench_params.build_compressed_llama_params(
+            config, num_bits=4, rank=128, seed=0, mode="w4a8", device=dev))
+    views = _views(w, config)
+    gen = torch.Generator().manual_seed(10)
+    lens = torch.randint(16, 501, (8,), generator=gen).tolist()
+    reqs = [dict(uid=i, prompt=torch.randint(
+        0, config.vocab_size, (n,), generator=gen).numpy(),
+        **(dict(temperature=0.8, top_k=50, top_p=0.9) if i % 2 else {}))
+        for i, n in enumerate(lens)]
+    new_tokens = 16
+
+    def check_first(prefill, tokens, last_pos, logits):
+        cache = llama.KVCache.create(config, 1, tokens.shape[1], device=dev)
+        with _PlainKernels():
+            plain, _ = prefill(views, tokens, 0, cache, config,
+                               last_pos=last_pos)
+        e = _rel(torch, logits[None], plain[None])
+        print(f"unfused (b): first prefill ({last_pos + 1} tokens, bucket "
+              f"{tokens.shape[1]}) kernels vs plain versions on the card: "
+              f"logits rel-Frobenius {e:.3e} (bound {KERN_REL:g})",
+              flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, logits[None],
+                                               plain[None])):
+            raise AssertionError("unfused (b): the first prefill's kernels "
+                                 "disagree with the plain versions")
+
+    def check_tick(decode, args, kw):
+        params_, tokens, pos, cache, cfg = args
+        kern, _ = decode(params_, tokens, pos, _copy_cache(cache, dev), cfg)
+        with _PlainKernels():
+            plain, _ = decode(params_, tokens, pos, _copy_cache(cache, dev),
+                              cfg)
+        e = _rel(torch, kern, plain)
+        print(f"unfused (b): first tick (positions {pos.tolist()}) kernels "
+              f"vs plain versions on the card: logits rel-Frobenius {e:.3e} "
+              f"(bound {KERN_REL:g})", flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, kern, plain)):
+            raise AssertionError("unfused (b): the first tick's kernels "
+                                 "disagree with the plain versions")
+
+    runs = {}
+    for run, make, module, fn_names, per_call, checks in [
+            ("b", lambda: ServingEngine(views, config, max_slots=8,
+                                        max_seq_len=1024, device=dev),
+             llama, ("prefill_into_slot", "decode_step_batched"),
+             (0, 7 * L, 0, 1), (check_first, check_tick)),
+            ("c bf16", lambda: FastServingEngine(w, config, max_slots=8,
+                                                 max_seq_len=1024,
+                                                 device=dev),
+             stacked, ("prefill_into_slot_w4a8", "decode_step_w4a8"),
+             (0, 0, 7 * L, 1), (None, None)),
+            ("c int8", lambda: FastServingEngine(w, config, max_slots=8,
+                                                 max_seq_len=1024,
+                                                 kv_int8=True, device=dev),
+             stacked, ("prefill_into_slot_w4a8", "decode_step_w4a8"),
+             (0, 0, 7 * L, 1), (None, None))]:
+        engine = make()
+        watch = _Watch(torch, counters, per_call, per_call, *checks,
+                       module=module, names=fn_names)
+        done = []
+        wall, ntok = _serve(torch, engine, watch, reqs, new_tokens, done)
+        runs[run] = {c.uid: c.tokens for c in done}
+        totals = dict(zip(names, watch.counted))
+        n_pre = sum(len(v) for v in watch.prefill_ms.values())
+        n_tick = len(watch.tick_ms)
+        print(f"unfused ({run}) {type(engine).__name__}, "
+              f"{type(engine.cache).__name__}, {len(reqs)} requests, "
+              f"max_seq_len 1024: {n_pre} prefills, {n_tick} decode ticks, "
+              f"each with its exact launches {dict(zip(names, per_call))}; "
+              f"totals {totals}", flush=True)
+        for bucket, ms in sorted(watch.prefill_ms.items()):
+            print(f"  prefill bucket {bucket}: {len(ms)} x, median "
+                  f"{statistics.median(ms):.1f} ms "
+                  f"({', '.join(f'{m:.1f}' for m in ms)})", flush=True)
+        print(f"  decode tick: median {statistics.median(watch.tick_ms):.2f}"
+              f" ms (min {min(watch.tick_ms):.2f}, max "
+              f"{max(watch.tick_ms):.2f}); {ntok} tokens in {wall:.2f} s "
+              f"wall: {ntok / wall:.1f} tokens/s", flush=True)
+        if run == "b":
+            record["quantized_matmul_w4a8"].update(
+                launches=totals["quantized_matmul_w4a8"],
+                launches_per_step=7 * L, steps=n_pre + n_tick)
+        del engine
+        torch.cuda.empty_cache()
+    greedy = [r["uid"] for r in reqs if "temperature" not in r]
+    for uid in greedy:
+        if runs["c bf16"][uid] != runs["b"][uid]:
+            raise AssertionError(
+                f"unfused (c): request {uid}'s greedy completion "
+                f"{runs['c bf16'][uid]} differs from ServingEngine's "
+                f"{runs['b'][uid]}")
+    sampled_equal = all(runs["c bf16"][r["uid"]] == runs["b"][r["uid"]]
+                        for r in reqs)
+    print(f"unfused (c): the {len(greedy)} greedy completions of the stacked "
+          f"W4A8 engine (bf16 cache) equal ServingEngine's token for token; "
+          f"the sampled ones {'too' if sampled_equal else 'differ'}; "
+          f"the int8 cache's greedy completions "
+          f"{'equal' if all(runs['c int8'][u] == runs['b'][u] for u in greedy) else 'differ from'}"
+          f" them", flush=True)
+    print(f"unfused phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1002,6 +1376,10 @@ def main() -> int:
                                    replaces=ref + "attention.py:506"),
         "flash_decode_q8": dict(source=src + "flash_decode.cu",
                                 replaces=ref + "attention.py:155"),
+        "quantized_matmul": dict(source=src + "grouped_matmul.cu",
+                                 replaces=ref + "kernels.py:222"),
+        "quantized_matmul_w4a8": dict(source=src + "w4a8_stacked.cu",
+                                      replaces=ref + "kernels.py:460"),
     }
     measured = ("launches", "launches_per_step", "steps", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1012,16 +1390,20 @@ def main() -> int:
     phase_width(torch, dev)
     params = phase_full(torch, dev, record)
     phase_serving(torch, dev, params, record)
+    del params
+    torch.cuda.empty_cache()
+    phase_unfused(torch, dev, record)
 
     for name, r in record.items():
         missing = [k for k in measured if r[k] is None]
         if missing:
             raise AssertionError(f"{name}: {missing} not measured")
-    # library_ms: one SDPA call for flash_prefill (f32, causal). No single
-    # PyTorch call computes the other five functions (packed offset-binary
-    # codes rescaled per row of int8 activations; attention over an int8
-    # cache with per-token scales, and int8 probabilities in dots="i8"),
-    # so theirs is null.
+    # library_ms: one SDPA call for flash_prefill (f32, causal); for
+    # quantized_matmul, one bf16 torch.matmul on its weights dequantized
+    # beforehand. No single PyTorch call computes the other functions
+    # (packed offset-binary codes rescaled per row of int8 activations;
+    # attention over an int8 cache with per-token scales, and int8
+    # probabilities in dots="i8"), so theirs is null.
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"],
                     **{k: r[k] for k in measured},

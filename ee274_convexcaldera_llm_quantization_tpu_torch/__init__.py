@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of the CALDERA W4A8 serving path for NVIDIA Hopper.
+"""PyTorch / CUDA port of the CALDERA serving paths for NVIDIA Hopper.
 
 The JAX package ``ee274_convexcaldera_llm_quantization_tpu`` is the
 reference; this package mirrors its layout (``ops/``, ``models/``) so each
@@ -6,20 +6,22 @@ module here has one counterpart there, and keeps its serving bytes
 unchanged (uint8 row-global planes, MSB first, offset-binary codes; int8
 factors and KV with f32 per-row / per-(token, head) scales).
 
-- ``ops.kernels``   — W4A8 stacked matmul and int8 matmul wrappers (CUDA
-                      kernels on the card, plain torch on the CPU), packing
-                      and activation quantization.
+- ``ops.kernels``   — grouped bf16, flat and stacked W4A8, and int8 matmul
+                      wrappers (CUDA kernels on the card, plain torch on the
+                      CPU), packing and activation quantization.
 - ``ops.attention`` — flash-decode attention over the head-major int8 KV
                       cache (staged, inline, all-batch) and causal flash
                       prefill.
 - ``ops._build``    — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use
                       and binds them with ``ctypes``.
-- ``models``        — config presets, the Llama pieces (caches, plain
-                      attention, head), compressed linears, and the fused
-                      prefill and decode steps.
-- ``serve``         — sampling, the continuous-batching scheduler and the
-                      fused-path ``FastServingEngine``.
-- ``interop``       — load fused params handed over as numpy arrays.
+- ``models``        — config presets, the Llama model (caches, plain
+                      attention, head, the unrolled model functions),
+                      compressed linears, the stacked scan and W4A8 paths,
+                      and the fused prefill and decode steps.
+- ``serve``         — sampling, ``ServingEngine`` (its own unfused path) and
+                      ``FastServingEngine`` (fused or stacked W4A8).
+- ``evalm``         — the perplexity harness.
+- ``interop``       — load params handed over as numpy arrays.
 - ``bench_params``  — seeded synthetic packed weights built on the device.
 
 It imports ``torch`` and numpy, never JAX.

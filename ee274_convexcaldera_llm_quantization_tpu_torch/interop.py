@@ -1,12 +1,21 @@
-"""Load fused W4A8 params handed over as numpy arrays.
+"""Load model params handed over as numpy arrays.
 
-The reference package's ``FusedStackedParams`` flattens to a dict of numpy
-arrays keyed by attribute path (``"embed"``, ``"layers.qkv.packed"``,
-``"layers.qkv.Ls.0"``, ``"layers.o_proj.L_scale"``, ``"lm_head.w8"``, ...)
-plus a dict of its static fields under the same paths (``"layers.qkv.
-num_bits"``, ``"layers.qkv.splits"``, ``"layers.o_proj.mode"``, ...).
-Bytes are taken as they are; bfloat16 arrays (numpy's ``bfloat16``
-extension dtype) are reinterpreted bit for bit.
+The reference package's params flatten to a dict of numpy arrays keyed by
+attribute path plus a dict of their static fields under the same paths:
+
+- ``FusedStackedParams``: ``"embed"``, ``"layers.qkv.packed"``,
+  ``"layers.qkv.Ls.0"``, ``"layers.o_proj.L_scale"``, ``"lm_head.w8"``, ...
+  with ``"layers.qkv.num_bits"``, ``"layers.qkv.splits"``, ...;
+- per-layer ``ModelParams``: ``"layers.0.attn_norm"``,
+  ``"layers.0.q_proj.packed"``, ``"layers.1.down_proj.w"``, ...;
+- ``StackedModelParams``: ``"layers.attn_norm"``, ``"layers.q_proj.packed"``,
+  ... (each tensor with its leading layer axis).
+
+A projection or head is a ``DenseLinear`` (``w``), an ``Int8Linear``
+(``w8``) or a ``CalderaLinear`` (``packed``; either serving mode, bf16 or
+int8 factors); a missing ``lm_head.*`` is a tied head. Bytes are taken as
+they are; bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are
+reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +31,10 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models.compressed import (
     CalderaLinear, DenseLinear, Int8Linear)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.fused import (
     FusedLayerStack, FusedStackedParams, FusedW4A8Linear)
+from ee274_convexcaldera_llm_quantization_tpu_torch.models.llama import (
+    LayerParams, ModelParams)
+from ee274_convexcaldera_llm_quantization_tpu_torch.models.stacked import (
+    StackedModelParams)
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -82,15 +95,59 @@ def _caldera_linear(arrays, meta, p: str, device) -> CalderaLinear:
         grid_bits=int(meta.get(f"{p}.grid_bits", 0)))
 
 
-def _head(arrays, device):
-    if "lm_head.w8" in arrays:
-        return Int8Linear(w8=_tensor(arrays["lm_head.w8"], device),
-                          scales=_tensor(arrays["lm_head.scales"], device),
-                          b=_opt(arrays, "lm_head.b", device))
-    if "lm_head.w" in arrays:
-        return DenseLinear(w=_tensor(arrays["lm_head.w"], device),
-                           b=_opt(arrays, "lm_head.b", device))
+def _linear(arrays, meta, p: str, device):
+    """The linear at path ``p``, or None when nothing is stored there."""
+    if f"{p}.packed" in arrays:
+        return _caldera_linear(arrays, meta, p, device)
+    if f"{p}.w8" in arrays:
+        return Int8Linear(w8=_tensor(arrays[f"{p}.w8"], device),
+                          scales=_tensor(arrays[f"{p}.scales"], device),
+                          b=_opt(arrays, f"{p}.b", device))
+    if f"{p}.w" in arrays:
+        return DenseLinear(w=_tensor(arrays[f"{p}.w"], device),
+                           b=_opt(arrays, f"{p}.b", device))
     return None
+
+
+def _layer_params(arrays, meta, p: str, device) -> LayerParams:
+    return LayerParams(
+        attn_norm=_tensor(arrays[f"{p}.attn_norm"], device),
+        mlp_norm=_tensor(arrays[f"{p}.mlp_norm"], device),
+        **{name: _linear(arrays, meta, f"{p}.{name}", device)
+           for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                        "up_proj", "down_proj")})
+
+
+def model_params_from_numpy(arrays: Mapping[str, np.ndarray],
+                            meta: Mapping[str, object],
+                            device="cuda") -> ModelParams:
+    """Build the port's per-layer :class:`llama.ModelParams` on ``device``
+    from the reference's ``ModelParams`` flattened to numpy (keys
+    ``layers.<i>.<field>...``; see the module docstring)."""
+    dev = resolve_device(device)
+    n = 0
+    while f"layers.{n}.attn_norm" in arrays:
+        n += 1
+    return ModelParams(
+        embed=_tensor(arrays["embed"], dev),
+        layers=[_layer_params(arrays, meta, f"layers.{i}", dev)
+                for i in range(n)],
+        final_norm=_tensor(arrays["final_norm"], dev),
+        lm_head=_linear(arrays, meta, "lm_head", dev))
+
+
+def stacked_params_from_numpy(arrays: Mapping[str, np.ndarray],
+                              meta: Mapping[str, object],
+                              device="cuda") -> StackedModelParams:
+    """Build the port's :class:`stacked.StackedModelParams` on ``device``
+    from the reference's ``StackedModelParams`` flattened to numpy (keys
+    ``layers.<field>...``; see the module docstring)."""
+    dev = resolve_device(device)
+    return StackedModelParams(
+        embed=_tensor(arrays["embed"], dev),
+        layers=_layer_params(arrays, meta, "layers", dev),
+        final_norm=_tensor(arrays["final_norm"], dev),
+        lm_head=_linear(arrays, meta, "lm_head", dev))
 
 
 def fused_params_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -112,4 +169,4 @@ def fused_params_from_numpy(arrays: Mapping[str, np.ndarray],
     return FusedStackedParams(embed=_tensor(arrays["embed"], dev),
                               layers=layers,
                               final_norm=_tensor(arrays["final_norm"], dev),
-                              lm_head=_head(arrays, dev))
+                              lm_head=_linear(arrays, meta, "lm_head", dev))

@@ -33,11 +33,9 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.llama import (
     HeadMajorQuantKVCache, KVCache, QuantKVCache)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.stacked import (
-    StackedModelParams, _low_rank_layer)
+    StackedModelParams, _apply_w4a8)
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import attention as AT
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
-
-_NEG_INF = -1e30
 
 
 @dataclasses.dataclass
@@ -199,17 +197,6 @@ def _apply_fused(fp: FusedW4A8Linear, l: int, y: torch.Tensor):
     return tuple(outs)
 
 
-def _apply_plain(lin: CalderaLinear, l: int, y: torch.Tensor):
-    """Single stacked w4a8 projection: packed matmul + low-rank term."""
-    out = (K.quantized_matmul_w4a8_stacked(y, lin.packed, lin.scales, l,
-                                           lin.num_bits)
-           + _low_rank_layer(lin, l, y))
-    out = out * lin.global_scale[l]
-    if lin.b is not None:
-        out = out + lin.b[l][None, :]
-    return out
-
-
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"{item})")
@@ -236,10 +223,10 @@ def _mlp_and_o(lp: FusedLayerStack, l: int, x: torch.Tensor,
                attn: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """The rest of a layer: o_proj residual, RMSNorm, gate/up, SiLU, down
     residual."""
-    x = x + _apply_plain(lp.o_proj, l, attn)
+    x = x + _apply_w4a8(lp.o_proj, l, attn)
     y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
     gate, up = _apply_fused(lp.gateup, l, y)
-    return x + _apply_plain(lp.down_proj, l, gate * torch.sigmoid(gate) * up)
+    return x + _apply_w4a8(lp.down_proj, l, gate * torch.sigmoid(gate) * up)
 
 
 def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor):
@@ -260,12 +247,9 @@ def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor):
 
 def _last_logits(params: FusedStackedParams, x: torch.Tensor, last_pos,
                  config: ModelConfig) -> torch.Tensor:
-    """Logits (vocab,) of row ``last_pos`` of ``x`` (the last row when
-    None; clamped into range, as the reference's dynamic slice is)."""
-    n = x.shape[0]
-    i = n - 1 if last_pos is None else min(max(int(last_pos), 0), n - 1)
-    return llama._logits(x[i:i + 1], params.embed, params.final_norm,
-                         params.lm_head, config)[0]
+    """Logits (vocab,) of row ``last_pos`` of ``x`` (see
+    ``llama._last_row``)."""
+    return llama._head(params, llama._last_row(x, last_pos), config)[0]
 
 
 def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
@@ -337,7 +321,7 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
     mask = None
     if not head_major:
         valid = torch.arange(T, device=dev)[None, :] <= col[:, None]
-        mask = torch.where(valid, 0.0, _NEG_INF)[:, None, None, None, :]
+        mask = llama._mask(valid)[:, None, None, None, :]
     if staged_kv:
         staging = (
             torch.empty((Lk, B, KVH, D), dtype=torch.int8, device=dev),
@@ -424,40 +408,16 @@ def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
     cos, sin = llama.rope_tables(config, torch.arange(S, device=dev)[None])
     mask = None
     if not flash:
-        causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
-        mask = torch.where(causal, 0.0, _NEG_INF)[None, None, None]
+        mask = llama._causal(S, dev)
     for l in range(config.num_layers):
         q, k, v = _qkv(lp, l, x, cos, sin, config, (1, S))
         if flash:
             attn = AT.flash_prefill(q, k, v)
         else:
             attn = llama._attention(q, k, v, mask)
-        _write_prompt_kv(cache, l, slot, 0, k, v)
+        llama._write_prompt_kv(cache, l, slot, 0, k, v)
         x = _mlp_and_o(lp, l, x, attn.reshape(S, config.q_dim), config)
     return _last_logits(params, x, last_pos, config), cache
-
-
-def _write_prompt_kv(cache, l: int, slot: int, start: int, k, v):
-    """Write (1, C, KVH, D) K/V of consecutive positions from ``start``
-    into row ``slot`` of layer ``l`` (quantized for the int8 caches)."""
-    C = k.shape[1]
-    if isinstance(cache, KVCache):
-        cache.k[l, slot, start:start + C] = k[0].to(cache.k.dtype)
-        cache.v[l, slot, start:start + C] = v[0].to(cache.v.dtype)
-        return
-    kq, ksc = llama.quantize_kv(k)          # (1, C, KVH, D), (1, C, KVH)
-    vq, vsc = llama.quantize_kv(v)
-    kq, ksc, vq, vsc = kq[0], ksc[0], vq[0], vsc[0]
-    if isinstance(cache, HeadMajorQuantKVCache):
-        kq, vq = kq.transpose(0, 1), vq.transpose(0, 1)
-        ksc, vsc = ksc.T, vsc.T
-        cols = (slice(None), slice(start, start + C))
-    else:
-        cols = (slice(start, start + C),)
-    cache.k[(l, slot) + cols] = kq
-    cache.v[(l, slot) + cols] = vq
-    cache.k_scale[(l, slot) + cols] = ksc
-    cache.v_scale[(l, slot) + cols] = vsc
 
 
 def prefill_chunk_fused(params: FusedStackedParams, tokens: torch.Tensor,
@@ -484,11 +444,11 @@ def prefill_chunk_fused(params: FusedStackedParams, tokens: torch.Tensor,
     positions = offset + torch.arange(C, device=dev)
     cos, sin = llama.rope_tables(config, positions[None])
     valid = torch.arange(T, device=dev)[None, :] <= positions[:, None]
-    mask = torch.where(valid, 0.0, _NEG_INF)[None, None, None]
+    mask = llama._mask(valid)[None, None, None]
     start = min(max(int(offset), 0), T - C)
     for l in range(config.num_layers):
         q, k, v = _qkv(lp, l, x, cos, sin, config, (1, C))
-        _write_prompt_kv(cache, l, slot, start, k, v)
+        llama._write_prompt_kv(cache, l, slot, start, k, v)
         if head_major:
             attn = llama._attention_q8(
                 q, cache.k[l, slot].transpose(0, 1)[None],

@@ -36,6 +36,12 @@ ENTRIES = {
     "w4a8_stacked": {
         # xq, sx, packed, scales, out, M, N, K, bits, layer, stream
         "w4a8_stacked_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # xq, sx, packed, scales, out, M, N, K, bits, stream
+        "w4a8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "grouped_matmul": {
+        # x (bf16), packed, scales, out, M, N, K, bits, group, stream
+        "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "int8_matmul": {
         # xq, sx, w8, scales, out, M, N, K, stream

@@ -1,7 +1,10 @@
-// W4A8 matmul against one layer of a stacked packed weight tensor.
+// W4A8 matmul against one layer of a stacked packed weight tensor, and
+// against a flat one.
 //
-// Replaces the TPU kernel ee274_convexcaldera_llm_quantization_tpu/ops/
-// kernels.py::quantized_matmul_w4a8_stacked (_qmm_w4a8_stacked_kernel):
+// Replaces the TPU kernels ee274_convexcaldera_llm_quantization_tpu/ops/
+// kernels.py::quantized_matmul_w4a8_stacked (_qmm_w4a8_stacked_kernel) and
+// quantized_matmul_w4a8 (_qmm_w4a8_kernel), the same function without the
+// layer axis:
 //   y[m, n] = sx[m] * s[n] * (sum_k xq[m, k] * u[n, k] - maxq * sum_k xq[m, k])
 // with u the offset-binary 2/4/8-bit codes of layer `layer`.
 //
@@ -33,4 +36,12 @@ extern "C" int w4a8_stacked_launch(const void* xq, const void* sx,
   else
     err = rowdot::launch<8, rowdot::kOffset8>(x, s, w, ws, y, M, N, K, st);
   return (int)err;
+}
+
+// The flat kernel: layer 0 of a one-layer stack.
+extern "C" int w4a8_launch(const void* xq, const void* sx, const void* packed,
+                           const void* scales, void* out, int M, int N, int K,
+                           int bits, void* stream) {
+  return w4a8_stacked_launch(xq, sx, packed, scales, out, M, N, K, bits, 0,
+                             stream);
 }

@@ -12,12 +12,12 @@ Counterpart of ``ee274_convexcaldera_llm_quantization_tpu.serve.engine``:
 - requests arrive and retire continuously: a finishing sequence frees its
   slot for the next queued prompt without stopping the batch.
 
-The scheduler is this class; the model path is the subclass's. The
-reference's own path (``llama.prefill_into_slot`` /
-``decode_step_batched`` over dense or unfused params) is not ported yet,
-so this class raises where it would allocate its cache, before any device
-memory is taken; :class:`serve.fast_engine.FastServingEngine` serves the
-fused W4A8 params.
+This class serves ``llama.ModelParams`` (dense or compressed projections
+in either serving mode) on the reference's own path: a bf16
+:class:`llama.KVCache`, prompts prefilled through
+``llama.prefill_into_slot`` in power-of-two buckets, decode ticks through
+``llama.decode_step_batched``. :class:`serve.fast_engine.FastServingEngine`
+overrides the cache and both steps for the stacked and fused W4A8 paths.
 """
 
 from __future__ import annotations
@@ -32,10 +32,9 @@ import torch
 
 from ee274_convexcaldera_llm_quantization_tpu_torch._device import (
     resolve_device)
+from ee274_convexcaldera_llm_quantization_tpu_torch.models import llama
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
     ModelConfig)
-from ee274_convexcaldera_llm_quantization_tpu_torch.models.fused import (
-    _not_ported)
 from ee274_convexcaldera_llm_quantization_tpu_torch.serve import sampling
 
 
@@ -72,10 +71,11 @@ class _Slot:
 class ServingEngine:
     """Continuous-batching scheduler over a fixed slot pool.
 
-    ``device`` is where the cache lives and the steps run ("cuda" by
-    default; "cpu" runs the plain PyTorch versions of the kernels).
-    Subclasses provide the cache (:meth:`_create_cache`) and the model
-    path (:meth:`_admit`, :meth:`_decode`).
+    ``params``: :class:`llama.ModelParams` on ``device``, which is where
+    the cache lives and the steps run ("cuda" by default; "cpu" runs the
+    plain PyTorch versions of the kernels). Subclasses may replace the
+    cache (:meth:`_create_cache`) and the model path (:meth:`_admit`,
+    :meth:`_decode`).
     """
 
     def __init__(self, params, config: ModelConfig, max_slots: int = 8,
@@ -137,17 +137,34 @@ class ServingEngine:
     # -- model path (subclasses) --------------------------------------------
 
     def _create_cache(self):
-        raise _not_ported(
-            "the unfused model path (llama.prefill_into_slot / "
-            "decode_step_batched) behind ServingEngine", "Queue A item 3")
+        return llama.KVCache.create(self.config, self.max_slots,
+                                    self.max_seq_len, device=self.device)
 
     def _admit(self) -> None:
-        raise _not_ported("ServingEngine._admit (llama.prefill_into_slot)",
-                          "Queue A item 3")
+        """Prefill queued prompts into free slots, each right-padded to its
+        bucket, logits taken at the prompt's last position."""
+        while self.queue and self.free_slots:
+            req = self.queue.popleft()
+            slot = self.free_slots.pop()
+            n = len(req.prompt)
+            tokens = self._padded(req.prompt, min(self._bucket(n),
+                                                  self.max_seq_len))
+            logits, self.cache = self._prefill(tokens, slot, n - 1)
+            self._start(slot, req, logits)
+
+    def _prefill(self, tokens: torch.Tensor, slot: int, last_pos: int):
+        """Prefill one bucketed prompt (1, S) into ``slot``; returns
+        ``(logits at last_pos, cache)``."""
+        return llama.prefill_into_slot(self.params, tokens, slot, self.cache,
+                                       self.config, last_pos=last_pos)
 
     def _decode(self) -> None:
-        raise _not_ported("ServingEngine._decode (decode_step_batched)",
-                          "Queue A item 3")
+        """One batched decode step over every slot (free slots run masked
+        at position 0 and their output is dropped)."""
+        tokens, pos = self._batch()
+        logits, self.cache = llama.decode_step_batched(
+            self.params, tokens, pos, self.cache, self.config)
+        self._advance(logits)
 
     def _pending(self) -> bool:
         """Extra in-flight work beyond queue/slots (subclass hook, e.g.

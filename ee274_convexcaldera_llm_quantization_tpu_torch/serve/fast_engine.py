@@ -1,10 +1,14 @@
-"""Serving engine on the fused W4A8 path.
+"""Serving engine on the W4A8 fast paths.
 
 Counterpart of ``ee274_convexcaldera_llm_quantization_tpu.serve.
 fast_engine``: the continuous-batching scheduler of
 :class:`serve.engine.ServingEngine` with prefill and decode on
 ``models.fused`` (``prefill_into_slot_fused`` / ``prefill_chunk_fused`` /
-``decode_step_fused``) over :class:`fused.FusedStackedParams`.
+``decode_step_fused``) over :class:`fused.FusedStackedParams`, or on the
+unfused stacked W4A8 path (``stacked.prefill_into_slot_w4a8`` /
+``decode_step_w4a8``: 7 stacked W4A8 launches per layer plus the head, on a
+bf16 or int8 token-major cache) over w4a8 :class:`stacked.
+StackedModelParams`.
 
 On the card a ``flash_attn=True`` engine runs hand-written CUDA kernels
 only: per prefill, 4 W4A8 launches and one flash-prefill launch per layer
@@ -18,11 +22,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ee274_convexcaldera_llm_quantization_tpu_torch.models import fused, llama
+from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+    fused, llama, stacked)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
     ModelConfig)
-from ee274_convexcaldera_llm_quantization_tpu_torch.models.stacked import (
-    StackedModelParams)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.fused import (
     _not_ported)
 from ee274_convexcaldera_llm_quantization_tpu_torch.serve.engine import (
@@ -32,8 +35,10 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.serve.engine import (
 class FastServingEngine(ServingEngine):
     """Continuous batching over the fused W4A8 prefill and decode steps.
 
-    ``params``: :class:`fused.FusedStackedParams` on ``device`` (the
-    unfused stacked path is not ported yet and raises).
+    ``params``: :class:`fused.FusedStackedParams`, or a
+    :class:`stacked.StackedModelParams` whose projections are all w4a8
+    (``kv_int8`` only; ``flash_attn`` and ``prefill_chunk`` need fused
+    params), on ``device``.
 
     ``flash_attn=True``: the head-major int8 cache and the flash kernels
     (flash prefill; flash decode, staged by default). ``kv_int8=True``
@@ -53,15 +58,16 @@ class FastServingEngine(ServingEngine):
                  device="cuda"):
         if mlp_kernel:
             raise _not_ported("mlp_kernel=True", "Queue B item 12")
-        if isinstance(params, StackedModelParams):
-            raise _not_ported(
-                "FastServingEngine on unfused stacked params "
-                "(stacked.decode_step_w4a8 / prefill_into_slot_w4a8)",
-                "Queue A item 5")
-        if not isinstance(params, fused.FusedStackedParams):
-            raise ValueError("FastServingEngine (flash_attn, prefill_chunk "
-                             "and the fused steps) requires fused params "
-                             "(fused.fuse_stacked)")
+        self._fused = isinstance(params, fused.FusedStackedParams)
+        if not self._fused and (flash_attn or prefill_chunk):
+            raise ValueError("flash_attn and prefill_chunk require fused "
+                             "params (fused.fuse_stacked)")
+        if isinstance(params, stacked.StackedModelParams):
+            stacked._check_w4a8(params.layers, None)
+        elif not self._fused:
+            raise ValueError("FastServingEngine takes fused params "
+                             "(fused.fuse_stacked) or w4a8 stacked params, "
+                             f"got {type(params).__name__}")
         if attn_kernel not in ("auto", "row", "ab"):
             raise ValueError(f"unknown attn_kernel {attn_kernel!r}")
         self._flash = bool(flash_attn)
@@ -94,18 +100,17 @@ class FastServingEngine(ServingEngine):
     def _admit(self) -> None:
         if self._chunk:
             self._admit_chunked()
-            return
-        while self.queue and self.free_slots:
-            req = self.queue.popleft()
-            slot = self.free_slots.pop()
-            n = len(req.prompt)
-            logits, self.cache = fused.prefill_into_slot_fused(
-                self.params,
-                self._padded(req.prompt, min(self._bucket(n),
-                                             self.max_seq_len)),
-                slot, self.cache, self.config, last_pos=n - 1,
-                flash=self._flash)
-            self._start(slot, req, logits)
+        else:
+            super()._admit()
+
+    def _prefill(self, tokens, slot: int, last_pos: int):
+        if self._fused:
+            return fused.prefill_into_slot_fused(
+                self.params, tokens, slot, self.cache, self.config,
+                last_pos=last_pos, flash=self._flash)
+        return stacked.prefill_into_slot_w4a8(
+            self.params, tokens, slot, self.cache, self.config,
+            last_pos=last_pos)
 
     def _pending(self) -> bool:
         return bool(self._prefilling)
@@ -140,8 +145,12 @@ class FastServingEngine(ServingEngine):
         # overwrites the K/V of the prompt's first token: ROADMAP R7.)
         tokens, pos = self._batch({s: off for s, (_, off)
                                    in self._prefilling.items()})
-        logits, self.cache = fused.decode_step_fused(
-            self.params, tokens, pos, self.cache, self.config,
-            staged_kv=self._staged if self._flash else False,
-            attn_kernel=self._attn_kernel if self._flash else "row")
+        if self._fused:
+            logits, self.cache = fused.decode_step_fused(
+                self.params, tokens, pos, self.cache, self.config,
+                staged_kv=self._staged if self._flash else False,
+                attn_kernel=self._attn_kernel if self._flash else "row")
+        else:
+            logits, self.cache = stacked.decode_step_w4a8(
+                self.params, tokens, pos, self.cache, self.config)
         self._advance(logits)

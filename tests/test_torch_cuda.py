@@ -242,3 +242,132 @@ def test_engine_on_card_counts_launches(dev):
     # one prefill and three decode ticks
     assert [fn.launches - b for fn, b in zip(counters, before)] == [
         4 * L * 4, L, 3 * L, 4]
+
+
+def _grouped_close(y, ref):
+    # bf16 x bf16 products are exact in f32 on both sides (mma.sync against
+    # cuBLAS in f32 on the same bf16 values); only the order of the K f32
+    # sums differs
+    torch.testing.assert_close(y.cpu(), ref.cpu(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def _grouped_inputs(rng, M, N, K, bits, G):
+    f = 8 // bits
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    packed = torch.from_numpy(rng.integers(
+        0, 255 if bits == 8 else 256, size=(N, K // f), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(N, K // G)).astype(np.float32))
+    return x, packed, scales
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 17, 40, 100])
+def test_grouped_kernel_matches_plain(dev, bits, M):
+    # N = 200 leaves a ragged 64-column tile; M > 16 takes 64-row tiles
+    rng = np.random.default_rng(1000 + 10 * bits + M)
+    x, packed, scales = _grouped_inputs(rng, M, 200, 512, bits,
+                                        _resolve(bits, 512))
+    ref = K.quantized_matmul_plain(x, packed, scales, bits)
+    before = K.quantized_matmul.launches
+    y = K.quantized_matmul(x.to(dev), packed.to(dev), scales.to(dev), bits)
+    assert K.quantized_matmul.launches == before + 1
+    _grouped_close(y, ref)
+
+
+@pytest.mark.parametrize("bits,G", [(2, 16), (4, 32), (8, 48)])
+def test_grouped_kernel_explicit_group(dev, bits, G):
+    rng = np.random.default_rng(1100 + bits)
+    x, packed, scales = _grouped_inputs(rng, 5, 64, 768, bits, G)
+    ref = K.quantized_matmul_plain(x, packed, scales, bits, G)
+    _grouped_close(K.quantized_matmul(x.to(dev), packed.to(dev),
+                                       scales.to(dev), bits, G), ref)
+
+
+def test_grouped_kernel_input_rules(dev):
+    x = torch.zeros(2, 48, device=dev)
+    with pytest.raises(ValueError, match="K/f % 32"):
+        K.quantized_matmul(x, torch.zeros(4, 24, dtype=torch.uint8,
+                                           device=dev),
+                            torch.ones(4, 6, device=dev), 4)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("N,Kd", [(4096, 4096), (11008, 4096), (4096, 11008)])
+@pytest.mark.parametrize("M", [8, 512])
+def test_grouped_kernel_7b_shapes(dev, N, Kd, M):
+    rng = np.random.default_rng(1200 + M)
+    x, packed, scales = _grouped_inputs(rng, M, N, Kd, 4, _resolve(4, Kd))
+    ref = K.quantized_matmul_plain(x.to(dev), packed.to(dev),
+                                    scales.to(dev), 4)
+    _grouped_close(K.quantized_matmul(x.to(dev), packed.to(dev),
+                                       scales.to(dev), 4), ref)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 33])
+def test_w4a8_flat_kernel_matches_plain(dev, bits, M):
+    rng = np.random.default_rng(1300 + bits + M)
+    f = 8 // bits
+    x = torch.from_numpy(rng.normal(size=(M, 512)).astype(np.float32))
+    packed = torch.from_numpy(rng.integers(
+        0, 255 if bits == 8 else 256, size=(200, 512 // f), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(200, 1)).astype(np.float32))
+    ref = K.quantized_matmul_w4a8_plain(x, packed, scales, bits)
+    before = (K.quantized_matmul_w4a8.launches,
+              K.quantized_matmul_w4a8_stacked.launches)
+    y = K.quantized_matmul_w4a8(x.to(dev), packed.to(dev), scales.to(dev),
+                                 bits)
+    assert (K.quantized_matmul_w4a8.launches,
+            K.quantized_matmul_w4a8_stacked.launches) == (before[0] + 1,
+                                                           before[1])
+    _close(y, ref)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("N,Kd", [(4096, 4096), (11008, 4096), (4096, 11008)])
+def test_w4a8_flat_kernel_7b_shapes(dev, N, Kd):
+    rng = np.random.default_rng(1400)
+    x = torch.from_numpy(rng.normal(size=(8, Kd)).astype(np.float32)).to(dev)
+    packed = torch.from_numpy(rng.integers(0, 256, size=(N, Kd // 2),
+                                           dtype=np.uint8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(0.001, 0.02, size=(N, 1))
+                              .astype(np.float32)).to(dev)
+    _close(K.quantized_matmul_w4a8(x, packed, scales, 4),
+           K.quantized_matmul_w4a8_plain(x, packed, scales, 4))
+
+
+@pytest.mark.parametrize("mode", ["grouped", "w4a8"])
+def test_unfused_decode_on_card_counts_launches(dev, mode, monkeypatch):
+    # stacked.decode_step_batched over a 2-layer tiny-mha model: 7 launches
+    # of the mode's kernel per layer (the bf16 head has none), against the
+    # same step through the plain versions on the card
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import stacked
+    config = dataclasses.replace(TINY_MHA, num_layers=2)
+    params = bench_params.build_compressed_llama_params(
+        config, rank=16, seed=0, mode=mode, device=dev)
+    counter = (K.quantized_matmul if mode == "grouped"
+               else K.quantized_matmul_w4a8)
+    tokens = torch.tensor([1, 2, 3], device=dev)
+    pos = torch.tensor([0, 3, 5], dtype=torch.int32, device=dev)
+    caches = [llama.KVCache.create(config, 3, 16, device=dev)
+              for _ in range(2)]
+    before = counter.launches
+    got, _ = stacked.decode_step_batched(params, tokens, pos, caches[0],
+                                         config)
+    assert counter.launches == before + 7 * config.num_layers
+    monkeypatch.setattr(K, "quantized_matmul", K.quantized_matmul_plain)
+    monkeypatch.setattr(K, "quantized_matmul_w4a8",
+                        K.quantized_matmul_w4a8_plain)
+    ref, _ = stacked.decode_step_batched(params, tokens, pos, caches[1],
+                                         config)
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    # grouped: f32 sum order can move a bf16 cast by one ulp; w4a8: exact
+    # kernels, an int8 activation code can still flip at a knife edge
+    assert rel <= 5e-3, rel
+
+
+def _resolve(bits, Kd):
+    return K.resolve_group(bits, Kd, None)

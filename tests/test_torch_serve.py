@@ -186,12 +186,14 @@ def test_unported_options_raise():
     cfg = _port_config(_params("tiny")[0])
     with pytest.raises(NotImplementedError, match="Queue B item 12"):
         TFE.FastServingEngine(tparams, cfg, mlp_kernel=True, device="cpu")
+    # unfused stacked params serve without flash attention or chunked
+    # prefill (tests/test_torch_engines.py); those options need fused ones
     stacked = bench_params.build_compressed_llama_params(cfg, rank=4,
                                                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        TFE.FastServingEngine(stacked, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        TE.ServingEngine(tparams, cfg, device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        TFE.FastServingEngine(stacked, cfg, flash_attn=True, device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        TFE.FastServingEngine(stacked, cfg, prefill_chunk=8, device="cpu")
     with pytest.raises(ValueError, match="flash_attn"):
         TFE.FastServingEngine(object(), cfg, max_slots=2, max_seq_len=16,
                               flash_attn=True, device="cpu")
