@@ -24,7 +24,10 @@ caught):
    staged row decode kernels and the int8 head at the bench shape; the
    grouped bf16 matmul (bound: 989 TFLOP/s bf16 or bytes; beside one bf16
    torch.matmul on its weights dequantized beforehand) and the flat W4A8
-   matmul at Llama-2-7B's three projection shapes, M = 8 and 512.
+   matmul at Llama-2-7B's three projection shapes, M = 8 and 512; the paged
+   decode kernel at Llama-2-7B's heads, batch 8, over a randomly permuted
+   page table of about 2048 tokens per row at ragged positions, pages of 16
+   and 256 tokens, beside the staged kernel over the same context.
 3. One Llama-2-7B-width, 2-layer model, the same weights on the card and
    the CPU: 40 steps from position 0, each step on the card against the
    plain step on the CPU (from the CPU's cache, and from the card's own)
@@ -52,13 +55,27 @@ caught):
    launches and the head per prefill and tick); (c) the unfused
    ``FastServingEngine`` on the same params, bf16 cache (greedy tokens
    equal to (b)'s) and int8 cache.
+7. Paged serving, Llama-2-7B, 32 layers, on phase 4's params (run before
+   phase 6, which builds its own): (a) the paged fused step with identity
+   page tables and 256-token pages against the staged fused step, batch 8
+   from eight prefilled prompts: identical logits and K/V codes; (b)
+   ``PagedServingEngine(flash_attn=True, max_slots=8, page_size=16)`` on 24
+   seeded requests (prompts of 64-256 tokens, 16-48 new tokens, some
+   sampled) over a pool too small for all of them at once (sized by a dry
+   run of the native scheduler), every prefill and tick checked for its
+   exact launches, the first prefill and tick against the plain versions;
+   (c) the same engine with the prefix cache, 8 requests sharing a
+   256-token prefix; (d) ``ServingHTTPServer`` over the paged engine on
+   127.0.0.1: 8 concurrent completions, one streamed, and the health and
+   stats endpoints.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
 kernel's slice, with every count set to 0 just before it (phase 4's decode
 run for the W4A8, staged attention and int8 head kernels; phase 5 (a) for
 flash prefill and the all-batch kernel, 5 (b) for the inline kernel; phase
-6 (a) for the grouped kernel, 6 (b) for the flat W4A8 kernel;
+6 (a) for the grouped kernel, 6 (b) for the flat W4A8 kernel, 7 (b) for
+the paged kernel;
 ``launches_per_step`` per decode step or prefill, ``steps`` of them);
 ``ms``, ``plain_ms`` and ``bound_ms`` are per launch at the main path's
 shapes (for the W4A8 kernels, the mean over one layer's decode
@@ -285,6 +302,7 @@ def phase_kernels(torch, dev, record):
     _phase_kernels_prefill(torch, dev, gen, record)
     _phase_kernels_decode(torch, dev, gen, record)
     _phase_kernels_packed(torch, dev, gen, record)
+    _phase_kernels_paged(torch, dev, gen, record)
 
 
 def _phase_kernels_packed(torch, dev, gen, record):
@@ -558,6 +576,93 @@ def _phase_kernels_decode(torch, dev, gen, record):
     torch.cuda.empty_cache()
 
 
+def _phase_kernels_paged(torch, dev, gen, record):
+    """The paged decode kernel (``flash_decode_q8_paged``) at Llama-2-7B's
+    heads, batch 8, over about 2048 tokens of context per row: a randomly
+    permuted page table, ragged positions (0 and non-multiples of the
+    page), pages of 16 tokens (the paged engine's default, the record's
+    row) and of 256 (the staged kernel's block), dots i8 and f32; beside
+    the staged kernel over the same context in a contiguous cache. The
+    kernel is timed through its launcher: the wrapper's page-id check
+    reads the table back to the host, which a CUDA graph cannot capture."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT)
+
+    rec = record["flash_decode_q8_paged"]
+    B, KVH, G, D, ctx, Lk = 8, 32, 1, 128, 2048, 2
+    pos = [0, 300, 777, 1024, 1500, 1801, 2047, 2048]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    live = sum(pos)
+    q = torch.randn((B, KVH, G, D), generator=gen, device=dev)
+    kn = torch.randn((B, KVH, D), generator=gen, device=dev)
+    vn = torch.randn((B, KVH, D), generator=gen, device=dev)
+    nbytes = (KVH * live * (2 * D + 8) + 2 * B * KVH * G * D * 4
+              + 2 * B * KVH * D * 4 + B * 4)
+    staged_ms = {}
+    for dots in ("i8", "f32"):
+        # the staged kernel's block (256) over the same context
+        kc, vc = (torch.randint(-127, 128, (Lk, B, KVH, ctx, D),
+                                generator=gen, dtype=torch.int8, device=dev)
+                  for _ in range(2))
+        ksc, vsc = (torch.rand((Lk, B, KVH, ctx), generator=gen,
+                               device=dev) * 0.02 for _ in range(2))
+        staged_ms[dots] = _time_ms(torch, lambda i: AT._launch_decode(
+            "flash_decode_staged_launch", q, kc, vc, ksc, vsc, kn, vn,
+            i % Lk, p, 256, dots), 50)
+        del kc, vc, ksc, vsc
+    for P in (16, 256):
+        max_pages = ctx // P
+        NP = B * max_pages + 8
+        k = torch.randint(-127, 128, (Lk, NP, KVH, P, D), generator=gen,
+                          dtype=torch.int8, device=dev)
+        v = torch.randint(-127, 128, (Lk, NP, KVH, P, D), generator=gen,
+                          dtype=torch.int8, device=dev)
+        ks = torch.rand((Lk, NP, KVH, P), generator=gen, device=dev) * 0.02
+        vs = torch.rand((Lk, NP, KVH, P), generator=gen, device=dev) * 0.02
+        perm = torch.randperm(NP, generator=torch.Generator().manual_seed(P))
+        tables = perm[:B * max_pages].reshape(B, max_pages).to(
+            device=dev, dtype=torch.int32)
+        args = (q, k, v, ks, vs, kn, vn)
+        for dots in ("i8", "f32"):
+            out = AT.flash_decode_q8_paged(*args, 1, tables, p, dots=dots)
+            ref = AT.flash_decode_q8_paged_plain(*args, 1, tables, p,
+                                                 dots=dots)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
+            if dots == "i8":
+                ok = rel <= 1e-4
+                bound_txt = f"rel-Frobenius {rel:.3e} <= 1e-4"
+            else:
+                ok = torch.allclose(out, ref, rtol=2e-5, atol=2e-6)
+                bound_txt = "rtol 2e-5, atol 2e-6"
+            ms = _time_ms(torch, lambda i: AT._launch_decode(
+                "flash_decode_paged_launch", *args, i % Lk, p, P, dots,
+                page_tables=tables), 50)
+            plain_ms = _time_ms(
+                torch, lambda i: AT.flash_decode_q8_paged_plain(
+                    *args, i % Lk, tables, p, dots=dots), 2, reps=3)
+            bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
+                                  INT8_OPS_PER_S if dots == "i8"
+                                  else F32_OPS_PER_S)
+            print(f"flash_decode_q8_paged 7b page {P} dots={dots} B={B} "
+                  f"KVH={KVH} G={G} D={D} ctx {ctx} pos {pos}: max diff "
+                  f"{err:.3e} ({bound_txt}) kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                  f"{bound / ms:.1%} of bound); staged kernel over the same "
+                  f"context {staged_ms[dots]:.4f} ms "
+                  f"({ms / staged_ms[dots]:.2f}x)", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_decode_q8_paged page {P} {dots} "
+                                     "disagrees with plain")
+            rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+            if P == 16 and dots == "f32":
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by)
+        del k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
 def _build_fused(config, dev, seed):
     from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
     from ee274_convexcaldera_llm_quantization_tpu_torch.models import fused
@@ -595,7 +700,7 @@ def _kv_rel(torch, a, b, pos):
 
 
 def _copy_cache(cache, dev):
-    """A copy of any of the port's caches on ``dev``."""
+    """A copy of any of the port's caches or paged pools on ``dev``."""
     return dataclasses.replace(cache, **{
         f.name: getattr(cache, f.name).to(dev, copy=True)
         for f in dataclasses.fields(cache)})
@@ -618,6 +723,8 @@ class _PlainKernels:
                   AT.flash_decode_q8_staged_plain),
                  (AT, "flash_decode_q8", AT.flash_decode_q8_plain),
                  (AT, "flash_decode_q8_ab", AT.flash_decode_q8_ab_plain),
+                 (AT, "flash_decode_q8_paged",
+                  AT.flash_decode_q8_paged_plain),
                  (AT, "flash_prefill", AT.flash_prefill_plain)]
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
         for m, n, plain in swaps:
@@ -924,13 +1031,17 @@ class _Watch:
 
     def __init__(self, torch, counters, per_prefill, per_tick,
                  first_prefill=None, first_tick=None, module=None,
-                 names=("prefill_into_slot_fused", "decode_step_fused")):
+                 names=("prefill_into_slot_fused", "decode_step_fused"),
+                 extra=None):
         self.torch, self.counters = torch, counters
         self.per_prefill, self.per_tick = per_prefill, per_tick
         self.first_prefill, self.first_tick = first_prefill, first_tick
         self.module, self.names = module, names
         self.prefill_ms, self.tick_ms = {}, []
         self.counted = [0] * len(counters)
+        # more prefill-like functions of the module: name -> (launches per
+        # call, first(fn, args, kw, logits) run once after the first call)
+        self.extra, self.extra_ms = extra or {}, {}
 
     def _wrap(self, fn, expected, on_done, before_call=None):
         def wrapped(*args, **kw):
@@ -965,7 +1076,7 @@ class _Watch:
         self.prefill_ms.setdefault(tokens.shape[1], []).append(ms)
         if self.first_prefill is not None:
             first, self.first_prefill = self.first_prefill, None
-            first(self.saved[0], tokens, kw["last_pos"], logits)
+            first(self.saved[0], tokens, kw.get("last_pos"), logits)
 
     def __enter__(self):
         if self.module is None:
@@ -979,22 +1090,45 @@ class _Watch:
         setattr(m, dec, self._wrap(self.saved[1], self.per_tick,
                                    lambda ms, *_: self.tick_ms.append(ms),
                                    self._tick_check))
+        self.saved_extra = {}
+        for name, (expected, first) in self.extra.items():
+            fn = self.saved_extra[name] = getattr(m, name)
+            setattr(m, name, self._wrap(fn, expected,
+                                        self._extra_done(name, fn, first)))
         return self
+
+    def _extra_done(self, name, fn, first):
+        pending = [first]
+
+        def done(ms, args, kw, logits):
+            self.extra_ms.setdefault(name, {}).setdefault(
+                args[1].shape[1], []).append(ms)
+            if pending[0] is not None:
+                check, pending[0] = pending[0], None
+                check(fn, args, kw, logits)
+        return done
 
     def __exit__(self, *exc):
         for name, fn in zip(self.names, self.saved):
             setattr(self.module, name, fn)
+        for name, fn in self.saved_extra.items():
+            setattr(self.module, name, fn)
         return False
 
 
-def _serve(torch, engine, watch, reqs, new_tokens, done_out=None):
-    """Submit ``reqs``, run the engine to the end under ``watch``, check
+def _serve(torch, engine, watch, reqs, new_tokens=None, done_out=None):
+    """Submit ``reqs`` (each with ``new_tokens`` new tokens, or its own
+    ``max_new_tokens``), run the engine to the end under ``watch``, check
     every completion; returns (wall seconds, tokens generated). The
     completions are appended to ``done_out`` when given."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.serve.engine import (
         Request)
+    want = {}
     for r in reqs:
-        engine.submit(Request(max_new_tokens=new_tokens, **r))
+        if new_tokens is not None:
+            r = dict(r, max_new_tokens=new_tokens)
+        want[r["uid"]] = r["max_new_tokens"]
+        engine.submit(Request(**r))
     t0 = time.perf_counter()
     with watch:
         done = engine.run()
@@ -1003,7 +1137,7 @@ def _serve(torch, engine, watch, reqs, new_tokens, done_out=None):
     if sorted(c.uid for c in done) != [r["uid"] for r in reqs]:
         raise AssertionError("not every request completed")
     for c in done:
-        if c.finished_reason != "length" or len(c.tokens) != new_tokens:
+        if c.finished_reason != "length" or len(c.tokens) != want[c.uid]:
             raise AssertionError(f"request {c.uid}: {c.finished_reason}, "
                                  f"{len(c.tokens)} tokens")
     if done_out is not None:
@@ -1105,6 +1239,369 @@ def phase_serving(torch, dev, params, record):
         del engine
         torch.cuda.empty_cache()
 
+
+def _page_plan(lens, news, slots, num_pages, page):
+    """Serve a trace (prompt lengths ``lens``, new tokens ``news``) on the
+    native allocator and scheduler alone, in the paged engine's order of
+    calls: each tick admits, reserves one position per live request
+    (``record_token``) and then retires the finished ones. Returns (ticks
+    in which a slot was free but the queue's head waited for pages, peak
+    pages in use, whether some page table was not one run of consecutive
+    pages), or None when a request can never be admitted or the pool runs
+    dry inside a tick (the admission check counts a decode page per request
+    but does not hold it back; ROADMAP R8)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.runtime import (
+        NativeScheduler, PageAllocator)
+    alloc = PageAllocator(num_pages, page)
+    sched = NativeScheduler(slots, alloc)
+    for uid, (n, m) in enumerate(zip(lens, news)):
+        sched.submit(uid, int(n), int(m))
+    made, waits, peak, scattered = {}, 0, 0, False
+    while sched.queue_len or sched.active_count:
+        admitted = sched.admit()
+        if not admitted and not made:
+            return None
+        for uid, _ in admitted:
+            made[uid] = 1
+        waits += bool(sched.queue_len and sched.active_count < slots)
+        try:
+            finished = {uid: sched.record_token(uid) for uid in made}
+        except MemoryError:
+            return None
+        peak = max(peak, num_pages - alloc.free_pages)
+        for uid in list(made):
+            pages = alloc.page_table(uid)
+            scattered |= bool((pages[1:] != pages[:-1] + 1).any())
+            made[uid] += 1
+            if finished[uid] or made[uid] >= news[uid]:
+                sched.finish(uid)
+                del made[uid]
+    return waits, peak, scattered
+
+
+def phase_paged(torch, dev, params, record):
+    """Paged serving, Llama-2-7B, 32 layers, on the fused W4A8 params with
+    int8 factors of phases 4-5:
+
+    (a) identity page tables and 256-token pages (the staged kernel's
+    block): eight seeded prompts prefilled into a contiguous cache and into
+    a pool, then 4 steps of ``paged_decode_step_fused`` against
+    ``decode_step_fused(staged_kv=True)``, dots i8: identical logits and
+    K/V codes (the same kernels over the same blocks);
+    (b) ``PagedServingEngine(flash_attn=True, max_slots=8, page_size=16)``:
+    24 seeded requests (prompts of 64, 128, 192 or 256 tokens, 16-48 new
+    tokens, every fourth sampled) over the largest pool below the 8 slots'
+    demand on which a dry run of the native scheduler makes admission wait
+    for pages and never runs dry; every prefill and tick checked for its
+    exact launches, the first prefill and tick against the plain versions;
+    (c) the same engine with the prefix cache: 8 requests sharing a
+    256-token prefix, then 16-64 tokens of their own; the first suffix
+    prefill against the plain versions;
+    (d) ``ServingHTTPServer`` over a paged engine on 127.0.0.1: 8 concurrent
+    completions (one streamed), ``/health`` and ``/v1/stats``."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import paged
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.http_server \
+        import ServingHTTPServer
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.paged_engine \
+        import PagedServingEngine
+
+    config = LLAMA2_7B
+    L, KVH, V = config.num_layers, config.num_kv_heads, config.vocab_size
+    t_phase = time.perf_counter()
+
+    # (a) the paged step is the staged step
+    B, P, n = 8, 256, 2
+    rng = np.random.default_rng(71)
+    lens = rng.integers(16, 300, B)
+    cache = llama.HeadMajorQuantKVCache.create(config, B, n * P, device=dev)
+    pool = paged.PagedQuantKVPool.create(config, B * n, P, device=dev)
+    tables = torch.arange(B * n, dtype=torch.int32, device=dev).reshape(B, n)
+    for b, S in enumerate(lens):
+        prompt = torch.from_numpy(rng.integers(0, V, (1, int(S)))).to(dev)
+        lc, _ = fused.prefill_into_slot_fused(params, prompt, b, cache,
+                                              config, flash=True)
+        lp, _ = paged.paged_prefill_fused(params, prompt, pool, tables[b],
+                                          config, flash=True)
+        if not torch.equal(lc, lp):
+            raise AssertionError(f"paged (a): prefill {b} logits differ")
+    pos = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    tok = torch.from_numpy(rng.integers(0, V, B)).to(dev)
+    for step in range(4):
+        lc, _ = fused.decode_step_fused(params, tok, pos, cache, config,
+                                        staged_kv=True, attn_dots="i8")
+        lp, _ = paged.paged_decode_step_fused(params, tok, pos, pool, tables,
+                                              config, attn_dots="i8")
+        if not torch.equal(lc, lp):
+            raise AssertionError(f"paged (a): step {step} logits differ")
+        tok, pos = lc.argmax(-1), pos + 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        c = getattr(cache, name)                  # (L, B, KVH, n * P[, D])
+        pg = getattr(pool, name).reshape(L, B, n, KVH, P, *c.shape[4:])
+        if not torch.equal(c, pg.transpose(2, 3).reshape(c.shape)):
+            raise AssertionError(f"paged (a): pool {name} differs from the "
+                                 "staged cache")
+    print(f"paged (a): identity tables, {P}-token pages, B={B}, prompts "
+          f"{lens.tolist()} (flash prefill), 4 steps at dots i8: logits and "
+          f"K/V codes of paged_decode_step_fused identical to "
+          f"decode_step_fused(staged_kv=True)", flush=True)
+    del cache, pool
+    torch.cuda.empty_cache()
+
+    names = ("w4a8_stacked", "flash_prefill", "flash_decode_q8_paged",
+             "flash_decode_q8_staged", "flash_decode_q8_ab",
+             "flash_decode_q8", "int8_matmul")
+    counters = (K.quantized_matmul_w4a8_stacked, AT.flash_prefill,
+                AT.flash_decode_q8_paged, AT.flash_decode_q8_staged,
+                AT.flash_decode_q8_ab, AT.flash_decode_q8, K.int8_matmul)
+    per_prefill = (4 * L, L, 0, 0, 0, 0, 1)
+    per_suffix = (4 * L, 0, 0, 0, 0, 0, 1)
+    per_tick = (4 * L, 0, L, 0, 0, 0, 1)
+    page = 16
+
+    def check_prefill(prefill, tokens, _, logits):
+        S = tokens.shape[1]
+        fresh = paged.PagedQuantKVPool.create(config, -(-S // page), page,
+                                              device=dev)
+        table = torch.arange(fresh.num_pages, dtype=torch.int32, device=dev)
+        with _PlainKernels():
+            plain, _ = prefill(params, tokens, fresh, table, config,
+                               flash=True)
+        e = _rel(torch, logits[None], plain[None])
+        print(f"paged: first prefill ({S} tokens) kernels vs plain versions "
+              f"on the card: logits rel-Frobenius {e:.3e} (bound "
+              f"{KERN_REL:g})", flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, logits[None],
+                                               plain[None])):
+            raise AssertionError("paged: the first prefill's kernels "
+                                 "disagree with the plain versions")
+
+    def check_tick(decode, args, kw):
+        params_, tokens, pos_, pool_, tables_, cfg = args
+        rows = kw["active"].nonzero()[:, 0]
+        kern, _ = decode(params_, tokens, pos_, _copy_cache(pool_, dev),
+                         tables_, cfg, **kw)
+        with _PlainKernels():
+            plain, _ = decode(params_, tokens, pos_, _copy_cache(pool_, dev),
+                              tables_, cfg, **kw)
+        e = _rel(torch, kern[rows], plain[rows])
+        print(f"paged: first tick (positions {pos_.tolist()}) kernels vs "
+              f"plain versions on the card: logits rel-Frobenius {e:.3e} "
+              f"(bound {KERN_REL:g})", flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, kern[rows],
+                                               plain[rows])):
+            raise AssertionError("paged: the first tick's kernels disagree "
+                                 "with the plain versions")
+
+    def check_suffix(prefill, args, kw, logits):
+        params_, tokens, cached, pool_, table, cfg = args
+        with _PlainKernels():
+            plain, _ = prefill(params_, tokens, cached,
+                               _copy_cache(pool_, dev), table, cfg)
+        e = _rel(torch, logits[None], plain[None])
+        print(f"paged (c): first suffix prefill ({tokens.shape[1]} tokens "
+              f"after {cached} cached) kernels vs plain versions on the "
+              f"card: logits rel-Frobenius {e:.3e} (bound {KERN_REL:g})",
+              flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, logits[None],
+                                               plain[None])):
+            raise AssertionError("paged (c): the first suffix prefill's "
+                                 "kernels disagree with the plain versions")
+
+    def report(run, engine, watch, reqs, wall, ntok):
+        totals = dict(zip(names, watch.counted))
+        n_pre = sum(len(v) for v in watch.prefill_ms.values())
+        n_suf = sum(len(v) for d in watch.extra_ms.values()
+                    for v in d.values())
+        print(f"paged ({run}) llama2-7b, {len(reqs)} requests, page_size "
+              f"{engine.page_size}, {engine.allocator.num_pages} pages: "
+              f"{n_pre} prefills, {n_suf} suffix prefills, "
+              f"{len(watch.tick_ms)} decode ticks, each with its exact "
+              f"launches; totals {totals}", flush=True)
+        for label, table in (("prefill", watch.prefill_ms),
+                             ("suffix prefill", watch.extra_ms.get(
+                                 "paged_prefill_suffix_fused", {}))):
+            for S, ms in sorted(table.items()):
+                print(f"  {label} {S} tokens: {len(ms)} x, median "
+                      f"{statistics.median(ms):.1f} ms "
+                      f"({', '.join(f'{m:.1f}' for m in ms)})", flush=True)
+        print(f"  decode tick: median {statistics.median(watch.tick_ms):.2f}"
+              f" ms (min {min(watch.tick_ms):.2f}, max "
+              f"{max(watch.tick_ms):.2f}); {ntok} tokens in {wall:.2f} s "
+              f"wall: {ntok / wall:.1f} tokens/s", flush=True)
+        return totals
+
+    # (b) the paged engine over a pool too small for every request at once
+    rng = np.random.default_rng(70)
+    lens = rng.choice([64, 128, 192, 256], 24)
+    news = rng.integers(16, 49, 24)
+    reqs = [dict(uid=i, prompt=rng.integers(0, V, int(m)).astype(np.int32),
+                 max_new_tokens=int(news[i]),
+                 **(dict(temperature=0.8, top_k=50, top_p=0.9) if i % 4 == 3
+                    else {})) for i, m in enumerate(lens)]
+    need = sorted(-(-(int(a) + int(b)) // page) for a, b in zip(lens, news))
+    for num_pages in range(sum(need[-8:]), need[-1], -1):
+        plan = _page_plan(lens, news, 8, num_pages, page)
+        if plan is not None and plan[0] > 0:
+            break
+    else:
+        raise AssertionError("paged (b): no pool size makes admission wait")
+    waits, plan_peak, scattered = plan
+    print(f"paged (b): pool of {num_pages} pages of {page} tokens (the 8 "
+          f"largest requests need {sum(need[-8:])}, all 24 {sum(need)}); "
+          f"the scheduler's dry run: admission waits for pages in {waits} "
+          f"ticks, peak {plan_peak} pages, scattered page tables "
+          f"{scattered}", flush=True)
+    if not scattered:
+        raise AssertionError("paged (b): every page table is contiguous")
+    engine = PagedServingEngine(params, config, max_slots=8,
+                                num_pages=num_pages, page_size=page,
+                                flash_attn=True, device=dev)
+    peak = [0]
+    step = engine.step
+
+    def counted_step():
+        step()
+        peak[0] = max(peak[0], num_pages - engine.allocator.free_pages)
+
+    engine.step = counted_step
+    watch = _Watch(torch, counters, per_prefill, per_tick, check_prefill,
+                   check_tick, module=paged,
+                   names=("paged_prefill_fused", "paged_decode_step_fused"))
+    for c in counters:
+        c.launches = 0
+    wall, ntok = _serve(torch, engine, watch, reqs)
+    totals = report("b", engine, watch, reqs, wall, ntok)
+    print(f"  peak pages in use {peak[0]} of {num_pages} (dry run "
+          f"{plan_peak}); all returned: {engine.allocator.free_pages}",
+          flush=True)
+    if peak[0] != plan_peak or engine.allocator.free_pages != num_pages:
+        raise AssertionError("paged (b): the engine's page use differs "
+                             "from the scheduler's dry run")
+    record["flash_decode_q8_paged"].update(
+        launches=totals["flash_decode_q8_paged"], launches_per_step=L,
+        steps=len(watch.tick_ms))
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) the prefix cache: 8 requests sharing a 256-token prefix
+    rng = np.random.default_rng(72)
+    prefix = rng.integers(0, V, 256)
+    reqs = [dict(uid=i, prompt=np.concatenate(
+        [prefix, rng.integers(0, V, int(rng.integers(16, 65)))]).astype(
+            np.int32), max_new_tokens=16) for i in range(8)]
+    engine = PagedServingEngine(params, config, max_slots=8, page_size=page,
+                                flash_attn=True, prefix_cache=True,
+                                device=dev)
+    watch = _Watch(torch, counters, per_prefill, per_tick, module=paged,
+                   names=("paged_prefill_fused", "paged_decode_step_fused"),
+                   extra={"paged_prefill_suffix_fused": (per_suffix,
+                                                         check_suffix)})
+    wall, ntok = _serve(torch, engine, watch, reqs)
+    report("c", engine, watch, reqs, wall, ntok)
+    hits, lookups = engine.allocator.cache_stats
+    cold = statistics.median(v for d in watch.prefill_ms.values() for v in d)
+    warm = statistics.median(v for d in watch.extra_ms[
+        "paged_prefill_suffix_fused"].values() for v in d)
+    print(f"  cache_stats: {hits} of {lookups} prompt tokens served from the "
+          f"prefix cache; suffix prefill median {warm:.1f} ms against the "
+          f"cold prefill's {cold:.1f} ms", flush=True)
+    if hits != 7 * 256:
+        raise AssertionError(f"paged (c): {hits} cached tokens, expected "
+                             f"{7 * 256}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (d) the HTTP front end over a paged engine
+    engine = PagedServingEngine(params, config, max_slots=8, page_size=page,
+                                flash_attn=True, device=dev)
+    streamed_len = 100
+    final = {}
+    finish = engine._finish
+
+    def keep(uid, reason):
+        finish(uid, reason)
+        final[engine.completions[-1].prompt_len] = engine.completions[-1]
+
+    engine._finish = keep
+    srv = ServingHTTPServer(engine, port=0, request_timeout_s=300).start()
+    base = f"http://{srv.host}:{srv.port}"
+    rng = np.random.default_rng(73)
+    bodies = [dict(prompt=rng.integers(0, V, 64 + i).tolist(),
+                   max_tokens=8 + 2 * i) for i in range(7)]
+    bodies.append(dict(prompt=rng.integers(0, V, streamed_len).tolist(),
+                       max_tokens=12, stream=True))
+    answers, errors = {}, []
+
+    def client(i):
+        req = urllib.request.Request(
+            base + "/v1/completions", data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if not bodies[i].get("stream"):
+                    answers[i] = json.loads(r.read())
+                    return
+                chunks = []
+                for raw in r:
+                    line = raw.decode().strip()
+                    if line == "data: [DONE]":
+                        break
+                    if line.startswith("data: "):
+                        chunks.append(json.loads(line[len("data: "):]))
+                answers[i] = chunks
+        except Exception as e:        # reported and raised below
+            errors.append(f"request {i}: {e!r}")
+
+    t1 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        with urllib.request.urlopen(base + "/v1/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.stop()
+    wall = time.perf_counter() - t1
+    if errors or srv.runner.error is not None:
+        raise AssertionError(f"paged (d): {errors} {srv.runner.error!r}")
+    if health != {"status": "ok"}:
+        raise AssertionError(f"paged (d): /health answered {health}")
+    for i, body in enumerate(bodies[:-1]):
+        a = answers[i]
+        if a["finished_reason"] != "length" or len(a["tokens"]) != \
+                body["max_tokens"]:
+            raise AssertionError(f"paged (d): request {i} answered {a}")
+    chunks = answers[len(bodies) - 1]
+    streamed = [t for c in chunks for t in c.get("tokens", [])]
+    if (chunks[-1].get("finished_reason") != "length"
+            or streamed != final[streamed_len].tokens
+            or len(streamed) != bodies[-1]["max_tokens"]):
+        raise AssertionError(f"paged (d): the stream {chunks} does not "
+                             "concatenate to the completion's tokens")
+    print(f"paged (d): ServingHTTPServer on 127.0.0.1, {len(bodies)} "
+          f"concurrent completions ({len(chunks) - 1} streamed chunks "
+          f"concatenating to the final {len(streamed)} tokens), each with its "
+          f"max_tokens, in {wall:.2f} s; /health {health}; /v1/stats "
+          f"{stats}", flush=True)
+    del engine, srv
+    torch.cuda.empty_cache()
+    print(f"paged phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 def _views(params, config):
     """Per-layer ``llama.ModelParams`` over stacked params: every tensor of
@@ -1380,6 +1877,8 @@ def main() -> int:
                                  replaces=ref + "kernels.py:222"),
         "quantized_matmul_w4a8": dict(source=src + "w4a8_stacked.cu",
                                       replaces=ref + "kernels.py:460"),
+        "flash_decode_q8_paged": dict(source=src + "flash_decode.cu",
+                                      replaces=ref + "attention.py:761"),
     }
     measured = ("launches", "launches_per_step", "steps", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1390,6 +1889,7 @@ def main() -> int:
     phase_width(torch, dev)
     params = phase_full(torch, dev, record)
     phase_serving(torch, dev, params, record)
+    phase_paged(torch, dev, params, record)
     del params
     torch.cuda.empty_cache()
     phase_unfused(torch, dev, record)
@@ -1402,8 +1902,9 @@ def main() -> int:
     # quantized_matmul, one bf16 torch.matmul on its weights dequantized
     # beforehand. No single PyTorch call computes the other functions
     # (packed offset-binary codes rescaled per row of int8 activations;
-    # attention over an int8 cache with per-token scales, and int8
-    # probabilities in dots="i8"), so theirs is null.
+    # attention over an int8 cache with per-token scales, or over an int8
+    # pool through a page table, and int8 probabilities in dots="i8"), so
+    # theirs is null.
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"],
                     **{k: r[k] for k in measured},

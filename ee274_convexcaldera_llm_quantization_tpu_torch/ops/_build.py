@@ -59,6 +59,10 @@ ENTRIES = {
         # as staged, then staged (0/1) before the stream
         "flash_decode_ab_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        # q, k, v, ks, vs, k_new, v_new, pos, page_tables, out, B, KVH, G,
+        # D, max_pages, page_size, scale, i8, stream
+        "flash_decode_paged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "flash_prefill": {
         # q, k, v, out, B, S, H, KVH, D, scale, stream

@@ -10,6 +10,9 @@ for the serving path. The decode cache is ``(L, B, KVH, T, D)`` int8 with
   the cache, and the tokens ``<= pos[b]`` are attended.
 - :func:`flash_decode_q8_ab`: the all-batch kernel's function, staged or
   inline, on the block partition of :func:`_ab_blocks`.
+- :func:`flash_decode_q8_paged`: the staged function over a paged pool
+  ``(L, NP, KVH, P, D)`` int8 / ``(L, NP, KVH, P)`` f32 through
+  ``(B, max_pages)`` page tables; block == page.
 - :func:`flash_prefill`: causal GQA self-attention of a prompt, f32.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/flash_decode.cu``,
@@ -200,32 +203,50 @@ def flash_decode_q8_ab_plain(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
 # ---------------------------------------------------------------------------
 
 def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
-                   pos, bt: int, dots: str, *flags: int) -> torch.Tensor:
+                   pos, bt: int, dots: str, *flags: int,
+                   page_tables=None) -> torch.Tensor:
     """Check the operands and launch one entry of ``csrc/flash_decode.cu``
-    on layer ``layer`` of the cache (a pointer offset, never a copy)."""
+    on layer ``layer`` of the cache or pool (a pointer offset, never a
+    copy). ``page_tables`` (B, max_pages) selects the paged entry, whose
+    blocks are the pool's pages (``bt`` = page size); the caller has checked
+    the page ids (:func:`_check_pages`)."""
     B, KVH, G, D = q.shape
     T = k.shape[3]
     if G > 8 or D > 128 or D % 16 or bt > _MAX_CUDA_BLOCK_T:
         raise ValueError(
             f"the CUDA decode kernel takes G <= 8, D <= 128 with D % 16 == 0 "
-            f"and blocks of at most {_MAX_CUDA_BLOCK_T} tokens; got G={G} "
-            f"D={D} block_t={bt} (T={T}; the all-batch partition is one "
-            "block of the whole T when T <= 128 or T % 128 != 0)")
+            f"and blocks (pages) of at most {_MAX_CUDA_BLOCK_T} tokens; got "
+            f"G={G} D={D} block_t={bt} (T={T}; the all-batch partition is "
+            "one block of the whole T when T <= 128 or T % 128 != 0)")
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError("the KV cache must be int8")
     qf = q.float().contiguous()
     ksf, vsf = ks.float(), vs.float()
     pos32 = pos.to(torch.int32).contiguous()
-    news = []
+    news, tables = [], []
     if k_new is not None:
         news = [_current_layer(t, layer).float().contiguous()
                 for t in (k_new, v_new)]
-    for t in (qf, k, v, ksf, vsf, pos32, *news):
+    if page_tables is not None:
+        tables = [page_tables.to(torch.int32).contiguous()]
+    # the kernel reads through raw pointers: every shape must agree first
+    streams = (B if page_tables is None else k.shape[1], KVH)
+    if (k.dim() != 5 or tuple(k.shape[1:3]) != streams or k.shape[4] != D
+            or v.shape != k.shape or ks.shape != k.shape[:4]
+            or vs.shape != k.shape[:4] or tuple(pos32.shape) != (B,)
+            or any(tuple(t.shape) != (B, KVH, D) for t in news)
+            or any(t.shape[0] != B for t in tables)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+            f"scales {tuple(ks.shape)}, pos {tuple(pos.shape)}, current "
+            f"K/V {[tuple(t.shape) for t in news]}, page tables "
+            f"{[tuple(t.shape) for t in tables]}")
+    for t in (qf, k, v, ksf, vsf, pos32, *news, *tables):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("attention operands must be contiguous and on "
                              "one device")
-    layer_kv = B * KVH * T * D
-    layer_s = B * KVH * T * 4
+    layer_kv = k[0].numel()
+    layer_s = ksf[0].numel() * 4
     out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
     ptrs = [qf.data_ptr(), k.data_ptr() + layer * layer_kv,
             v.data_ptr() + layer * layer_kv, ksf.data_ptr() + layer * layer_s,
@@ -233,10 +254,13 @@ def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
     ptrs += [t.data_ptr() for t in news] or [None, None]
     if entry == "flash_decode_inline_launch":
         ptrs = ptrs[:5]
+    ptrs.append(pos32.data_ptr())
+    if tables:
+        ptrs.append(tables[0].data_ptr())
+        T = tables[0].shape[1]              # the entry takes max_pages
     fn = getattr(_build.library("flash_decode"), entry)
-    err = fn(*ptrs, pos32.data_ptr(), out.data_ptr(), B, KVH, G, D, T, bt,
-             _scale_f32(D), int(dots == "i8"), *flags,
-             _build.stream_ptr(q.device))
+    err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, T, bt, _scale_f32(D),
+             int(dots == "i8"), *flags, _build.stream_ptr(q.device))
     _build.check(err, entry)
     return out
 
@@ -329,6 +353,80 @@ flash_decode_q8_ab.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Paged decode (CUDA: csrc/flash_decode.cu, flash_decode_paged_launch)
+# ---------------------------------------------------------------------------
+
+def _check_pages(page_tables, num_pages: int) -> None:
+    """Every page id in range: on the card an id out of range is an illegal
+    address, not a wrong answer (and torch would wrap a negative one)."""
+    if page_tables.dim() != 2 or page_tables.dtype.is_floating_point:
+        raise ValueError("page_tables must be an integer (B, max_pages) "
+                         f"tensor, got {page_tables.dtype} "
+                         f"{tuple(page_tables.shape)}")
+    lo, hi = (int(x) for x in torch.aminmax(page_tables))
+    if lo < 0 or hi >= num_pages:
+        raise IndexError(f"page ids [{lo}, {hi}] out of range for a pool of "
+                         f"{num_pages} pages")
+
+
+def _gather_pages(pool, layer: int, page_tables) -> torch.Tensor:
+    """Layer ``layer`` of a paged pool ``(L, NP, KVH, P[, D])`` gathered
+    through ``(B, max_pages)`` tables into a contiguous one-layer cache
+    ``(1, B, KVH, max_pages * P[, D])``: logical token ``j`` of row ``b`` is
+    page ``page_tables[b, j // P]``, offset ``j % P``."""
+    g = pool[layer][page_tables.long()].transpose(1, 2)
+    B, KVH, n, P = g.shape[:4]
+    return g.reshape(B, KVH, n * P, *g.shape[4:])[None]
+
+
+def flash_decode_q8_paged_plain(q, k, v, ks, vs, k_new, v_new, layer: int,
+                                page_tables, pos,
+                                dots: str = "f32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_decode_q8_paged`: each row's
+    pages gathered through its table into a contiguous cache ``(1, B, KVH,
+    max_pages * P, D)``, then the staged kernel's walk with one block per
+    page (in ``dots="i8"`` the blocks are part of the result) and the
+    current token."""
+    P = k.shape[3]
+    kg, vg, ksg, vsg = (_gather_pages(t, layer, page_tables)
+                        for t in (k, v, ks, vs))
+    m, s, acc = _decode_blocks_plain(q, kg, vg, ksg, vsg, 0, pos, P, dots,
+                                     staged=True)
+    return _add_current_token(q, m, s, acc, k_new, v_new, layer)
+
+
+def flash_decode_q8_paged(q, k, v, ks, vs, k_new, v_new, layer: int,
+                          page_tables, pos, dots: str = "f32"
+                          ) -> torch.Tensor:
+    """Single-token attention over layer ``layer`` of a paged head-major
+    int8 KV pool, plus the staged current token.
+
+    Args: ``q`` (B, KVH, G, D) f32; ``k``/``v`` (L, NP, KVH, P, D) int8;
+    ``ks``/``vs`` (L, NP, KVH, P) f32; ``k_new``/``v_new`` this step's
+    dequantized K/V, (B, KVH, D) or layer-stacked (L, B, KVH, D);
+    ``page_tables`` (B, max_pages) int, every id ``< NP``; ``pos`` (B,)
+    int32, the pool holding row ``b``'s tokens ``< pos[b]`` (logical token
+    ``j`` at page ``page_tables[b, j // P]``, offset ``j % P``); ``dots``
+    "i8" or "f32". Block == page, so pages hold at most 256 tokens on the
+    card. Returns (B, KVH, G, D) f32.
+    """
+    _check_dots(dots)
+    _check_layer(k, layer)
+    _check_pages(page_tables, k.shape[1])
+    if q.device.type == "cpu":
+        return flash_decode_q8_paged_plain(q, k, v, ks, vs, k_new, v_new,
+                                           layer, page_tables, pos, dots)
+    out = _launch_decode("flash_decode_paged_launch", q, k, v, ks, vs, k_new,
+                         v_new, layer, pos, k.shape[3], dots,
+                         page_tables=page_tables)
+    flash_decode_q8_paged.launches += 1
+    return out
+
+
+flash_decode_q8_paged.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Exact-softmax twins (the reference's *_xla functions), plain PyTorch
 # ---------------------------------------------------------------------------
 
@@ -370,6 +468,18 @@ def flash_decode_q8_staged_xla(q, k, v, ks, vs, k_new, v_new, layer: int,
     pv = probs[..., :T] * vs[layer].float()[:, :, None, :]
     out = torch.einsum("bhgt,bhtd->bhgd", pv, v[layer].float())
     return out + probs[..., T:] * vn[:, :, None, :]
+
+
+def flash_decode_q8_paged_xla(q, k, v, ks, vs, k_new, v_new, layer: int,
+                              page_tables, pos) -> torch.Tensor:
+    """Exact-softmax twin of :func:`flash_decode_q8_paged` with f32 dots
+    (the reference's ``flash_decode_q8_paged_xla``): the rows' pages
+    gathered, then :func:`flash_decode_q8_staged_xla`."""
+    kg, vg, ksg, vsg = (_gather_pages(t, layer, page_tables)
+                        for t in (k, v, ks, vs))
+    return flash_decode_q8_staged_xla(q, kg, vg, ksg, vsg,
+                                      _current_layer(k_new, layer),
+                                      _current_layer(v_new, layer), 0, pos)
 
 
 # ---------------------------------------------------------------------------

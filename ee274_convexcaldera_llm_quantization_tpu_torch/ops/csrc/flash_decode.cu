@@ -2,7 +2,7 @@
 // per (b, kv-head) with G grouped query heads, online softmax over the live
 // token blocks of one layer (int8 codes, per-(token, head) f32 scales).
 //
-// One kernel template, three entry points, each replacing one TPU kernel of
+// One kernel template, four entry points, each replacing one TPU kernel of
 // ee274_convexcaldera_llm_quantization_tpu/ops/attention.py:
 // - flash_decode_staged_launch: flash_decode_q8_staged
 //   (_flash_decode_q8_staged_kernel). The cache holds the tokens < pos[b];
@@ -23,6 +23,14 @@
 //   _ab_blocks' block_t, which in dots="i8" is part of the result), computes
 //   the ab kernel's function. The slab exists on the TPU to make fewer,
 //   larger DMAs; on the GPU every (b, head) stream is already one CTA.
+// - flash_decode_paged_launch: flash_decode_q8_paged (the staged kernel on a
+//   grid whose block t of row b is pool page page_tables[b, t]: block ==
+//   page). The cache is one layer of a paged pool (NP, KVH, P, D) int8 with
+//   (NP, KVH, P) scales; block t of (b, h) starts at ((pt[b, t] * KVH + h) *
+//   P) * D. The same body runs with the page table as a pointer (null for
+//   the contiguous entries), so the staged and paged functions are one code
+//   path. Only the live pages t < ceil(pos[b] / P) are read: the TPU's
+//   clamped re-reads of the last page for dead blocks never contribute.
 //
 // Bound on an H100: the live K/V codes and scales (2 * live * (D + 4) bytes
 // per (b, head)); the operations are 4 * G * D per live token, far below
@@ -72,7 +80,9 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // q (B, KVH, G, D) f32; k, v (B, KVH, T, D) int8 of the selected layer;
 // ks, vs (B, KVH, T) f32; kn, vn (B, KVH, D) f32 (read only when STAGED);
-// pos (B) int32; out (B, KVH, G, D) f32.
+// pos (B) int32; out (B, KVH, G, D) f32. With a page table pt (B,
+// max_pages) int32, k, v are (NP, KVH, bt, D) and ks, vs (NP, KVH, bt)
+// instead, and T = max_pages * bt.
 template <bool I8, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const float* __restrict__ q,
@@ -83,6 +93,7 @@ flash_decode_kernel(const float* __restrict__ q,
                     const float* __restrict__ kn,
                     const float* __restrict__ vn,
                     const int* __restrict__ pos,
+                    const int* __restrict__ pt, int max_pages,
                     float* __restrict__ out, int KVH, int G, int D, int T,
                     int bt, float scale) {
   __shared__ float qf[kMaxG * kMaxD];
@@ -95,6 +106,7 @@ flash_decode_kernel(const float* __restrict__ q,
 
   const int bh = blockIdx.x;  // b * KVH + h
   const int b = bh / KVH;
+  const int h = bh - b * KVH;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -125,23 +137,28 @@ flash_decode_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) acc[g] = 0.f;
 
-  const int8_t* kb = k + (size_t)bh * T * D;
-  const int8_t* vb = v + (size_t)bh * T * D;
-  const float* ksb = ks + (size_t)bh * T;
-  const float* vsb = vs + (size_t)bh * T;
   const int* qi32 = reinterpret_cast<const int*>(qi);
   __syncthreads();
 
   for (int t = 0; t < nblk; ++t) {
     const int t0 = t * bt;
     const int nvalid = min(bt, P - t0);  // attended tokens in this block
+    // the block's first token, as a row of k viewed as (rows, D): token t0
+    // of the (b, h) stream, or the start of (page pt[b, t], head h)
+    const size_t row =
+        pt != nullptr
+            ? ((size_t)pt[(size_t)b * max_pages + t] * KVH + h) * bt
+            : (size_t)bh * T + t0;
+    const int8_t* kt = k + row * D;
+    const int8_t* vt = v + row * D;
+    const float* kst = ks + row;
+    const float* vst = vs + row;
 
     // 1. logits of the live tokens: one thread per token, its K row read as
     //    16-byte vectors (D / 16 loads in flight), q from shared memory
     for (int i = tid; i < nvalid; i += kThreads) {
-      const int tok = t0 + i;
-      const float kscale = ksb[tok] * scale;
-      const uint4* krow = reinterpret_cast<const uint4*>(kb + (size_t)tok * D);
+      const float kscale = kst[i] * scale;
+      const uint4* krow = reinterpret_cast<const uint4*>(kt + (size_t)i * D);
       uint4 kv[kMaxD / 16];
 #pragma unroll
       for (int j = 0; j < kMaxD / 16; ++j)
@@ -192,7 +209,7 @@ flash_decode_kernel(const float* __restrict__ q,
       float ps = 0.f, pvm = 0.f;
       for (int i = lane; i < nvalid; i += 32) {
         const float p = expf(lg[g * bt + i] - m_new);
-        const float pv = p * vsb[t0 + i];
+        const float pv = p * vst[i];
         ps += p;
         pvm = fmaxf(pvm, pv);
         lg[g * bt + i] = pv;
@@ -231,7 +248,7 @@ flash_decode_kernel(const float* __restrict__ q,
 #pragma unroll 4
         for (int i = warp; i < nvalid; i += kWarps) {
           const unsigned vw = __ldg(reinterpret_cast<const unsigned*>(
-              vb + (size_t)(t0 + i) * D + d0));
+              vt + (size_t)i * D + d0));
 #pragma unroll
           for (int g = 0; g < kMaxG; ++g) {
             if (g < G) {
@@ -319,10 +336,12 @@ flash_decode_kernel(const float* __restrict__ q,
 
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* k_new, const void* v_new,
-           const void* pos, void* out, int B, int KVH, int G, int D, int T,
-           int block_t, float scale, int i8, bool staged, void* stream) {
+           const void* pos, const void* page_tables, int max_pages,
+           void* out, int B, int KVH, int G, int D, int T, int block_t,
+           float scale, int i8, bool staged, void* stream) {
   if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || D < 16 || D > kMaxD ||
-      D % 16 != 0 || block_t < 1 || block_t > kMaxBT || T % block_t != 0)
+      D % 16 != 0 || block_t < 1 || block_t > kMaxBT || T % block_t != 0 ||
+      (page_tables != nullptr && (max_pages < 1 || T != max_pages * block_t)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * KVH);
@@ -334,19 +353,24 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const auto* knp = static_cast<const float*>(k_new);
   const auto* vnp = static_cast<const float*>(v_new);
   const auto* pp = static_cast<const int*>(pos);
+  const auto* ptp = static_cast<const int*>(page_tables);
   auto* op = static_cast<float*>(out);
   if (i8 && staged)
     flash_decode_kernel<true, true><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
+        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
+        block_t, scale);
   else if (i8)
     flash_decode_kernel<true, false><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
+        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
+        block_t, scale);
   else if (staged)
     flash_decode_kernel<false, true><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
+        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
+        block_t, scale);
   else
     flash_decode_kernel<false, false><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
+        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
+        block_t, scale);
   return (int)cudaGetLastError();
 }
 
@@ -357,16 +381,16 @@ extern "C" int flash_decode_staged_launch(
     const void* vs, const void* k_new, const void* v_new, const void* pos,
     void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
     int i8, void* stream) {
-  return launch(q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
-                block_t, scale, i8, true, stream);
+  return launch(q, k, v, ks, vs, k_new, v_new, pos, nullptr, 0, out, B, KVH,
+                G, D, T, block_t, scale, i8, true, stream);
 }
 
 extern "C" int flash_decode_inline_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, void* out, int B, int KVH, int G, int D,
     int T, int block_t, float scale, int i8, void* stream) {
-  return launch(q, k, v, ks, vs, nullptr, nullptr, pos, out, B, KVH, G, D, T,
-                block_t, scale, i8, false, stream);
+  return launch(q, k, v, ks, vs, nullptr, nullptr, pos, nullptr, 0, out, B,
+                KVH, G, D, T, block_t, scale, i8, false, stream);
 }
 
 extern "C" int flash_decode_ab_launch(
@@ -376,6 +400,21 @@ extern "C" int flash_decode_ab_launch(
     int i8, int staged, void* stream) {
   if (staged && (k_new == nullptr || v_new == nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
-                block_t, scale, i8, staged != 0, stream);
+  return launch(q, k, v, ks, vs, k_new, v_new, pos, nullptr, 0, out, B, KVH,
+                G, D, T, block_t, scale, i8, staged != 0, stream);
+}
+
+// k, v: one layer of the pool (NP, KVH, page_size, D) int8; ks, vs (NP, KVH,
+// page_size) f32; page_tables (B, max_pages) int32, every id < NP (the
+// wrapper checks); the staged current token's k_new, v_new (B, KVH, D) f32.
+extern "C" int flash_decode_paged_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* k_new, const void* v_new, const void* pos,
+    const void* page_tables, void* out, int B, int KVH, int G, int D,
+    int max_pages, int page_size, float scale, int i8, void* stream) {
+  if (k_new == nullptr || v_new == nullptr || page_tables == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, ks, vs, k_new, v_new, pos, page_tables, max_pages,
+                out, B, KVH, G, D, max_pages * page_size, page_size, scale, i8,
+                true, stream);
 }

@@ -1,1 +1,2 @@
-"""Serving: sampling and the continuous-batching engines."""
+"""Serving: sampling, the continuous-batching engines (slotted and
+paged), the native runtime bindings and the HTTP front end."""

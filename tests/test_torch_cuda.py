@@ -371,3 +371,77 @@ def test_unfused_decode_on_card_counts_launches(dev, mode, monkeypatch):
 
 def _resolve(bits, Kd):
     return K.resolve_group(bits, Kd, None)
+
+
+def _paged_inputs(rng, L, NP, KVH, P, G, D, B, max_pages):
+    t = dict(
+        q=rng.normal(size=(B, KVH, G, D)).astype(np.float32),
+        k=rng.integers(-127, 128, size=(L, NP, KVH, P, D), dtype=np.int8),
+        v=rng.integers(-127, 128, size=(L, NP, KVH, P, D), dtype=np.int8),
+        ks=rng.uniform(0.001, 0.02, size=(L, NP, KVH, P)).astype(np.float32),
+        vs=rng.uniform(0.001, 0.02, size=(L, NP, KVH, P)).astype(np.float32),
+        kn=rng.normal(size=(B, KVH, D)).astype(np.float32),
+        vn=rng.normal(size=(B, KVH, D)).astype(np.float32))
+    tables = rng.permutation(NP)[:B * max_pages].reshape(B, max_pages)
+    return ([torch.from_numpy(t[n]) for n in
+             ("q", "k", "v", "ks", "vs", "kn", "vn")],
+            torch.from_numpy(tables.astype(np.int32)))
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32"])
+@pytest.mark.parametrize("P,G,D", [(16, 1, 128), (32, 2, 32), (256, 4, 128)])
+def test_paged_kernel_matches_plain(dev, dots, P, G, D):
+    rng = np.random.default_rng(1000 + P + G)
+    B, max_pages = 6, 4
+    args, tables = _paged_inputs(rng, 2, B * max_pages + 3, 2, P, G, D, B,
+                                 max_pages)
+    T = P * max_pages
+    pos = torch.tensor([0, 1, P, P + 1, T - 1, T], dtype=torch.int32)
+    ref = AT.flash_decode_q8_paged_plain(*args, 1, tables, pos, dots=dots)
+    before = AT.flash_decode_q8_paged.launches
+    out = AT.flash_decode_q8_paged(*[a.to(dev) for a in args], 1,
+                                   tables.to(dev), pos.to(dev),
+                                   dots=dots).cpu()
+    assert AT.flash_decode_q8_paged.launches == before + 1
+    _attn_close(out, ref, dots)
+
+
+def test_paged_kernel_rules(dev):
+    rng = np.random.default_rng(1100)
+    args, tables = _paged_inputs(rng, 1, 8, 2, 16, 1, 32, 2, 4)
+    args = [a.to(dev) for a in args]
+    pos = torch.tensor([3, 40], dtype=torch.int32, device=dev)
+    bad = tables.clone()
+    bad[1, 3] = 8
+    with pytest.raises(IndexError, match="out of range"):
+        AT.flash_decode_q8_paged(*args, 0, bad.to(dev), pos)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        AT.flash_decode_q8_paged(*args, 0, tables.to(dev), pos[:1])
+    big, big_tables = _paged_inputs(rng, 1, 2, 2, 320, 1, 32, 2, 1)
+    with pytest.raises(ValueError, match="256"):
+        AT.flash_decode_q8_paged(*[a.to(dev) for a in big], 0,
+                                 big_tables.to(dev), pos)
+
+
+def test_paged_engine_on_card_counts_launches(dev):
+    # a tiny paged engine on the card: flash prefill and the paged decode
+    # kernel per layer, exact counts, and the same greedy tokens as its
+    # first tick through the plain versions
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import (
+        engine as E, paged_engine as PE)
+    config = dataclasses.replace(TINY_MHA, num_layers=2)
+    params = fused.quantize_factors_int8_fused(fused.fuse_stacked(
+        bench_params.build_compressed_llama_params(config, rank=16, seed=0,
+                                                   device=dev)))
+    eng = PE.PagedServingEngine(params, config, max_slots=2, num_pages=16,
+                                page_size=16, flash_attn=True, device=dev)
+    counters = (K.quantized_matmul_w4a8_stacked, AT.flash_prefill,
+                AT.flash_decode_q8_paged, K.int8_matmul)
+    before = [fn.launches for fn in counters]
+    eng.submit(E.Request(uid=0, prompt=np.arange(1, 20), max_new_tokens=4))
+    (done,) = eng.run()
+    L = config.num_layers
+    assert done.finished_reason == "length" and len(done.tokens) == 4
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        4 * L * 4, L, 3 * L, 4]
+    assert eng.allocator.free_pages == 16
