@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (W4A8 decode, prefill, the serving engines and the
-unfused compressed-model path) on one NVIDIA GPU.
+"""Drive the PyTorch port (W4A8 decode and its options, prefill, the serving
+engines and the unfused compressed-model path) on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
@@ -27,7 +27,12 @@ caught):
    matmul at Llama-2-7B's three projection shapes, M = 8 and 512; the paged
    decode kernel at Llama-2-7B's heads, batch 8, over a randomly permuted
    page table of about 2048 tokens per row at ragged positions, pages of 16
-   and 256 tokens, beside the staged kernel over the same context.
+   and 256 tokens, beside the staged kernel over the same context; the
+   fused-factor kernels at Llama-2-7B's shapes, rank 128, batch 8: the
+   L-fused kernel on the four projections (qkv and gate/up also at M =
+   512), the LR-fused kernel on qkv and gate/up, the whole-MLP kernel and
+   the attention + o_proj kernel (staged and inline; the flipped int8 codes
+   of their inner requantization counted against the plain version's).
 3. One Llama-2-7B-width, 2-layer model, the same weights on the card and
    the CPU: 40 steps from position 0, each step on the card against the
    plain step on the CPU (from the CPU's cache, and from the card's own)
@@ -68,6 +73,15 @@ caught):
    256-token prefix; (d) ``ServingHTTPServer`` over the paged engine on
    127.0.0.1: 8 concurrent completions, one streamed, and the health and
    stats endpoints.
+8. The fused step's options, Llama-2-7B, 32 layers (``phase_options``, run
+   before phase 6): factor paths "xla", "l" and "lr" quantized from one
+   bf16 param set (``L_cat`` asserted), a cache of eight 128-token
+   prompts, then (a) "l" and (b) "lr" at dots i8 staged "uniform", (c) "l"
+   with the whole-MLP and attention + o_proj kernels at dots f32, staged and
+   inline: each step against the "xla" step and the plain versions from the
+   same cache, exact launches, ms/step and the device time of one step as a
+   CUDA graph; (d) ``FastServingEngine(mlp_kernel=True)`` on "l", 8
+   requests.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -75,7 +89,8 @@ kernel's slice, with every count set to 0 just before it (phase 4's decode
 run for the W4A8, staged attention and int8 head kernels; phase 5 (a) for
 flash prefill and the all-batch kernel, 5 (b) for the inline kernel; phase
 6 (a) for the grouped kernel, 6 (b) for the flat W4A8 kernel, 7 (b) for
-the paged kernel;
+the paged kernel, 8 (a) for the L-fused kernel, 8 (b) for the LR-fused
+kernel, 8 (c) for the whole-MLP and attention + o_proj kernels;
 ``launches_per_step`` per decode step or prefill, ``steps`` of them);
 ``ms``, ``plain_ms`` and ``bound_ms`` are per launch at the main path's
 shapes (for the W4A8 kernels, the mean over one layer's decode
@@ -303,6 +318,7 @@ def phase_kernels(torch, dev, record):
     _phase_kernels_decode(torch, dev, gen, record)
     _phase_kernels_packed(torch, dev, gen, record)
     _phase_kernels_paged(torch, dev, gen, record)
+    _phase_kernels_lowrank(torch, dev, gen, record)
 
 
 def _phase_kernels_packed(torch, dev, gen, record):
@@ -663,6 +679,269 @@ def _phase_kernels_paged(torch, dev, gen, record):
     torch.cuda.empty_cache()
 
 
+def _lowrank_weights(torch, dev, gen, Lk, N, Kd, n_proj, rank=128):
+    """Stacked 4-bit packed codes with row scales and int8 R / L factor
+    codes with their scales, as ``quantize_factors_int8_fused`` stores
+    them for a group of ``n_proj`` projections."""
+    return dict(
+        packed=torch.randint(0, 256, (Lk, N, Kd // 2), generator=gen,
+                             dtype=torch.uint8, device=dev),
+        scales=torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01,
+        R=torch.randint(-127, 128, (Lk, n_proj * rank, Kd), generator=gen,
+                        dtype=torch.int8, device=dev),
+        Rs=torch.rand((Lk, n_proj * rank, 1), generator=gen,
+                      device=dev) * 1e-3,
+        L=torch.randint(-127, 128, (Lk, N, rank), generator=gen,
+                        dtype=torch.int8, device=dev),
+        Ls=torch.rand((Lk, N, 1), generator=gen, device=dev) * 1e-3)
+
+
+def _ops_int8_units(i8=0.0, bf16=0.0, f32=0.0):
+    """Operations of mixed types as int8 operations of the same time at
+    the card's peaks (the factor dots run on bf16 values, the attention in
+    f32)."""
+    return (i8 + bf16 * INT8_OPS_PER_S / BF16_OPS_PER_S
+            + f32 * INT8_OPS_PER_S / F32_OPS_PER_S)
+
+
+def _phase_kernels_lowrank(torch, dev, gen, record):
+    """The four fused-factor kernels against their plain versions at
+    Llama-2-7B's shapes, batch M = 8, rank 128, 4-bit: the L-fused kernel
+    on qkv, o, gate/up and down (qkv and gate/up also at prefill's M =
+    512); the LR-fused kernel on qkv and gate/up; the whole-MLP kernel; the
+    fused attention + o_proj kernel over a 256-token cache at position 128,
+    staged and inline. Weights rotate over enough layers to come from device
+    memory. The integer sums are exact on both sides; the factor dots sum
+    in another f32 order; xr inside the LR kernel can round to the other
+    bf16 neighbour; the two megakernels requantize inside (their flipped
+    int8 codes are counted against the plain version's)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+
+    rank, M = 128, 8
+    # --- A: the L-fused kernel, the four projections of a layer
+    la = record["quantized_matmul_w4a8_l_stacked"]
+    main = []
+    for name, splits, Kd, Ms in [
+            ("qkv", (4096,) * 3, 4096, (8, 512)),
+            ("o_proj", (4096,), 4096, (8,)),
+            ("gate_up", (11008,) * 2, 4096, (8, 512)),
+            ("down_proj", (4096,), 11008, (8,))]:
+        N, n_proj = sum(splits), len(splits)
+        Lk = max(2, math.ceil(200e6 / (N * Kd // 2 + N * rank)))
+        w = _lowrank_weights(torch, dev, gen, Lk, N, Kd, n_proj)
+        for m in Ms:
+            x = torch.randn((m, Kd), generator=gen, device=dev)
+            xr = K.thin_xr(x, w["R"][1], w["Rs"][1])
+            args = (w["packed"], w["scales"], 1, xr, w["L"], w["Ls"], 4, rank,
+                    splits)
+            y = K.quantized_matmul_w4a8_l_stacked(x, *args)
+            ref = K.quantized_matmul_w4a8_l_stacked_plain(x, *args)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            ok = torch.allclose(y, ref, rtol=1e-5, atol=tol)
+            xq, sx = K.quantize_activations_int8(x)
+            ms = _time_ms(torch, lambda i: K._launch_l(
+                xq, sx, w["packed"], w["scales"], i % Lk, xr, w["L"],
+                w["Ls"], 4, rank, splits), 50 if m == 8 else 10)
+            plain_ms = _time_ms(
+                torch, lambda i: K.quantized_matmul_w4a8_l_stacked_plain(
+                    x, w["packed"], w["scales"], i % Lk, xr, w["L"], w["Ls"],
+                    4, rank, splits), 2, reps=3)
+            nbytes = (m * Kd + m * 4 + N * Kd // 2 + N * 4
+                      + m * n_proj * rank * 4 + N * rank + N * 4 + m * N * 4)
+            ops = _ops_int8_units(i8=2 * m * N * Kd, bf16=2 * m * N * rank)
+            bound, by = _bound_ms(nbytes, ops)
+            print(f"w4a8_l_stacked {name} M={m} N={N} K={Kd} rank {rank} "
+                  f"4-bit: max diff {err:.3e} (bound rtol 1e-5, atol "
+                  f"{tol:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"w4a8_l_stacked {name} M={m} disagrees "
+                                     "with plain")
+            la["max_abs_err"] = max(la["max_abs_err"] or 0.0, err)
+            if m == 8:
+                main.append((ms, plain_ms, nbytes, ops))
+        del w
+    torch.cuda.empty_cache()
+    mean = [statistics.fmean(t[j] for t in main) for j in range(4)]
+    bound, by = _bound_ms(mean[2], mean[3])
+    la.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by)
+
+    # --- B: the LR-fused kernel on qkv and gate/up (o and down keep kernel
+    # 1 and the torch factor dots on factor path "lr")
+    lr = record["quantized_matmul_w4a8_lr_stacked"]
+    main = []
+    for name, splits in [("qkv", (4096,) * 3), ("gate_up", (11008,) * 2)]:
+        N, n_proj, Kd = sum(splits), len(splits), 4096
+        nR = n_proj * rank
+        Lk = max(2, math.ceil(200e6 / (N * Kd // 2 + N * rank + nR * Kd)))
+        w = _lowrank_weights(torch, dev, gen, Lk, N, Kd, n_proj)
+        x = torch.randn((M, Kd), generator=gen, device=dev)
+        args = (w["packed"], w["scales"], 1, w["R"], w["Rs"], w["L"],
+                w["Ls"], 4, rank, splits)
+        # the output against the plain version on the kernel's own xr (an
+        # xr element may round to the other bf16 neighbour), and that xr
+        # against the plain thin dot
+        y = K.quantized_matmul_w4a8_lr_stacked(x, *args)
+        xq, sx = K.quantize_activations_int8(x)
+        _, xr = K._launch_lr(x, xq, sx, w["packed"], w["scales"], 1, w["R"],
+                             w["Rs"], w["L"], w["Ls"], 4, rank, splits)
+        ref = K.quantized_matmul_w4a8_l_stacked_plain(
+            x, w["packed"], w["scales"], 1, xr, w["L"], w["Ls"], 4, rank,
+            splits)
+        xr_ref = K.thin_xr(x, w["R"][1], w["Rs"][1])
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max())
+        xr_tol = 1e-5 * float(xr_ref.abs().max())
+        ok = (torch.allclose(y, ref, rtol=1e-5, atol=tol)
+              and torch.allclose(xr, xr_ref, rtol=1e-5, atol=xr_tol))
+        e_plain = _rel(torch, y, K.quantized_matmul_w4a8_lr_stacked_plain(
+            x, *args))
+        ms = _time_ms(torch, lambda i: K._launch_lr(
+            x, xq, sx, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"],
+            w["L"], w["Ls"], 4, rank, splits), 50)
+        plain_ms = _time_ms(
+            torch, lambda i: K.quantized_matmul_w4a8_lr_stacked_plain(
+                x, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"], w["L"],
+                w["Ls"], 4, rank, splits), 2, reps=3)
+        nbytes = (M * Kd * 5 + M * 4 + N * Kd // 2 + N * 4 + nR * Kd
+                  + nR * 4 + N * rank + N * 4 + M * N * 4)
+        ops = _ops_int8_units(i8=2 * M * N * Kd,
+                              bf16=2 * M * nR * Kd + 2 * M * N * rank)
+        bound, by = _bound_ms(nbytes, ops)
+        print(f"w4a8_lr_stacked {name} M={M} N={N} K={Kd} rank {rank} "
+              f"4-bit: max diff {err:.3e} on its own xr (bound rtol 1e-5, "
+              f"atol {tol:.3e}; xr within rtol 1e-5), {e_plain:.3e} "
+              f"rel-Frobenius against the plain version's own xr; kernel "
+              f"{ms:.4f} ms (cooperative launch), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{bound / ms:.1%} of bound)", flush=True)
+        if not ok:
+            raise AssertionError(f"w4a8_lr_stacked {name} disagrees with "
+                                 "plain")
+        lr["max_abs_err"] = max(lr["max_abs_err"] or 0.0, err)
+        main.append((ms, plain_ms, nbytes, ops))
+        del w
+    torch.cuda.empty_cache()
+    mean = [statistics.fmean(t[j] for t in main) for j in range(4)]
+    bound, by = _bound_ms(mean[2], mean[3])
+    lr.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by)
+
+    # --- C: the whole-MLP kernel, h 4096, im 11008
+    h, im = 4096, 11008
+    layer_bytes = 3 * h * im // 2 + 2 * im * rank + rank * im + h * rank
+    Lk = max(2, math.ceil(200e6 / layer_bytes))
+    gu = _lowrank_weights(torch, dev, gen, Lk, 2 * im, h, 2)
+    dn = _lowrank_weights(torch, dev, gen, Lk, h, im, 1)
+    gs = 0.5 + 1.5 * torch.rand((Lk, 2), generator=gen, device=dev)
+    x = torch.randn((M, h), generator=gen, device=dev)
+    xr = K.thin_xr(x, gu["R"][1], gu["Rs"][1])
+
+    def mlp_args(layer):
+        return (gu["packed"], gu["scales"], layer, xr, gu["L"], gu["Ls"], gs,
+                dn["packed"], dn["scales"], dn["R"], dn["Rs"], dn["L"],
+                dn["Ls"], 4, rank)
+
+    y = K.quantized_matmul_w4a8_mlp_stacked(x, *mlp_args(1))
+    parts = K._mlp_plain_parts(x, *mlp_args(1))
+    xq, sx = K.quantize_activations_int8(x)
+    _, scratch = K._launch_mlp(xq, sx, xr, gu["packed"], gu["scales"], 1,
+                               *mlp_args(1)[4:])
+    torch.cuda.synchronize()
+    flips = int((scratch["m8"] != parts["m8"]).sum())
+    rel = _rel(torch, y, parts["out"])
+    err = float((y - parts["out"]).abs().max())
+    ms = _time_ms(torch, lambda i: K._launch_mlp(
+        xq, sx, xr, gu["packed"], gu["scales"], i % Lk, gu["L"], gu["Ls"],
+        gs, dn["packed"], dn["scales"], dn["R"], dn["Rs"], dn["L"], dn["Ls"],
+        4, rank), 20)
+    plain_ms = _time_ms(
+        torch, lambda i: K.quantized_matmul_w4a8_mlp_stacked_plain(
+            x, *mlp_args(i % Lk)), 2, reps=3)
+    nbytes = (M * h + M * 4 + M * 2 * rank * 4 + layer_bytes
+              + (2 * im + h) * 8 + rank * 4 + 8 + M * h * 4)
+    ops = _ops_int8_units(i8=2 * M * 3 * im * h,
+                          bf16=2 * M * (2 * im + h) * rank + 2 * M * rank * im)
+    bound, by = _bound_ms(nbytes, ops)
+    print(f"w4a8_mlp_stacked M={M} h={h} im={im} rank {rank} 4-bit: "
+          f"rel-Frobenius {rel:.3e} (bound {KERN_REL:g}, max diff {err:.3e}),"
+          f" {flips} of {M * im} int8 codes of m differ from the plain "
+          f"version's; kernel {ms:.4f} ms (cooperative launch), plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+          f"{bound / ms:.1%} of bound)", flush=True)
+    if not (rel <= KERN_REL and _same_argmax(torch, y, parts["out"])):
+        raise AssertionError("w4a8_mlp_stacked disagrees with plain")
+    record["quantized_matmul_w4a8_mlp_stacked"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by)
+    del gu, dn, scratch, parts
+    torch.cuda.empty_cache()
+
+    # --- D: attention + o_proj, Llama-2-7B heads, batch 8, a 256-token
+    # cache at position 128 (the bench flow's step), f32 dots
+    B, KVH, D, T, h = 8, 32, 128, 256, 4096
+    qdim = KVH * D
+    Lk = max(2, math.ceil(200e6 / (B * KVH * T * (2 * D + 8)
+                                   + h * qdim // 2 + 2 * h * rank)))
+    k, v = (torch.randint(-127, 128, (Lk, B, KVH, T, D), generator=gen,
+                          dtype=torch.int8, device=dev) for _ in range(2))
+    ks, vs = (torch.rand((Lk, B, KVH, T), generator=gen, device=dev) * 0.02
+              for _ in range(2))
+    q = torch.randn((B, KVH, 1, D), generator=gen, device=dev)
+    kn, vn = (torch.randn((B, KVH, D), generator=gen, device=dev)
+              for _ in range(2))
+    o = _lowrank_weights(torch, dev, gen, Lk, h, qdim, 1)
+    ow = (o["packed"], o["scales"], o["R"], o["Rs"], o["L"], o["Ls"])
+    pos = torch.full((B,), 128, dtype=torch.int32, device=dev)
+    for staged in (True, False):
+        cache = (q, k, v, ks, vs, kn, vn)
+        y = AT.flash_decode_attn_o(*cache, 1, pos, *ow, 4, rank,
+                                   staged=staged)
+        parts = AT._attn_o_plain_parts(*cache, 1, pos, *ow, 4, rank, staged,
+                                       256)
+        _, scratch = AT._launch_attn_o(*cache, 1, pos, *ow, 4, rank, staged,
+                                       256)
+        torch.cuda.synchronize()
+        flips = int((scratch["xq8"] != parts["xq8"]).sum())
+        rel = _rel(torch, y, parts["out"])
+        err = float((y - parts["out"]).abs().max())
+        ms = _time_ms(torch, lambda i: AT._launch_attn_o(
+            q, k, v, ks, vs, kn, vn, i % Lk, pos, *ow, 4, rank, staged,
+            256), 20)
+        plain_ms = _time_ms(torch, lambda i: AT.flash_decode_attn_o_plain(
+            q, k, v, ks, vs, kn, vn, i % Lk, pos, *ow, 4, rank, staged),
+            2, reps=3)
+        live = B * (128 if staged else 129)
+        nbytes = (KVH * live * (2 * D + 8) + B * qdim * 4 + B * 4
+                  + (2 * B * qdim * 4 if staged else 0) + h * qdim // 2
+                  + h * 4 + rank * qdim + rank * 4 + h * rank + h * 4
+                  + B * h * 4)
+        ops = _ops_int8_units(i8=2 * B * h * qdim,
+                              bf16=2 * B * rank * qdim + 2 * B * h * rank,
+                              f32=4 * KVH * live * D)
+        bound, by = _bound_ms(nbytes, ops)
+        print(f"flash_decode_attn_o {'staged' if staged else 'inline'} B={B}"
+              f" KVH={KVH} D={D} T={T} pos 128, o_proj {h} x {qdim} rank "
+              f"{rank} 4-bit: rel-Frobenius {rel:.3e} (bound {KERN_REL:g}, "
+              f"max diff {err:.3e}), {flips} of {B * qdim} int8 codes of the "
+              f"attention differ from the plain version's; kernel "
+              f"{ms:.4f} ms (cooperative launch), plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
+              flush=True)
+        if not (rel <= KERN_REL and _same_argmax(torch, y, parts["out"])):
+            raise AssertionError("flash_decode_attn_o disagrees with plain")
+        rec = record["flash_decode_attn_o"]
+        rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+        if staged:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    del k, v, ks, vs, o, ow, scratch, parts
+    torch.cuda.empty_cache()
+
+
 def _build_fused(config, dev, seed):
     from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
     from ee274_convexcaldera_llm_quantization_tpu_torch.models import fused
@@ -716,6 +995,13 @@ class _PlainKernels:
             attention as AT, kernels as K)
         swaps = [(K, "quantized_matmul_w4a8_stacked",
                   K.quantized_matmul_w4a8_stacked_plain),
+                 (K, "quantized_matmul_w4a8_l_stacked",
+                  K.quantized_matmul_w4a8_l_stacked_plain),
+                 (K, "quantized_matmul_w4a8_lr_stacked",
+                  K.quantized_matmul_w4a8_lr_stacked_plain),
+                 (K, "quantized_matmul_w4a8_mlp_stacked",
+                  K.quantized_matmul_w4a8_mlp_stacked_plain),
+                 (AT, "flash_decode_attn_o", AT.flash_decode_attn_o_plain),
                  (K, "quantized_matmul", K.quantized_matmul_plain),
                  (K, "quantized_matmul_w4a8", K.quantized_matmul_w4a8_plain),
                  (K, "int8_matmul", K.int8_matmul_plain),
@@ -1603,6 +1889,210 @@ def phase_paged(torch, dev, params, record):
     torch.cuda.empty_cache()
     print(f"paged phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+def phase_options(torch, dev, record):
+    """The fused step's options, Llama-2-7B, 32 layers, batch 8, context
+    256, from position 128 (phase 8). One bf16 fused param set (seed 0, rank
+    128) is int8-quantized three ways: factor paths "xla", "l" and "lr"
+    (same weights); "l" and "lr" must have built ``L_cat``. Eight seeded
+    128-token prompts are prefilled on "xla"; then, from that cache, (a)
+    "l" and (b) "lr" at dots i8 with the staged "uniform" commit, and (c)
+    "l" with ``mlp_kernel`` and ``attn_o_kernel`` at dots f32, staged True
+    and inline. The first step of each is held to the "xla" step with the
+    same staging and dots, and to itself on the plain versions, from copies
+    of the same cache (``KERN_REL`` and argmax); then 8 eager steps with
+    exact launches per step, their median ms, and the device time of one
+    step replayed as a CUDA graph. (d) ``FastServingEngine(flash_attn=True,
+    max_slots=8, mlp_kernel=True, max_seq_len=512)`` on "l": 8 seeded
+    requests of 16-256 prompt tokens, 16 new tokens each, every prefill and
+    tick with its exact launches, the first prefill and tick against the
+    plain versions."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.fast_engine \
+        import FastServingEngine
+
+    t_phase = time.perf_counter()
+    config = LLAMA2_7B
+    L = config.num_layers
+    B, T, P0, steps = 8, 256, 128, 8
+    base = fused.fuse_stacked(bench_params.build_compressed_llama_params(
+        config, num_bits=4, rank=128, seed=0, device=dev))
+    sets = {fk: fused.quantize_factors_int8_fused(base, fuse_factor_kernel=fk)
+            for fk in ("xla", "l", "lr")}
+    del base
+    for fk in ("l", "lr"):
+        for name in ("qkv", "gateup"):
+            g = getattr(sets[fk].layers, name)
+            if g.L_cat is None or g.factor_kernel != fk:
+                raise AssertionError(f"factor path {fk!r}: {name} did not "
+                                     "build L_cat")
+    torch.cuda.synchronize()
+    print(f"options: xla / l / lr params quantized from one bf16 set, L_cat "
+          f"built ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    gen = torch.Generator().manual_seed(11)
+    prompts = torch.randint(0, config.vocab_size, (B, P0), generator=gen)
+    first = []
+    for b in range(B):
+        logits, _ = fused.prefill_into_slot_fused(
+            sets["xla"], prompts[b:b + 1].to(dev), b, cache, config,
+            flash=True)
+        first.append(logits.argmax())
+    tok0 = torch.stack(first)
+    pos0 = torch.full((B,), P0, dtype=torch.int32, device=dev)
+
+    names = ("l", "lr", "mlp", "attn_o", "w4a8_stacked", "staged", "inline",
+             "int8_matmul")
+    counters = (K.quantized_matmul_w4a8_l_stacked,
+                K.quantized_matmul_w4a8_lr_stacked,
+                K.quantized_matmul_w4a8_mlp_stacked, AT.flash_decode_attn_o,
+                K.quantized_matmul_w4a8_stacked, AT.flash_decode_q8_staged,
+                AT.flash_decode_q8, K.int8_matmul)
+    mega = (L, 0, L, L, 0, 0, 0, 1)
+    runs = [("a", "l", dict(staged_kv="uniform", attn_dots="i8"),
+             (4 * L, 0, 0, 0, 0, L, 0, 1)),
+            ("b", "lr", dict(staged_kv="uniform", attn_dots="i8"),
+             (0, 2 * L, 0, 0, 2 * L, L, 0, 1)),
+            ("c staged", "l", dict(staged_kv=True, attn_dots="f32",
+                                   mlp_kernel=True, attn_o_kernel=True),
+             mega),
+            ("c inline", "l", dict(staged_kv=False, attn_dots="f32",
+                                   mlp_kernel=True, attn_o_kernel=True),
+             mega)]
+    counts = {}
+    for run, fk, kw, per_step in runs:
+        params = sets[fk]
+        ref_kw = dict(staged_kv=kw["staged_kv"], attn_dots=kw["attn_dots"])
+        cx, cplain, crun = (_copy_cache(cache, dev) for _ in range(3))
+        lx, _ = fused.decode_step_fused(sets["xla"], tok0, pos0, cx, config,
+                                        **ref_kw)
+        with _PlainKernels():
+            lplain, _ = fused.decode_step_fused(params, tok0, pos0, cplain,
+                                                config, **kw)
+        for c in counters:
+            c.launches = 0
+        times = []
+        tok, pos = tok0, pos0
+        for i in range(1 + steps):
+            before = [c.launches for c in counters]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, _ = fused.decode_step_fused(params, tok, pos, crun,
+                                                config, **kw)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t1))
+            delta = tuple(c.launches - b for c, b in zip(counters, before))
+            if delta != per_step:
+                raise AssertionError(f"options ({run}) step {i}: launches "
+                                     f"{dict(zip(names, delta))}, expected "
+                                     f"{dict(zip(names, per_step))}")
+            if i == 0:
+                e_x, e_p = _rel(torch, logits, lx), _rel(torch, logits,
+                                                         lplain)
+                print(f"options ({run}) factor path {fk!r} {kw}: first step "
+                      f"against the 'xla' step {e_x:.3e}, against the plain"
+                      f" versions {e_p:.3e} (logits rel-Frobenius, bound "
+                      f"{KERN_REL:g})", flush=True)
+                if not (e_x <= KERN_REL and e_p <= KERN_REL
+                        and _same_argmax(torch, logits, lx)
+                        and _same_argmax(torch, logits, lplain)):
+                    raise AssertionError(f"options ({run}): the step "
+                                         "disagrees")
+            tok = logits.argmax(-1)
+            pos = pos + 1
+        counts[run] = dict(zip(names, (c.launches for c in counters)))
+        med = statistics.median(times)
+        dev_ms = _time_ms(torch, lambda i: fused.decode_step_fused(
+            params, tok, pos, crun, config, **kw), 1, reps=5)
+        print(f"options ({run}): {steps} steps from position {P0 + 1}, exact "
+              f"launches per step {dict(zip(names, per_step))}; median "
+              f"{med:.3f} ms/step eager (min {min(times):.3f}, max "
+              f"{max(times):.3f}), {1e3 * B / med:.1f} tok/s; device time of "
+              f"one step as a CUDA graph {dev_ms:.3f} ms (card idle "
+              f"{1 - dev_ms / med:.1%} of the eager step)", flush=True)
+        del cx, cplain, crun
+    # each kernel's main path: A on (a), B on (b), C and D on both (c)
+    n = 1 + steps
+    record["quantized_matmul_w4a8_l_stacked"].update(
+        launches=counts["a"]["l"], launches_per_step=4 * L, steps=n)
+    record["quantized_matmul_w4a8_lr_stacked"].update(
+        launches=counts["b"]["lr"], launches_per_step=2 * L, steps=n)
+    for rec_name, name in (("quantized_matmul_w4a8_mlp_stacked", "mlp"),
+                           ("flash_decode_attn_o", "attn_o")):
+        record[rec_name].update(
+            launches=counts["c staged"][name] + counts["c inline"][name],
+            launches_per_step=L, steps=2 * n)
+    del cache
+    torch.cuda.empty_cache()
+
+    # (d) the engine on "l" with the whole-MLP kernel
+    params = sets["l"]
+    del sets
+    counters = (K.quantized_matmul_w4a8_l_stacked,
+                K.quantized_matmul_w4a8_mlp_stacked,
+                K.quantized_matmul_w4a8_stacked, AT.flash_prefill,
+                AT.flash_decode_q8_staged, K.int8_matmul)
+    per_prefill = (4 * L, 0, 0, L, 0, 1)
+    per_tick = (2 * L, L, 0, 0, L, 1)
+
+    def check_first(prefill, tokens, last_pos, logits):
+        c = llama.HeadMajorQuantKVCache.create(config, 1, tokens.shape[1],
+                                               device=dev)
+        with _PlainKernels():
+            plain, _ = prefill(params, tokens, 0, c, config,
+                               last_pos=last_pos, flash=True)
+        e = _rel(torch, logits[None], plain[None])
+        print(f"options (d): first prefill ({last_pos + 1} tokens) kernels "
+              f"vs plain versions on the card: {e:.3e} (bound "
+              f"{KERN_REL:g})", flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, logits[None],
+                                               plain[None])):
+            raise AssertionError("options (d): the first prefill disagrees "
+                                 "with the plain versions")
+
+    def check_tick(decode, args, kw):
+        params_, tokens, pos_, cache_, cfg = args
+        kern, _ = decode(params_, tokens, pos_, _copy_cache(cache_, dev), cfg,
+                         **kw)
+        with _PlainKernels():
+            plain, _ = decode(params_, tokens, pos_,
+                              _copy_cache(cache_, dev), cfg, **kw)
+        e = _rel(torch, kern, plain)
+        print(f"options (d): first tick (positions {pos_.tolist()}) kernels "
+              f"vs plain versions on the card: {e:.3e} (bound "
+              f"{KERN_REL:g})", flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, kern, plain)):
+            raise AssertionError("options (d): the first tick disagrees "
+                                 "with the plain versions")
+
+    gen = torch.Generator().manual_seed(12)
+    lens = torch.randint(16, 257, (8,), generator=gen).tolist()
+    reqs = [dict(uid=i, prompt=torch.randint(0, config.vocab_size, (n,),
+                                             generator=gen).numpy(),
+                 max_new_tokens=16) for i, n in enumerate(lens)]
+    engine = FastServingEngine(params, config, flash_attn=True, max_slots=8,
+                               mlp_kernel=True, max_seq_len=512, device=dev)
+    watch = _Watch(torch, counters, per_prefill, per_tick, check_first,
+                   check_tick)
+    wall, ntok = _serve(torch, engine, watch, reqs)
+    print(f"options (d) FastServingEngine(mlp_kernel=True) on 'l', 8 "
+          f"requests of {min(lens)}-{max(lens)} prompt tokens: "
+          f"{sum(len(v) for v in watch.prefill_ms.values())} prefills and "
+          f"{len(watch.tick_ms)} ticks with their exact launches (totals "
+          f"{watch.counted}); decode tick median "
+          f"{statistics.median(watch.tick_ms):.2f} ms; {ntok} tokens in "
+          f"{wall:.2f} s: {ntok / wall:.1f} tokens/s", flush=True)
+    del engine, params
+    print(f"options phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def _views(params, config):
     """Per-layer ``llama.ModelParams`` over stacked params: every tensor of
     layer ``l`` indexed (a view, no copy)."""
@@ -1879,6 +2369,14 @@ def main() -> int:
                                       replaces=ref + "kernels.py:460"),
         "flash_decode_q8_paged": dict(source=src + "flash_decode.cu",
                                       replaces=ref + "attention.py:761"),
+        "quantized_matmul_w4a8_l_stacked": dict(
+            source=src + "w4a8_lowrank.cu", replaces=ref + "kernels.py:1021"),
+        "quantized_matmul_w4a8_lr_stacked": dict(
+            source=src + "w4a8_lowrank.cu", replaces=ref + "kernels.py:870"),
+        "quantized_matmul_w4a8_mlp_stacked": dict(
+            source=src + "w4a8_lowrank.cu", replaces=ref + "kernels.py:1252"),
+        "flash_decode_attn_o": dict(source=src + "attn_o.cu",
+                                    replaces=ref + "attention.py:1066"),
     }
     measured = ("launches", "launches_per_step", "steps", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1892,6 +2390,8 @@ def main() -> int:
     phase_paged(torch, dev, params, record)
     del params
     torch.cuda.empty_cache()
+    phase_options(torch, dev, record)
+    torch.cuda.empty_cache()
     phase_unfused(torch, dev, record)
 
     for name, r in record.items():
@@ -1901,7 +2401,8 @@ def main() -> int:
     # library_ms: one SDPA call for flash_prefill (f32, causal); for
     # quantized_matmul, one bf16 torch.matmul on its weights dequantized
     # beforehand. No single PyTorch call computes the other functions
-    # (packed offset-binary codes rescaled per row of int8 activations;
+    # (packed offset-binary codes rescaled per row of int8 activations, with
+    # or without the int8 low-rank factors and the MLP's requantization;
     # attention over an int8 cache with per-token scales, or over an int8
     # pool through a page table, and int8 probabilities in dots="i8"), so
     # theirs is null.

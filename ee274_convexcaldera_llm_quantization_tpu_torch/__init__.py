@@ -6,12 +6,14 @@ module here has one counterpart there, and keeps its serving bytes
 unchanged (uint8 row-global planes, MSB first, offset-binary codes; int8
 factors and KV with f32 per-row / per-(token, head) scales).
 
-- ``ops.kernels``   — grouped bf16, flat and stacked W4A8, and int8 matmul
-                      wrappers (CUDA kernels on the card, plain torch on the
-                      CPU), packing and activation quantization.
+- ``ops.kernels``   — grouped bf16, flat and stacked W4A8, the stacked
+                      W4A8 with the low-rank factors fused in (L, LR, the
+                      whole MLP), and int8 matmul wrappers (CUDA kernels on
+                      the card, plain torch on the CPU), packing and
+                      activation quantization.
 - ``ops.attention`` — flash-decode attention over the head-major int8 KV
-                      cache (staged, inline, all-batch) or a paged pool,
-                      and causal flash prefill.
+                      cache (staged, inline, all-batch, fused with o_proj)
+                      or a paged pool, and causal flash prefill.
 - ``ops._build``    — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use
                       and binds them with ``ctypes``.
 - ``models``        — config presets, the Llama model (caches, plain

@@ -4,8 +4,10 @@ The reference package's params flatten to a dict of numpy arrays keyed by
 attribute path plus a dict of their static fields under the same paths:
 
 - ``FusedStackedParams``: ``"embed"``, ``"layers.qkv.packed"``,
-  ``"layers.qkv.Ls.0"``, ``"layers.o_proj.L_scale"``, ``"lm_head.w8"``, ...
-  with ``"layers.qkv.num_bits"``, ``"layers.qkv.splits"``, ...;
+  ``"layers.qkv.Ls.0"`` (or ``"layers.qkv.L_cat"`` on factor paths "l" and
+  "lr"), ``"layers.o_proj.L_scale"``, ``"lm_head.w8"``, ... with
+  ``"layers.qkv.num_bits"``, ``"layers.qkv.splits"``,
+  ``"layers.qkv.factor_kernel"``, ...;
 - per-layer ``ModelParams``: ``"layers.0.attn_norm"``,
   ``"layers.0.q_proj.packed"``, ``"layers.1.down_proj.w"``, ...;
 - ``StackedModelParams``: ``"layers.attn_norm"``, ``"layers.q_proj.packed"``,
@@ -56,11 +58,6 @@ def _opt(arrays, key: str, device):
 
 
 def _fused_linear(arrays, meta, p: str, device) -> FusedW4A8Linear:
-    if (f"{p}.L_cat" in arrays
-            or meta.get(f"{p}.factor_kernel", "xla") != "xla"):
-        raise NotImplementedError(
-            "N-concatenated L factors (factor paths 'l'/'lr') are not "
-            "ported yet (ROADMAP.md, Queue B items 10-11)")
     L_scales = _tuple(arrays, f"{p}.L_scales", device)
     return FusedW4A8Linear(
         packed=_tensor(arrays[f"{p}.packed"], device),
@@ -71,9 +68,12 @@ def _fused_linear(arrays, meta, p: str, device) -> FusedW4A8Linear:
         b=_opt(arrays, f"{p}.b", device),
         R_scale=_opt(arrays, f"{p}.R_scale", device),
         L_scales=L_scales or None,
+        L_cat=_opt(arrays, f"{p}.L_cat", device),
+        L_scale_cat=_opt(arrays, f"{p}.L_scale_cat", device),
         num_bits=int(meta[f"{p}.num_bits"]),
         splits=tuple(int(s) for s in meta[f"{p}.splits"]),
-        ranks=tuple(int(r) for r in meta[f"{p}.ranks"]))
+        ranks=tuple(int(r) for r in meta[f"{p}.ranks"]),
+        factor_kernel=str(meta.get(f"{p}.factor_kernel", "xla")))
 
 
 def _caldera_linear(arrays, meta, p: str, device) -> CalderaLinear:

@@ -14,6 +14,13 @@ Fusion keeps the math of the unfused projections: packed codes, row scales
 and biases concatenate along N; the ``R`` factors concatenate along the rank
 axis (one ``(B, sum_ranks)`` dot) while the ``L`` factors stay per
 projection; each projection's ``global_scale`` applies to its output slice.
+
+The reference's options run on more kernels: factor path "l" adds the L
+half of the factors inside the W4A8 kernel (the L-fused kernel over the
+N-concatenated ``L_cat``; o and down as groups of one), "lr" both halves
+(qkv and gate/up); ``mlp_kernel`` makes gate/up, SiLU, the requantization
+and down one launch, ``attn_o_kernel`` fuses the decode attention with
+o_proj.
 """
 
 from __future__ import annotations
@@ -51,9 +58,16 @@ class FusedW4A8Linear:
     b: Optional[torch.Tensor] = None   # (layers, sum_N) or None
     R_scale: Optional[torch.Tensor] = None                # (layers, sum_r, 1)
     L_scales: Optional[Tuple[torch.Tensor, ...]] = None   # (layers, N_i, 1)
+    # N-concatenated int8 L factors of the fused-factor kernels (factor
+    # paths "l"/"lr"); when set, ``Ls`` is empty (one storage copy)
+    L_cat: Optional[torch.Tensor] = None                  # (layers, sum_N, r)
+    L_scale_cat: Optional[torch.Tensor] = None            # (layers, sum_N, 1)
     num_bits: int = 4
     splits: Tuple[int, ...] = ()
     ranks: Tuple[int, ...] = ()
+    # "xla": factor dots outside the packed kernel; "l": the L half inside
+    # it (xr a torch dot); "lr": both halves inside it
+    factor_kernel: str = "xla"
 
 
 @dataclasses.dataclass
@@ -125,11 +139,23 @@ def fuse_stacked(params: StackedModelParams) -> FusedStackedParams:
                               lm_head=params.lm_head)
 
 
-def _quantize_fused_factors(fp: FusedW4A8Linear) -> FusedW4A8Linear:
+def _quantize_fused_factors(fp: FusedW4A8Linear,
+                            factor_kernel: str = "xla") -> FusedW4A8Linear:
     if fp.R_scale is not None:
         return fp
     R8, Rs = K.quantize_int8_rowwise(fp.R)
     pairs = [K.quantize_int8_rowwise(L) for L in fp.Ls]
+    if (factor_kernel in ("l", "lr")
+            and K.lr_stacked_supported(fp.splits, fp.ranks,
+                                       num_bits=fp.num_bits)):
+        # one storage copy: the N-concatenated codes of the fused-factor
+        # kernels; the per-projection scales are kept (small)
+        return dataclasses.replace(
+            fp, R=R8, R_scale=Rs, Ls=(),
+            L_scales=tuple(s for _, s in pairs),
+            L_cat=torch.cat([c for c, _ in pairs], dim=1),
+            L_scale_cat=torch.cat([s for _, s in pairs], dim=1),
+            factor_kernel=factor_kernel)
     return dataclasses.replace(
         fp, R=R8, R_scale=Rs, Ls=tuple(c for c, _ in pairs),
         L_scales=tuple(s for _, s in pairs))
@@ -142,24 +168,32 @@ def quantize_factors_int8_fused(params: FusedStackedParams,
     """int8-quantize all low-rank factors (and optionally the lm_head, or
     the tied embedding as a head) of a fused model.
 
-    Only the ``"xla"`` factor path (``fuse_factor_kernel`` False / "xla":
-    per-layer factor dots outside the packed kernel) is ported.
+    ``fuse_factor_kernel`` picks the factor path of the steps:
+
+    - False / ``"xla"``: the factor dots outside the packed kernel;
+    - ``"l"``: the L half inside the packed kernel
+      (:func:`ops.kernels.quantized_matmul_w4a8_l_stacked` over the
+      N-concatenated ``L_cat``), the thin ``xr = x @ R.T`` a torch dot; o
+      and down take the same kernel as groups of one;
+    - True / ``"lr"``: both halves inside the kernel
+      (:func:`ops.kernels.quantized_matmul_w4a8_lr_stacked`) for qkv and
+      gate/up; o and down keep the "xla" path.
+
+    As in the reference, a group that
+    :func:`ops.kernels.lr_stacked_supported` rejects keeps the per-projection
+    layout and the "xla" path.
     """
     fk = {False: "xla", True: "lr"}.get(fuse_factor_kernel,
                                         fuse_factor_kernel)
-    if fk in ("l", "lr"):
-        raise NotImplementedError(
-            f"factor path {fk!r} is not ported yet (ROADMAP.md, Queue B "
-            "items 10-11)")
-    if fk != "xla":
+    if fk not in ("xla", "l", "lr"):
         raise ValueError(f"unknown factor kernel {fuse_factor_kernel!r}")
     lp = params.layers
     layers = FusedLayerStack(
         attn_norm=lp.attn_norm,
-        qkv=_quantize_fused_factors(lp.qkv),
+        qkv=_quantize_fused_factors(lp.qkv, fk),
         o_proj=quantize_factors_int8(lp.o_proj),
         mlp_norm=lp.mlp_norm,
-        gateup=_quantize_fused_factors(lp.gateup),
+        gateup=_quantize_fused_factors(lp.gateup, fk),
         down_proj=quantize_factors_int8(lp.down_proj))
     lm_head = params.lm_head
     if lm_head_int8:
@@ -171,30 +205,116 @@ def quantize_factors_int8_fused(params: FusedStackedParams,
                               final_norm=params.final_norm, lm_head=lm_head)
 
 
+def _split_outputs(fp: FusedW4A8Linear, l: int, out_cat: torch.Tensor):
+    """Per-projection global scales and biases on the fused output."""
+    gs_l = fp.global_scale[l]
+    b_l = None if fp.b is None else fp.b[l]
+    outs, off_n = [], 0
+    for i, N_i in enumerate(fp.splits):
+        out = out_cat[:, off_n:off_n + N_i] * gs_l[i]
+        if b_l is not None:
+            out = out + b_l[off_n:off_n + N_i][None, :]
+        outs.append(out)
+        off_n += N_i
+    return tuple(outs)
+
+
 def _apply_fused(fp: FusedW4A8Linear, l: int, y: torch.Tensor):
-    """One W4A8 launch + per-projection low-rank adds; returns a tuple of
-    (B, N_i) outputs in fusion order."""
+    """One W4A8 launch (the fused-factor kernels under ``L_cat``) +
+    per-projection low-rank adds; returns a tuple of (B, N_i) outputs in
+    fusion order."""
+    if fp.L_cat is not None:
+        if fp.factor_kernel == "l":
+            xr = K.thin_xr(y, fp.R[l], fp.R_scale[l])
+            out_cat = K.quantized_matmul_w4a8_l_stacked(
+                y, fp.packed, fp.scales, l, xr, fp.L_cat, fp.L_scale_cat,
+                num_bits=fp.num_bits, rank=fp.ranks[0], splits=fp.splits)
+        else:
+            out_cat = K.quantized_matmul_w4a8_lr_stacked(
+                y, fp.packed, fp.scales, l, fp.R, fp.R_scale, fp.L_cat,
+                fp.L_scale_cat, num_bits=fp.num_bits, rank=fp.ranks[0],
+                splits=fp.splits)
+        return _split_outputs(fp, l, out_cat)
     yq = K.quantized_matmul_w4a8_stacked(y, fp.packed, fp.scales, l,
                                          fp.num_bits)
     xr = y.to(torch.bfloat16).float() @ fp.R[l].to(torch.bfloat16).float().T
     if fp.R_scale is not None:
         xr = xr * fp.R_scale[l][:, 0][None, :]
-    gs_l = fp.global_scale[l]
-    b_l = None if fp.b is None else fp.b[l]
-    outs = []
-    off_n = off_r = 0
-    for i, (N_i, r_i) in enumerate(zip(fp.splits, fp.ranks)):
+    ylrs, off_r = [], 0
+    for i, r_i in enumerate(fp.ranks):
         ylr = (xr[:, off_r:off_r + r_i].to(torch.bfloat16).float()
                @ fp.Ls[i][l].to(torch.bfloat16).float().T)
         if fp.L_scales is not None:
             ylr = ylr * fp.L_scales[i][l][:, 0][None, :]
-        out = (yq[:, off_n:off_n + N_i] + ylr) * gs_l[i]
-        if b_l is not None:
-            out = out + b_l[off_n:off_n + N_i][None, :]
-        outs.append(out)
-        off_n += N_i
+        ylrs.append(ylr)
         off_r += r_i
-    return tuple(outs)
+    return _split_outputs(fp, l, yq + torch.cat(ylrs, dim=1))
+
+
+def _apply_plain(lin: CalderaLinear, l: int, y: torch.Tensor,
+                 factor_kernel: str = "xla") -> torch.Tensor:
+    """Layer ``l`` of a single stacked w4a8 projection on ``y`` (..., in).
+    ``factor_kernel="l"`` with int8 factors adds the L half inside the
+    packed kernel (a group of one; ``xr`` a torch dot); otherwise one
+    stacked W4A8 launch plus the torch factor dots. Global scale and bias
+    applied."""
+    if factor_kernel != "l" or lin.L_scale is None:
+        return _apply_w4a8(lin, l, y)
+    y2 = y.reshape(-1, y.shape[-1])
+    xr = K.thin_xr(y2, lin.R[l], lin.R_scale[l])
+    out = K.quantized_matmul_w4a8_l_stacked(
+        y2, lin.packed, lin.scales, l, xr, lin.L, lin.L_scale,
+        num_bits=lin.num_bits, rank=lin.L.shape[2],
+        splits=(lin.packed.shape[1],))
+    out = out * lin.global_scale[l]
+    if lin.b is not None:
+        out = out + lin.b[l][None, :]
+    return out.reshape(*y.shape[:-1], out.shape[-1])
+
+
+def _mlp_kernel_supported(params: FusedStackedParams) -> bool:
+    """Whether the whole-MLP kernel can serve this model: fused gate/up with
+    N-concatenated int8 L factors (factor path "l"/"lr"), int8 down_proj
+    factors, one rank on 128-lane boundaries, no MLP biases."""
+    gu = params.layers.gateup
+    dn = params.layers.down_proj
+    return (gu.L_cat is not None and gu.b is None
+            and isinstance(dn, CalderaLinear) and dn.b is None
+            and dn.L_scale is not None and dn.R_scale is not None
+            and gu.num_bits == dn.num_bits
+            and len(set(gu.ranks)) == 1
+            and dn.L.shape[2] == gu.ranks[0]
+            and K.mlp_stacked_supported(
+                gu.splits[0], dn.packed.shape[1], gu.ranks[0], gu.num_bits))
+
+
+def _apply_mlp_mega(lp: FusedLayerStack, l: int,
+                    y: torch.Tensor) -> torch.Tensor:
+    """``down(silu(gate(y)) * up(y))`` in one kernel launch (the thin
+    gate/up ``xr`` a torch dot), times down's global scale: the residual
+    add's term."""
+    gu, dn = lp.gateup, lp.down_proj
+    xr = K.thin_xr(y, gu.R[l], gu.R_scale[l])
+    out = K.quantized_matmul_w4a8_mlp_stacked(
+        y, gu.packed, gu.scales, l, xr, gu.L_cat, gu.L_scale_cat,
+        gu.global_scale, dn.packed, dn.scales, dn.R, dn.R_scale, dn.L,
+        dn.L_scale, num_bits=gu.num_bits, rank=gu.ranks[0])
+    return out * dn.global_scale[l]
+
+
+def _attn_o_kernel_supported(params: FusedStackedParams,
+                             config: ModelConfig) -> bool:
+    """Whether the fused attention + o_proj kernel can serve this model:
+    MHA, an int8-factor w4a8 o_proj with its rank on 128-lane boundaries,
+    no o bias."""
+    o = params.layers.o_proj
+    return (isinstance(o, CalderaLinear) and o.mode == "w4a8"
+            and o.b is None and o.L_scale is not None
+            and o.R_scale is not None
+            and AT.attn_o_supported(
+                config.num_kv_heads,
+                config.num_heads // config.num_kv_heads,
+                config.head_dim, o.packed.shape[1], o.L.shape[2]))
 
 
 def _not_ported(what: str, item: str):
@@ -219,14 +339,36 @@ def _qkv(lp: FusedLayerStack, l: int, x: torch.Tensor, cos, sin,
     return q, k, v.reshape(*lead, config.num_kv_heads, D)
 
 
+def _mlp(lp: FusedLayerStack, l: int, x: torch.Tensor, config: ModelConfig,
+         mlp_kernel: bool = False) -> torch.Tensor:
+    """RMSNorm, gate/up, SiLU and the down residual; ``mlp_kernel`` runs
+    them as one whole-MLP kernel launch."""
+    y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
+    if mlp_kernel:
+        return x + _apply_mlp_mega(lp, l, y)
+    gate, up = _apply_fused(lp.gateup, l, y)
+    return x + _apply_plain(lp.down_proj, l, gate * torch.sigmoid(gate) * up,
+                            lp.qkv.factor_kernel)
+
+
 def _mlp_and_o(lp: FusedLayerStack, l: int, x: torch.Tensor,
                attn: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """The rest of a layer: o_proj residual, RMSNorm, gate/up, SiLU, down
-    residual."""
-    x = x + _apply_w4a8(lp.o_proj, l, attn)
-    y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
-    gate, up = _apply_fused(lp.gateup, l, y)
-    return x + _apply_w4a8(lp.down_proj, l, gate * torch.sigmoid(gate) * up)
+    residual (o and down on the qkv group's factor path, as the
+    reference)."""
+    x = x + _apply_plain(lp.o_proj, l, attn, lp.qkv.factor_kernel)
+    return _mlp(lp, l, x, config)
+
+
+def _attn_o(o: CalderaLinear, l: int, qh, cache: HeadMajorQuantKVCache, kf,
+            vf, pos) -> torch.Tensor:
+    """Attention over layer ``l`` fused with the o_proj (staged when the
+    current token's ``kf``/``vf`` are given): the (B, h) o_proj output
+    before its global scale."""
+    return AT.flash_decode_attn_o(
+        qh, cache.k, cache.v, cache.k_scale, cache.v_scale, kf, vf, l, pos,
+        o.packed, o.scales, o.R, o.R_scale, o.L, o.L_scale,
+        num_bits=o.num_bits, rank=o.L.shape[2], staged=kf is not None)
 
 
 def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor):
@@ -279,27 +421,45 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
     per-row indexed write, so ragged positions stay correct by
     construction. ``attn_kernel``: "row" or "ab" (the all-batch kernel's
     block partition; head-major only). ``attn_dots``: "i8" or "f32".
-    ``head_pallas`` is accepted and has no effect: the int8 head always
-    runs the int8 matmul kernel on the card and its plain version on the
-    CPU. Other flag values are not ported yet and raise.
+    ``mlp_kernel``: the whole MLP as one kernel launch per layer (params
+    quantized with factor path "l" or "lr"). ``attn_o_kernel``: attention
+    fused with o_proj in one kernel launch per layer (head-major cache, MHA,
+    ``attn_dots="f32"``, row grid). ``head_pallas`` is accepted and has no
+    effect: the int8 head always runs the int8 matmul kernel on the card and
+    its plain version on the CPU. Other flag values are not ported yet and
+    raise.
     """
     if attn_kernel not in ("row", "ab"):
         raise ValueError(f"unknown attn_kernel {attn_kernel!r}")
     if staged_kv not in (False, True, "uniform"):
         raise ValueError(f"unknown staged_kv {staged_kv!r}")
     _check_cache(cache)
+    if tp_axis is not None:
+        raise _not_ported("tp_axis", "Queue A item 19")
     head_major = isinstance(cache, HeadMajorQuantKVCache)
     if attn_kernel == "ab" and not head_major:
         raise ValueError("attn_kernel='ab' requires a HeadMajorQuantKVCache "
                          f"(got {type(cache).__name__})")
+    if attn_kernel == "ab" and attn_o_kernel:
+        raise ValueError("attn_kernel='ab' and attn_o_kernel=True are "
+                         "mutually exclusive (the fused attention+o "
+                         "kernel uses the row grid)")
+    if mlp_kernel and not _mlp_kernel_supported(params):
+        raise ValueError("mlp_kernel=True requires int8-factor fused params "
+                         "with factor_kernel 'l'/'lr' and lane-aligned rank "
+                         "(quantize_factors_int8_fused(..., "
+                         "fuse_factor_kernel='l'))")
+    if attn_o_kernel and not (head_major
+                              and _attn_o_kernel_supported(params, config)):
+        raise ValueError("attn_o_kernel=True requires a head-major cache, "
+                         "an MHA config (num_heads == num_kv_heads), and "
+                         "an int8-factor w4a8 o_proj with lane-aligned "
+                         "rank")
+    if attn_o_kernel and attn_dots != "f32":
+        raise ValueError("attn_o_kernel=True supports attn_dots='f32' "
+                         f"only, got {attn_dots!r}")
     if staged_kv and not head_major:
         raise ValueError("staged_kv requires a HeadMajorQuantKVCache")
-    if mlp_kernel:
-        raise _not_ported("mlp_kernel=True", "Queue B item 12")
-    if attn_o_kernel:
-        raise _not_ported("attn_o_kernel=True", "Queue B item 13")
-    if tp_axis is not None:
-        raise _not_ported("tp_axis", "Queue A item 19")
     if proj_kernel == "persistent":
         raise _not_ported("proj_kernel='persistent'", "Queue B item 14")
     if proj_kernel != "grid":
@@ -339,7 +499,9 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
                     buf[l] = val
                 kf = kq.float() * ksc[..., None]
                 vf = vq.float() * vsc[..., None]
-                if attn_kernel == "ab":
+                if attn_o_kernel:
+                    attn = _attn_o(lp.o_proj, l, qh, cache, kf, vf, pos)
+                elif attn_kernel == "ab":
                     attn = AT.flash_decode_q8_ab(
                         qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
                         kf, vf, l, pos, staged=True, dots=attn_dots)
@@ -355,7 +517,9 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
                 cache.v[l][rows, :, ccol] = vq
                 cache.k_scale[l][rows, :, ccol] = ksc
                 cache.v_scale[l][rows, :, ccol] = vsc
-                if attn_kernel == "ab":
+                if attn_o_kernel:
+                    attn = _attn_o(lp.o_proj, l, qh, cache, None, None, pos)
+                elif attn_kernel == "ab":
                     attn = AT.flash_decode_q8_ab(
                         qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
                         None, None, l, pos, staged=False, dots=attn_dots)
@@ -377,7 +541,12 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
             cache.k[l][rows, col] = k[:, 0].to(cache.k.dtype)
             cache.v[l][rows, col] = v[:, 0].to(cache.v.dtype)
             attn = llama._attention(q, cache.k[l], cache.v[l], mask)
-        x = _mlp_and_o(lp, l, x, attn.reshape(B, config.q_dim), config)
+        if attn_o_kernel:               # o_proj already applied
+            x = x + attn * lp.o_proj.global_scale[l]
+        else:
+            x = x + _apply_plain(lp.o_proj, l, attn.reshape(B, config.q_dim),
+                                 lp.qkv.factor_kernel)
+        x = _mlp(lp, l, x, config, mlp_kernel)
     if staged_kv:
         _commit(cache, staging, pos)
     logits = llama._logits(x, params.embed, params.final_norm,

@@ -68,6 +68,24 @@ ENTRIES = {
         # q, k, v, out, B, S, H, KVH, D, scale, stream
         "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
+    "w4a8_lowrank": {
+        # xq, sx, packed, scales, xr, L_cat, L_scale, out, M, N, K, bits,
+        # layer, rank, n_proj, b1, b2, b3, stream
+        "w4a8_l_stacked_launch": [_P] * 8 + [_I] * 10 + [_P],
+        # x, xq, sx, packed, scales, R, R_scale, L_cat, L_scale, xr scratch,
+        # out, M, N, K, bits, layer, rank, n_proj, b1, b2, b3, stream
+        "w4a8_lr_stacked_launch": [_P] * 11 + [_I] * 10 + [_P],
+        # xq, sx, xr_gu, gu packed, scales, L, L scales, global scales, dn
+        # packed, scales, R, R scales, L, L scales, scratch m, amax, m8, xrd,
+        # out, M, h, im, bits, layer, rank, stream
+        "w4a8_mlp_stacked_launch": [_P] * 19 + [_I] * 6 + [_P],
+    },
+    "attn_o": {
+        # q, k, v, ks, vs, k_new, v_new, pos, o packed, scales, R, R scales,
+        # L, L scales, scratch attn, amax, xq8, xro, out, B, KVH, D, T,
+        # block_t, scale, staged, h, bits, layer, rank, stream
+        "attn_o_launch": [_P] * 19 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

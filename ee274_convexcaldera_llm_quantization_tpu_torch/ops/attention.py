@@ -13,11 +13,14 @@ for the serving path. The decode cache is ``(L, B, KVH, T, D)`` int8 with
 - :func:`flash_decode_q8_paged`: the staged function over a paged pool
   ``(L, NP, KVH, P, D)`` int8 / ``(L, NP, KVH, P)`` f32 through
   ``(B, max_pages)`` page tables; block == page.
+- :func:`flash_decode_attn_o`: the staged or inline attention with f32 dots
+  (MHA) fused with the W4A8 o_proj and its int8 factors.
 - :func:`flash_prefill`: causal GQA self-attention of a prompt, f32.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/flash_decode.cu``,
-``csrc/flash_prefill.cu``) for CUDA tensors, counts the launch, and runs
-the plain PyTorch version defined beside it for CPU tensors only.
+``csrc/attn_o.cu``, ``csrc/flash_prefill.cu``) for CUDA tensors, counts the
+launch, and runs the plain PyTorch version defined beside it for CPU tensors
+only.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import _build
+from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
 
 _NEG_INF = -1e30
 _DOTS = ("i8", "f32")
@@ -424,6 +428,177 @@ def flash_decode_q8_paged(q, k, v, ks, vs, k_new, v_new, layer: int,
 
 
 flash_decode_q8_paged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused attention + o_proj (CUDA: csrc/attn_o.cu)
+# ---------------------------------------------------------------------------
+
+def attn_o_supported(KVH: int, G: int, D: int, h: int, rank: int) -> bool:
+    """Whether the fused attention + o_proj kernel takes this model (the
+    reference's gate): MHA (G == 1), head_dim and rank on 128-lane
+    boundaries, 128-divisible o_proj blocks of at most 256 rows."""
+    bn = min(256, h)
+    return (G == 1 and D % 128 == 0 and rank % 128 == 0
+            and h % bn == 0 and bn >= 128)
+
+
+def _check_attn_o(q, o_packed, o_R, num_bits: int, rank: int) -> None:
+    B, KVH, G, D = q.shape
+    if G != 1:
+        raise ValueError("flash_decode_attn_o requires MHA (G == 1), got "
+                         f"G={G}; use the unfused path for GQA models")
+    qdim = KVH * D
+    K._require(o_packed.shape[2] * K._pack_factor(num_bits) == qdim,
+               f"o_packed {tuple(o_packed.shape)} against {qdim} inputs")
+    K._require(o_packed.dtype == torch.uint8, f"o_packed is {o_packed.dtype}")
+    K._require(tuple(o_R.shape[1:]) == (rank, qdim),
+               f"o_R {tuple(o_R.shape)}")
+    if B > 32:
+        raise ValueError(f"batch {B} > 32 unsupported by the fused "
+                         "attention+o kernel")
+
+
+def flash_decode_attn_o_plain(q, k, v, ks, vs, k_new, v_new, layer: int,
+                              pos, o_packed, o_scales, o_R, o_R_scale, o_L,
+                              o_L_scale, num_bits: int, rank: int,
+                              staged: bool = False,
+                              block_t: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_decode_attn_o`: the staged or
+    inline decode attention's plain version with f32 dots into a flat
+    (B, KVH * D) buffer, then ``xro = (bf16(attn) @ bf16(oR).T) * oRs`` and
+    the o_proj through the l kernel's plain version (which quantizes
+    ``attn`` per row)."""
+    return _attn_o_plain_parts(q, k, v, ks, vs, k_new, v_new, layer, pos,
+                               o_packed, o_scales, o_R, o_R_scale, o_L,
+                               o_L_scale, num_bits, rank, staged,
+                               block_t)["out"]
+
+
+def _attn_o_plain_parts(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
+                        o_packed, o_scales, o_R, o_R_scale, o_L, o_L_scale,
+                        num_bits: int, rank: int, staged: bool,
+                        block_t: int):
+    """:func:`flash_decode_attn_o_plain` with its intermediates: the flat
+    attention ``attn``, its int8 codes ``xq8`` and the output ``out``."""
+    _check_attn_o(q, o_packed, o_R, num_bits, rank)
+    if staged:
+        attn = flash_decode_q8_staged_plain(q, k, v, ks, vs, k_new, v_new,
+                                            layer, pos, block_t, "f32")
+    else:
+        attn = flash_decode_q8_plain(q, k, v, ks, vs, layer, pos, block_t,
+                                     "f32")
+    x = attn.reshape(q.shape[0], -1)
+    xq, sx = K.quantize_activations_int8(x)
+    xro = K.thin_xr(x, o_R[layer], o_R_scale[layer])
+    return dict(attn=x, xq8=xq, out=K._l_from_codes(
+        xq, sx, o_packed, o_scales, layer, xro, o_L, o_L_scale, num_bits,
+        rank, (o_packed.shape[1],)))
+
+
+def flash_decode_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
+                        o_packed, o_scales, o_R, o_R_scale, o_L, o_L_scale,
+                        num_bits: int, rank: int, staged: bool = False,
+                        block_t: int = 256) -> torch.Tensor:
+    """Decode attention fused with the W4A8 o_proj against layer ``layer``.
+
+    Attention args are :func:`flash_decode_q8_staged`'s (``k_new`` /
+    ``v_new`` are read only when ``staged``; None is accepted otherwise),
+    with f32 dots, MHA only (``q`` (B, KVH, 1, D), B <= 32); then o_proj's
+    stacked packed codes (L, h, KVH * D / f) uint8, row scales (L, h, 1),
+    and int8 factors ``o_R`` (L, rank, KVH * D), ``o_L`` (L, h, rank) with
+    their (L, rank | h, 1) scales. Returns the o_proj output (B, h) before
+    its global scale. CUDA tensors go through the cooperative kernel of
+    ``csrc/attn_o.cu``; CPU tensors through
+    :func:`flash_decode_attn_o_plain`.
+    """
+    _check_layer(k, layer)
+    if staged and (k_new is None or v_new is None):
+        raise ValueError("staged=True needs k_new and v_new")
+    if q.device.type == "cpu":
+        return flash_decode_attn_o_plain(q, k, v, ks, vs, k_new, v_new,
+                                         layer, pos, o_packed, o_scales, o_R,
+                                         o_R_scale, o_L, o_L_scale, num_bits,
+                                         rank, staged, block_t)
+    _check_attn_o(q, o_packed, o_R, num_bits, rank)
+    out, _ = _launch_attn_o(q, k, v, ks, vs, k_new, v_new, layer, pos,
+                            o_packed, o_scales, o_R, o_R_scale, o_L,
+                            o_L_scale, num_bits, rank, staged,
+                            resolve_block_t(block_t, k.shape[3]))
+    flash_decode_attn_o.launches += 1
+    return out
+
+
+def _launch_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos, o_packed,
+                   o_scales, o_R, o_R_scale, o_L, o_L_scale, num_bits: int,
+                   rank: int, staged: bool, bt: int):
+    """Check the operands and launch ``attn_o_launch`` on layer ``layer``
+    (blocks of ``bt`` tokens); returns the output and the kernel's scratch
+    (the flat attention ``attn`` and its int8 codes ``xq8`` among it)."""
+    B, KVH, _, D = q.shape
+    T = k.shape[3]
+    Lk, h = o_packed.shape[:2]
+    qdim = KVH * D
+    f = K._pack_factor(num_bits)
+    if (D > 128 or D % 16 or bt > _MAX_CUDA_BLOCK_T
+            or num_bits not in (2, 4, 8) or qdim % (16 * f)):
+        raise ValueError(f"the CUDA kernel takes D <= 128 with D % 16 == 0, "
+                         f"blocks of at most {_MAX_CUDA_BLOCK_T} tokens and "
+                         f"2/4/8-bit codes; got D={D}, block_t={bt}, "
+                         f"{num_bits}-bit")
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError("the KV cache must be int8")
+    if o_R.dtype != torch.int8 or o_L.dtype != torch.int8:
+        raise TypeError("o_R and o_L must be int8 codes")
+    qf = q.float().contiguous()
+    ksf, vsf = ks.float(), vs.float()
+    pos32 = pos.to(torch.int32).contiguous()
+    news = []
+    if staged:
+        news = [_current_layer(t, layer).float().contiguous()
+                for t in (k_new, v_new)]
+    o_s, oRs, oLs = (t.float().contiguous()
+                     for t in (o_scales, o_R_scale, o_L_scale))
+    if (k.dim() != 5 or tuple(k.shape[1:3]) != (B, KVH) or k.shape[4] != D
+            or v.shape != k.shape or ks.shape != k.shape[:4]
+            or vs.shape != k.shape[:4] or tuple(pos32.shape) != (B,)
+            or any(tuple(t.shape) != (B, KVH, D) for t in news)
+            or o_s.shape != (Lk, h, 1) or o_R.shape != (Lk, rank, qdim)
+            or oRs.shape != (Lk, rank, 1) or o_L.shape != (Lk, h, rank)
+            or oLs.shape != (Lk, h, 1)):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+            f"scales {tuple(ks.shape)}, pos {tuple(pos.shape)}, current K/V "
+            f"{[tuple(t.shape) for t in news]}, o_proj {tuple(o_packed.shape)}"
+            f", R {tuple(o_R.shape)}, L {tuple(o_L.shape)}")
+    for t in (qf, k, v, ksf, vsf, pos32, *news, o_packed, o_s, o_R, oRs, o_L,
+              oLs):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("operands must be contiguous and on one device")
+    dev = q.device
+    scratch = dict(
+        attn=torch.empty((B, qdim), dtype=torch.float32, device=dev),
+        amax=torch.empty((B * KVH,), dtype=torch.float32, device=dev),
+        xq8=torch.empty((B, qdim), dtype=torch.int8, device=dev),
+        xro=torch.empty((B, rank), dtype=torch.float32, device=dev))
+    out = torch.empty((B, h), dtype=torch.float32, device=dev)
+    layer_kv = k[0].numel()
+    layer_s = ksf[0].numel() * 4
+    ptrs = [qf.data_ptr(), k.data_ptr() + layer * layer_kv,
+            v.data_ptr() + layer * layer_kv, ksf.data_ptr() + layer * layer_s,
+            vsf.data_ptr() + layer * layer_s]
+    ptrs += [t.data_ptr() for t in news] or [None, None]
+    err = _build.library("attn_o").attn_o_launch(
+        *ptrs, pos32.data_ptr(), o_packed.data_ptr(), o_s.data_ptr(),
+        o_R.data_ptr(), oRs.data_ptr(), o_L.data_ptr(), oLs.data_ptr(),
+        *(scratch[n].data_ptr() for n in ("attn", "amax", "xq8", "xro")),
+        out.data_ptr(), B, KVH, D, T, bt, _scale_f32(D), int(staged), h,
+        num_bits, layer, rank, _build.stream_ptr(dev))
+    _build.check(err, "attn_o")
+    return out, scratch
+
+
+flash_decode_attn_o.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -63,46 +63,50 @@ __device__ __forceinline__ int dot_word(unsigned word, int p, int xw, int acc) {
   }
 }
 
-// xq (M, K) int8, sx (M) f32, w (N, K / F) uint8 or int8, ws (N) f32,
-// out (M, N) f32. K % (16 * F) == 0; jc_words % 4 == 0.
-template <int BITS, int CODE, int MT>
-__global__ void __launch_bounds__(kThreads)
-rowdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-              const uint8_t* __restrict__ w, const float* __restrict__ ws,
-              float* __restrict__ out, int M, int N, int K, int jc_words) {
-  constexpr int F = 8 / BITS;
-  constexpr int MAXQ = (1 << (BITS - 1)) - 1;
-  constexpr int RPW = Tile<MT>::kRowsPerWarp;
-  extern __shared__ int xs[];  // [mt][F][jc_words] activation words
-  __shared__ int rowsum[MT];
+// Global loads of activations: read-only inputs through the non-coherent
+// cache; CG = true reads data another CTA of the same launch wrote (the
+// cooperative kernels' scratch) from L2.
+template <bool CG>
+__device__ __forceinline__ int ld_act(const int* p) {
+  return CG ? __ldcg(p) : p[0];
+}
 
+// rowsum[m] = sum_k xq[m0 + m, k] for the tile's mt rows (x32 points at row
+// m0), one warp per row. Needed by the offset-binary codes only.
+template <bool CG = false>
+__device__ __forceinline__ void tile_rowsum(const int* x32, int mt, int kw,
+                                            int* rowsum) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.y * MT;
-  const int mt = min(MT, M - m0);
-  const int pw = K / F / 4;  // 32-bit words per packed weight row
-  const int kw = K / 4;      // 32-bit words per activation row
-  const int* x32 = reinterpret_cast<const int*>(xq) + (size_t)m0 * kw;
-
-  if (CODE == kOffsetPacked) {
-    for (int m = warp; m < mt; m += kWarps) {
-      int s = 0;
-      for (int i = lane; i < kw; i += 32)
-        s = __dp4a(x32[(size_t)m * kw + i], 0x01010101, s);
+  for (int m = warp; m < mt; m += kWarps) {
+    int s = 0;
+    for (int i = lane; i < kw; i += 32)
+      s = __dp4a(ld_act<CG>(x32 + (size_t)m * kw + i), 0x01010101, s);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) rowsum[m] = s;
-    }
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) rowsum[m] = s;
   }
+}
 
-  int acc[RPW][MT];
+// The exact i32 sums acc[r][m] = sum_k xq[m0 + m, k] * code(w[n_first + r, k])
+// of one tile: this warp's RPW rows n_first + r against the CTA's mt
+// activation rows (x32 points at row m0; staged through xs, jc_words words
+// of each plane per chunk). Every thread of the CTA must call it: it
+// synchronizes the CTA before each chunk is staged. Lanes hold partial sums;
+// reduce them over the warp.
+template <int BITS, int CODE, int MT, bool CG = false>
+__device__ __forceinline__ void tile_accumulate(
+    const int* x32, int mt, int kw, const uint8_t* __restrict__ w, int N,
+    int pw, int jc_words, int n_first, int* xs,
+    int (&acc)[Tile<MT>::kRowsPerWarp][MT]) {
+  constexpr int F = 8 / BITS;
+  constexpr int RPW = Tile<MT>::kRowsPerWarp;
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[r][m] = 0;
-
-  const int n_first = blockIdx.x * Tile<MT>::kRowsPerBlock + warp * RPW;
 
   for (int j0 = 0; j0 < pw; j0 += jc_words) {
     const int cw = min(jc_words, pw - j0);
@@ -114,7 +118,7 @@ rowdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       const int p = t % F;
       const int m = t / F;
       xs[(m * F + p) * jc_words + wd] =
-          x32[(size_t)m * kw + p * pw + j0 + wd];
+          ld_act<CG>(x32 + (size_t)m * kw + p * pw + j0 + wd);
     }
     __syncthreads();
     // All RPW rows' 16-byte weight loads go out together, and each staged
@@ -151,16 +155,49 @@ rowdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
       }
     }
   }
+}
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// xq (M, K) int8, sx (M) f32, w (N, K / F) uint8 or int8, ws (N) f32,
+// out (M, N) f32. K % (16 * F) == 0; jc_words % 4 == 0.
+template <int BITS, int CODE, int MT>
+__global__ void __launch_bounds__(kThreads)
+rowdot_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+              const uint8_t* __restrict__ w, const float* __restrict__ ws,
+              float* __restrict__ out, int M, int N, int K, int jc_words) {
+  constexpr int F = 8 / BITS;
+  constexpr int MAXQ = (1 << (BITS - 1)) - 1;
+  constexpr int RPW = Tile<MT>::kRowsPerWarp;
+  extern __shared__ int xs[];  // [mt][F][jc_words] activation words
+  __shared__ int rowsum[MT];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * MT;
+  const int mt = min(MT, M - m0);
+  const int pw = K / F / 4;  // 32-bit words per packed weight row
+  const int kw = K / 4;      // 32-bit words per activation row
+  const int* x32 = reinterpret_cast<const int*>(xq) + (size_t)m0 * kw;
+
+  if (CODE == kOffsetPacked) tile_rowsum(x32, mt, kw, rowsum);
+
+  int acc[RPW][MT];
+  const int n_first = blockIdx.x * Tile<MT>::kRowsPerBlock + warp * RPW;
+  tile_accumulate<BITS, CODE, MT>(x32, mt, kw, w, N, pw, jc_words, n_first,
+                                  xs, acc);
 
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
     const int n = n_first + r;
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      int v = acc[r][m];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
+      int v = warp_sum_int(acc[r][m]);
       if (m < mt && n < N && lane == (m & 31)) {
         if (CODE == kOffsetPacked) v -= MAXQ * rowsum[m];
         out[(size_t)(m0 + m) * N + n] = ((float)v * ws[n]) * sx[m0 + m];

@@ -7,7 +7,10 @@ packed as uint8 in ``f = 8 / bits`` row-global planes, MSB first, so byte
 j + (f-1) K/f`` (plane ``p`` at shift ``bits * (f - 1 - p)``).
 
 The kernel wrappers (:func:`quantized_matmul`, :func:`quantized_matmul_w4a8`,
-:func:`quantized_matmul_w4a8_stacked`, :func:`int8_matmul`) launch a
+:func:`quantized_matmul_w4a8_stacked`, :func:`int8_matmul` and the
+low-rank-fused :func:`quantized_matmul_w4a8_l_stacked`,
+:func:`quantized_matmul_w4a8_lr_stacked`,
+:func:`quantized_matmul_w4a8_mlp_stacked`) launch a
 hand-written CUDA kernel for CUDA tensors and run their plain PyTorch
 version, defined beside them, for CPU tensors only. Integer dots in the
 plain versions run as float64 matmuls: every partial sum of int8 x code
@@ -343,6 +346,437 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
 
 
 quantized_matmul_w4a8_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# W4A8 stacked matmuls with the low-rank factors fused in (replace the TPU
+# kernels #5, #6 and #7): csrc/w4a8_lowrank.cu
+# ---------------------------------------------------------------------------
+
+def _require(cond: bool, what: str) -> None:
+    """The reference's ``assert`` contracts, kept as AssertionErrors that
+    ``python -O`` does not strip (the kernels read through raw pointers)."""
+    if not cond:
+        raise AssertionError(what)
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and upcast to f32 (exact), the reference's
+    bf16 dot operand."""
+    return t.to(torch.bfloat16).float()
+
+
+def lr_stacked_supported(splits, ranks, block_n: Optional[int] = None,
+                         num_bits: int = 4) -> bool:
+    """Whether the fused-factor stacked kernels take this fusion group: one
+    rank for all projections, rank windows on 128-lane boundaries (or a
+    single projection), and a common output block of at least 128 rows
+    after the reference's halving chain. The verdict decides whether
+    ``quantize_factors_int8_fused`` builds ``L_cat``, so it is the
+    reference's, block chain included, although the CUDA kernels take any
+    split."""
+    if len(set(ranks)) != 1:
+        return False
+    if len(splits) > 1 and ranks[0] % 128 != 0:
+        return False
+    block_n = min(resolve_block_n(block_n, num_bits), min(splits))
+    while any(n % block_n for n in splits):
+        block_n //= 2
+    return block_n >= 128
+
+
+def mlp_stacked_supported(im: int, h: int, rank: int, num_bits: int) -> bool:
+    """Whether the whole-MLP kernel takes this MLP (the reference's gate:
+    rank on 128-lane boundaries, 128-divisible blocks of at most 256)."""
+    if rank % 128:
+        return False
+    bn1 = min(256, im)
+    bn2 = min(256, h)
+    return (im % bn1 == 0 and h % bn2 == 0 and bn1 >= 128 and bn2 >= 128
+            and (8 // container_bits(num_bits)) >= 1)
+
+
+def thin_xr(x: torch.Tensor, R_l: torch.Tensor,
+            R_scale_l: torch.Tensor) -> torch.Tensor:
+    """``xr = (bf16(x) @ bf16(R_l).T) * R_scale_l``: the thin contraction
+    with one layer's int8 ``R`` codes (r, K) and their (r, 1) scales, f32
+    sums of exact products."""
+    return (_bf16(x) @ R_l.float().T) * R_scale_l[:, 0].float()[None, :]
+
+
+def _l_epilogue(xr, L_l, Ls_l, rank: int, splits) -> torch.Tensor:
+    """``ylr * Ls``: per projection ``i``, ``bf16(xr window i) @ L_i.T``
+    (int8 codes, exact in bf16) times the row scales; a single projection
+    takes the whole ``xr``."""
+    outs, off = [], 0
+    for i, n in enumerate(splits):
+        xw = xr if len(splits) == 1 else xr[:, i * rank:(i + 1) * rank]
+        ylr = _bf16(xw) @ L_l[off:off + n].float().T
+        outs.append(ylr * Ls_l[off:off + n, 0].float()[None, :])
+        off += n
+    return torch.cat(outs, dim=1)
+
+
+def _check_l_args(x, packed, row_scales, layer: int, L_cat, L_scale_cat,
+                  num_bits: int, splits) -> None:
+    f = _pack_factor(num_bits)
+    M, K = x.shape
+    Lk, N, P = packed.shape
+    _require(P * f == K, f"packed {tuple(packed.shape)} against K={K} at "
+             f"{num_bits}-bit")
+    _require(packed.dtype == torch.uint8, f"packed is {packed.dtype}")
+    _require(sum(splits) == N and L_cat.shape[1] == N,
+             f"splits {tuple(splits)} and L_cat {tuple(L_cat.shape)} "
+             f"against N={N}")
+    if (row_scales.shape != (Lk, N, 1) or L_cat.shape[0] != Lk
+            or L_scale_cat.shape != (Lk, N, 1)):
+        raise ValueError(f"shape mismatch: packed {tuple(packed.shape)}, "
+                         f"scales {tuple(row_scales.shape)}, L_cat "
+                         f"{tuple(L_cat.shape)}, L scales "
+                         f"{tuple(L_scale_cat.shape)}")
+    if not 0 <= layer < Lk:
+        raise IndexError(f"layer {layer} out of range for {Lk} layers")
+
+
+def quantized_matmul_w4a8_l_stacked_plain(
+        x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
+        layer: int, xr: torch.Tensor, L_cat: torch.Tensor,
+        L_scale_cat: torch.Tensor, num_bits: int, rank: int, splits,
+        act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quantized_matmul_w4a8_l_stacked`:
+    ``(acc * s_n) * sx_m + (bf16(xr window) @ bf16(L).T) * Ls_n``, the
+    integer part exact as in
+    :func:`quantized_matmul_w4a8_stacked_plain`."""
+    _check_l_args(x, packed, row_scales, layer, L_cat, L_scale_cat,
+                  num_bits, splits)
+    _require(tuple(xr.shape) == (x.shape[0], len(splits) * rank),
+             f"xr {tuple(xr.shape)} against splits {tuple(splits)}, rank "
+             f"{rank}")
+    xq, sx = quantize_activations_int8(x, act_scale)
+    return _l_from_codes(xq, sx, packed, row_scales, layer, xr, L_cat,
+                         L_scale_cat, num_bits, rank, splits)
+
+
+def _l_from_codes(xq, sx, packed, row_scales, layer: int, xr, L_cat,
+                  L_scale_cat, num_bits: int, rank: int, splits):
+    """The l kernel's plain arithmetic on int8 activation codes ``xq`` and
+    their row scales ``sx``."""
+    maxq = 2 ** (num_bits - 1) - 1
+    u = unpack_codes(packed[layer], num_bits)
+    acc = _int_dot_t(xq, u) - maxq * xq.double().sum(dim=1, keepdim=True)
+    return (_rescale(acc, row_scales[layer], sx)
+            + _l_epilogue(xr.float(), L_cat[layer], L_scale_cat[layer], rank,
+                          splits))
+
+
+def _split_bounds(splits, N: int):
+    """The ends of projections 0..2 for the kernels (N where unused)."""
+    ends = [sum(splits[:i + 1]) for i in range(len(splits) - 1)]
+    return ends + [N] * (3 - len(ends))
+
+
+def _check_lowrank_cuda(num_bits: int, K: int, splits) -> None:
+    f = _pack_factor(num_bits)
+    if num_bits not in (2, 4, 8) or K % (16 * f) or len(splits) > 4:
+        raise ValueError(f"the CUDA kernel takes 2/4/8-bit codes with "
+                         f"K % {16 * f} == 0 and at most 4 fused "
+                         f"projections, got {num_bits}-bit K={K}, "
+                         f"{len(splits)} projections")
+
+
+def quantized_matmul_w4a8_l_stacked(
+        x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
+        layer: int, xr: torch.Tensor, L_cat: torch.Tensor,
+        L_scale_cat: torch.Tensor, num_bits: int, rank: int, splits,
+        act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W4A8 matmul plus the L half of the low-rank factors, against layer
+    ``layer``, for a fusion group of ``len(splits)`` same-input projections.
+
+    ``x`` (M, K) float (int8 per row, or with ``act_scale``); ``packed``
+    (L, N, K/f) uint8 and ``row_scales`` (L, N, 1) f32 with N = sum(splits);
+    ``xr`` (M, n_proj * rank) f32, the caller's ``(bf16(x) @ bf16(R[l]).T) *
+    R_scale[l]``; ``L_cat`` (L, N, rank) int8 N-concatenated factor codes,
+    ``L_scale_cat`` (L, N, 1) f32. Returns (M, N) f32, global scales and
+    biases left to the caller. CUDA tensors go through
+    ``csrc/w4a8_lowrank.cu``; CPU tensors through
+    :func:`quantized_matmul_w4a8_l_stacked_plain`.
+    """
+    if x.device.type == "cpu":
+        return quantized_matmul_w4a8_l_stacked_plain(
+            x, packed, row_scales, layer, xr, L_cat, L_scale_cat, num_bits,
+            rank, splits, act_scale)
+    _check_l_args(x, packed, row_scales, layer, L_cat, L_scale_cat,
+                  num_bits, splits)
+    _require(tuple(xr.shape) == (x.shape[0], len(splits) * rank),
+             f"xr {tuple(xr.shape)} against splits {tuple(splits)}, rank "
+             f"{rank}")
+    _check_lowrank_cuda(num_bits, x.shape[1], splits)
+    xq, sx = quantize_activations_int8(x, act_scale)
+    out = _launch_l(xq, sx, packed, row_scales.float(), layer,
+                    xr.float().contiguous(), L_cat,
+                    L_scale_cat.float().contiguous(), num_bits, rank, splits)
+    quantized_matmul_w4a8_l_stacked.launches += 1
+    return out
+
+
+def _launch_l(xq, sx, packed, scales, layer: int, xr, L_cat, L_scale,
+              num_bits: int, rank: int, splits):
+    """Launch ``w4a8_l_stacked_launch`` on quantized activations."""
+    M, K = xq.shape
+    N = packed.shape[1]
+    sx = sx.contiguous()
+    if L_cat.dtype != torch.int8:
+        raise TypeError(f"L_cat must be int8, got {L_cat.dtype}")
+    _check_cuda_operands(xq, sx, packed, scales, xr, L_cat, L_scale)
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    err = _build.library("w4a8_lowrank").w4a8_l_stacked_launch(
+        xq.data_ptr(), sx.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        xr.data_ptr(), L_cat.data_ptr(), L_scale.data_ptr(), out.data_ptr(),
+        M, N, K, num_bits, layer, rank, len(splits),
+        *_split_bounds(splits, N), _build.stream_ptr(xq.device))
+    _build.check(err, "w4a8_l_stacked")
+    return out
+
+
+quantized_matmul_w4a8_l_stacked.launches = 0
+
+
+def quantized_matmul_w4a8_lr_stacked_plain(
+        x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
+        layer: int, R: torch.Tensor, R_scale: torch.Tensor,
+        L_cat: torch.Tensor, L_scale_cat: torch.Tensor, num_bits: int,
+        rank: int, splits) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quantized_matmul_w4a8_lr_stacked`:
+    :func:`thin_xr` with layer ``layer``'s ``R``, then the l kernel's
+    plain version."""
+    _require(R.shape[1] == len(splits) * rank,
+             f"R {tuple(R.shape)} against splits {tuple(splits)}, rank "
+             f"{rank}")
+    xr = thin_xr(x, R[layer], R_scale[layer])
+    return quantized_matmul_w4a8_l_stacked_plain(
+        x, packed, row_scales, layer, xr, L_cat, L_scale_cat, num_bits, rank,
+        splits)
+
+
+def quantized_matmul_w4a8_lr_stacked(
+        x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
+        layer: int, R: torch.Tensor, R_scale: torch.Tensor,
+        L_cat: torch.Tensor, L_scale_cat: torch.Tensor, num_bits: int,
+        rank: int, splits) -> torch.Tensor:
+    """W4A8 matmul plus both halves of the low-rank factors in one kernel:
+    :func:`quantized_matmul_w4a8_l_stacked` with ``xr`` computed inside
+    from ``R`` (L, n_proj * rank, K) int8 and ``R_scale`` (L, n_proj *
+    rank, 1) f32. Returns (M, N) f32. CUDA tensors go through the
+    cooperative kernel of ``csrc/w4a8_lowrank.cu``; CPU tensors through
+    :func:`quantized_matmul_w4a8_lr_stacked_plain`.
+    """
+    if x.device.type == "cpu":
+        return quantized_matmul_w4a8_lr_stacked_plain(
+            x, packed, row_scales, layer, R, R_scale, L_cat, L_scale_cat,
+            num_bits, rank, splits)
+    _check_l_args(x, packed, row_scales, layer, L_cat, L_scale_cat,
+                  num_bits, splits)
+    M, K = x.shape
+    nR = len(splits) * rank
+    _require(R.shape[1] == nR, f"R {tuple(R.shape)} against splits "
+             f"{tuple(splits)}, rank {rank}")
+    if (R.dtype != torch.int8 or L_cat.dtype != torch.int8
+            or R.shape != (packed.shape[0], nR, K)
+            or R_scale.shape != (packed.shape[0], nR, 1)):
+        raise ValueError(f"R must be int8 (L, {nR}, {K}) with (L, {nR}, 1) "
+                         f"scales and L_cat int8, got R {R.dtype} "
+                         f"{tuple(R.shape)}, scales {tuple(R_scale.shape)}, "
+                         f"L_cat {L_cat.dtype}")
+    _check_lowrank_cuda(num_bits, K, splits)
+    xf = x.float().contiguous()
+    xq, sx = quantize_activations_int8(xf)
+    out, _ = _launch_lr(xf, xq, sx, packed, row_scales.float(), layer, R,
+                        R_scale.float().contiguous(), L_cat,
+                        L_scale_cat.float().contiguous(), num_bits, rank,
+                        splits)
+    quantized_matmul_w4a8_lr_stacked.launches += 1
+    return out
+
+
+def _launch_lr(xf, xq, sx, packed, scales, layer: int, R, Rs, L_cat, Ls,
+               num_bits: int, rank: int, splits):
+    """Launch the cooperative ``w4a8_lr_stacked_launch`` on f32 activations
+    ``xf`` and their int8 codes; returns the output and the ``xr`` its
+    first phase computed."""
+    M, K = xq.shape
+    N = packed.shape[1]
+    sx = sx.contiguous()
+    if xf.data_ptr() % 16:      # the kernel reads x with 16-byte loads
+        xf = xf.clone()
+    _check_cuda_operands(xf, xq, sx, packed, scales, R, Rs, L_cat, Ls)
+    xr = torch.empty((M, len(splits) * rank), dtype=torch.float32,
+                     device=xq.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    err = _build.library("w4a8_lowrank").w4a8_lr_stacked_launch(
+        xf.data_ptr(), xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
+        scales.data_ptr(), R.data_ptr(), Rs.data_ptr(), L_cat.data_ptr(),
+        Ls.data_ptr(), xr.data_ptr(), out.data_ptr(), M, N, K, num_bits,
+        layer, rank, len(splits), *_split_bounds(splits, N),
+        _build.stream_ptr(xq.device))
+    _build.check(err, "w4a8_lr_stacked")
+    return out, xr
+
+
+quantized_matmul_w4a8_lr_stacked.launches = 0
+
+
+def _check_mlp_args(x, gu_packed, gu_scales, layer: int, xr_gu, gu_L_cat,
+                    gu_L_scale, gu_gs, dn_packed, dn_scales, dn_R,
+                    dn_R_scale, dn_L, dn_L_scale, num_bits: int, rank: int,
+                    block_m: int):
+    f = _pack_factor(num_bits)
+    M, K = x.shape
+    Lk, N_gu = gu_packed.shape[:2]
+    im = N_gu // 2
+    h = dn_packed.shape[1]
+    _require(gu_packed.shape[2] * f == K and dn_packed.shape[2] * f == im,
+             f"gate/up {tuple(gu_packed.shape)} and down "
+             f"{tuple(dn_packed.shape)} against K={K} at {num_bits}-bit")
+    _require(gu_packed.dtype == torch.uint8
+             and dn_packed.dtype == torch.uint8, "packed codes must be uint8")
+    _require(tuple(xr_gu.shape) == (M, 2 * rank),
+             f"xr_gu {tuple(xr_gu.shape)} against rank {rank}")
+    _require(tuple(dn_R.shape[1:]) == (rank, im),
+             f"dn_R {tuple(dn_R.shape)} against rank {rank}, im {im}")
+    if M > block_m:
+        raise ValueError("mlp megakernel supports one row block "
+                         f"(M={M} > block_m={block_m})")
+    shapes = {"gu_scales": (gu_scales, (Lk, N_gu, 1)),
+              "gu_L_cat": (gu_L_cat, (Lk, N_gu, rank)),
+              "gu_L_scale": (gu_L_scale, (Lk, N_gu, 1)),
+              "gu_gs": (gu_gs, (Lk, 2)), "dn_scales": (dn_scales, (Lk, h, 1)),
+              "dn_R": (dn_R, (Lk, rank, im)),
+              "dn_R_scale": (dn_R_scale, (Lk, rank, 1)),
+              "dn_L": (dn_L, (Lk, h, rank)),
+              "dn_L_scale": (dn_L_scale, (Lk, h, 1))}
+    bad = {k: tuple(t.shape) for k, (t, want) in shapes.items()
+           if tuple(t.shape) != want}
+    if bad or dn_packed.shape[0] != Lk:
+        raise ValueError(f"shape mismatch: {bad}, down "
+                         f"{tuple(dn_packed.shape)}")
+    if not 0 <= layer < Lk:
+        raise IndexError(f"layer {layer} out of range for {Lk} layers")
+    return M, K, im, h
+
+
+def quantized_matmul_w4a8_mlp_stacked_plain(
+        x, gu_packed, gu_scales, layer: int, xr_gu, gu_L_cat, gu_L_scale,
+        gu_gs, dn_packed, dn_scales, dn_R, dn_R_scale, dn_L, dn_L_scale,
+        num_bits: int, rank: int, block_m: int = 128) -> torch.Tensor:
+    """Plain PyTorch version of :func:`quantized_matmul_w4a8_mlp_stacked`,
+    in the reference kernel's order: gate/up through the l kernel's plain
+    version times their global scales, ``m = (g * sigmoid(g)) * u``, the
+    per-row int8 requantization of ``m`` (absmax floor 1e-12, / 127),
+    ``xrd = (bf16(m) @ bf16(dnR).T) * dnRs``, then down with the L
+    epilogue on ``xrd``."""
+    return _mlp_plain_parts(
+        x, gu_packed, gu_scales, layer, xr_gu, gu_L_cat, gu_L_scale, gu_gs,
+        dn_packed, dn_scales, dn_R, dn_R_scale, dn_L, dn_L_scale, num_bits,
+        rank, block_m)["out"]
+
+
+def _mlp_plain_parts(x, gu_packed, gu_scales, layer: int, xr_gu, gu_L_cat,
+                     gu_L_scale, gu_gs, dn_packed, dn_scales, dn_R,
+                     dn_R_scale, dn_L, dn_L_scale, num_bits: int, rank: int,
+                     block_m: int = 128):
+    """:func:`quantized_matmul_w4a8_mlp_stacked_plain` with its
+    intermediates: ``m``, its int8 codes ``m8`` and the output ``out``."""
+    M, K, im, h = _check_mlp_args(
+        x, gu_packed, gu_scales, layer, xr_gu, gu_L_cat, gu_L_scale, gu_gs,
+        dn_packed, dn_scales, dn_R, dn_R_scale, dn_L, dn_L_scale, num_bits,
+        rank, block_m)
+    gu = quantized_matmul_w4a8_l_stacked_plain(
+        x, gu_packed, gu_scales, layer, xr_gu, gu_L_cat, gu_L_scale,
+        num_bits, rank, (im, im))
+    gs = gu_gs[layer].float()
+    g = gu[:, :im] * gs[0]
+    m = (g * torch.sigmoid(g)) * (gu[:, im:] * gs[1])
+    mq, sm = quantize_activations_int8(m)
+    xrd = thin_xr(m, dn_R[layer], dn_R_scale[layer])
+    return dict(m=m, m8=mq, out=_l_from_codes(
+        mq, sm, dn_packed, dn_scales, layer, xrd, dn_L, dn_L_scale, num_bits,
+        rank, (h,)))
+
+
+def quantized_matmul_w4a8_mlp_stacked(
+        x, gu_packed, gu_scales, layer: int, xr_gu, gu_L_cat, gu_L_scale,
+        gu_gs, dn_packed, dn_scales, dn_R, dn_R_scale, dn_L, dn_L_scale,
+        num_bits: int, rank: int, block_m: int = 128) -> torch.Tensor:
+    """Whole-MLP W4A8 decode, ``down(silu(gate(x)) * up(x))``, in one launch
+    against layer ``layer`` of the stacked weights.
+
+    ``x`` (M, h) f32, the normed layer input (M <= ``block_m``: the
+    reference's one row block); ``gu_*`` the fused gate ++ up projection
+    (packed (L, 2 im, h/f), scales (L, 2 im, 1), ``L_cat`` (L, 2 im, rank)
+    int8 with (L, 2 im, 1) scales, global scales ``gu_gs`` (L, 2)); ``xr_gu``
+    (M, 2 rank) f32, the caller's thin gate/up ``R`` contraction; ``dn_*``
+    down_proj (packed (L, h, im/f), scales, ``R`` (L, rank, im) and ``L``
+    (L, h, rank) int8 codes with their scales). Returns down's (M, h)
+    output before its global scale. CUDA tensors go through the cooperative
+    kernel of ``csrc/w4a8_lowrank.cu``; CPU tensors through
+    :func:`quantized_matmul_w4a8_mlp_stacked_plain`.
+    """
+    args = (x, gu_packed, gu_scales, layer, xr_gu, gu_L_cat, gu_L_scale,
+            gu_gs, dn_packed, dn_scales, dn_R, dn_R_scale, dn_L, dn_L_scale,
+            num_bits, rank, block_m)
+    if x.device.type == "cpu":
+        return quantized_matmul_w4a8_mlp_stacked_plain(*args)
+    M, K, im, h = _check_mlp_args(*args)
+    _check_lowrank_cuda(num_bits, K, (im,))
+    _check_lowrank_cuda(num_bits, im, (h,))
+    if gu_L_cat.dtype != torch.int8 or dn_R.dtype != torch.int8 \
+            or dn_L.dtype != torch.int8:
+        raise TypeError("the L and R factors must be int8 codes")
+    xq, sx = quantize_activations_int8(x)
+    out, _ = _launch_mlp(xq, sx, xr_gu, gu_packed, gu_scales, layer,
+                         gu_L_cat, gu_L_scale, gu_gs, dn_packed, dn_scales,
+                         dn_R, dn_R_scale, dn_L, dn_L_scale, num_bits, rank)
+    quantized_matmul_w4a8_mlp_stacked.launches += 1
+    return out
+
+
+def _launch_mlp(xq, sx, xr_gu, gu_packed, gu_scales, layer: int, gu_L_cat,
+                gu_L_scale, gu_gs, dn_packed, dn_scales, dn_R, dn_R_scale,
+                dn_L, dn_L_scale, num_bits: int, rank: int):
+    """Launch ``w4a8_mlp_stacked_launch`` on quantized activations; returns
+    the output and the kernel's scratch (``m`` and its int8 codes ``m8``
+    among it)."""
+    M = xq.shape[0]
+    im, h = gu_packed.shape[1] // 2, dn_packed.shape[1]
+    sx = sx.contiguous()
+    fl = [t.float().contiguous() for t in (xr_gu, gu_scales, gu_L_scale,
+                                           gu_gs, dn_scales, dn_R_scale,
+                                           dn_L_scale)]
+    xr_f, gu_s, gu_Ls, gs, dn_s, dn_Rs, dn_Ls = fl
+    _check_cuda_operands(xq, sx, gu_packed, gu_L_cat, dn_packed, dn_R, dn_L,
+                         *fl)
+    dev = xq.device
+    rpb = 32 if M <= 8 else 8          # output rows per tile (rowdot.cuh)
+    scratch = dict(
+        m=torch.empty((M, im), dtype=torch.float32, device=dev),
+        amax=torch.empty(((im + rpb - 1) // rpb, M), dtype=torch.float32,
+                         device=dev),
+        m8=torch.empty((M, im), dtype=torch.int8, device=dev),
+        xrd=torch.empty((M, rank), dtype=torch.float32, device=dev))
+    out = torch.empty((M, h), dtype=torch.float32, device=dev)
+    err = _build.library("w4a8_lowrank").w4a8_mlp_stacked_launch(
+        xq.data_ptr(), sx.data_ptr(), xr_f.data_ptr(), gu_packed.data_ptr(),
+        gu_s.data_ptr(), gu_L_cat.data_ptr(), gu_Ls.data_ptr(),
+        gs.data_ptr(), dn_packed.data_ptr(), dn_s.data_ptr(),
+        dn_R.data_ptr(), dn_Rs.data_ptr(), dn_L.data_ptr(), dn_Ls.data_ptr(),
+        *(scratch[k].data_ptr() for k in ("m", "amax", "m8", "xrd")),
+        out.data_ptr(), M, h, im, num_bits, layer, rank,
+        _build.stream_ptr(dev))
+    _build.check(err, "w4a8_mlp_stacked")
+    return out, scratch
+
+
+quantized_matmul_w4a8_mlp_stacked.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ only: per prefill, 4 W4A8 launches and one flash-prefill launch per layer
 plus the int8 head; per decode tick, 4 W4A8 launches and one flash-decode
 launch (the row kernel, or the all-batch kernel's partition from
 ``max_seq_len >= 1024`` under ``attn_kernel="auto"``) per layer plus the
-head.
+head. On factor path "l" the W4A8 launches are the L-fused kernel's (on
+"lr", qkv and gate/up take the LR-fused kernel); ``mlp_kernel=True`` makes
+a tick's gate/up and down one whole-MLP launch.
 """
 
 from __future__ import annotations
@@ -26,8 +28,6 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
     fused, llama, stacked)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
     ModelConfig)
-from ee274_convexcaldera_llm_quantization_tpu_torch.models.fused import (
-    _not_ported)
 from ee274_convexcaldera_llm_quantization_tpu_torch.serve.engine import (
     ServingEngine)
 
@@ -47,7 +47,9 @@ class FastServingEngine(ServingEngine):
     defaults to True. ``attn_kernel`` "auto" takes "ab" once
     ``max_seq_len >= 1024``, else "row". ``prefill_chunk > 0`` prefills
     prompts in chunks of that size, one chunk per in-flight prompt per
-    tick, interleaved with decode steps.
+    tick, interleaved with decode steps. ``mlp_kernel`` runs each fused
+    decode tick's MLP as one whole-MLP kernel launch per layer (params
+    quantized with factor path "l" or "lr"; the step raises otherwise).
     """
 
     def __init__(self, params, config: ModelConfig, max_slots: int = 8,
@@ -56,8 +58,6 @@ class FastServingEngine(ServingEngine):
                  prefill_chunk: int = 0, staged_kv=None,
                  attn_kernel: str = "auto", mlp_kernel: bool = False,
                  device="cuda"):
-        if mlp_kernel:
-            raise _not_ported("mlp_kernel=True", "Queue B item 12")
         self._fused = isinstance(params, fused.FusedStackedParams)
         if not self._fused and (flash_attn or prefill_chunk):
             raise ValueError("flash_attn and prefill_chunk require fused "
@@ -86,6 +86,7 @@ class FastServingEngine(ServingEngine):
         if attn_kernel == "auto":
             attn_kernel = "ab" if self.max_seq_len >= 1024 else "row"
         self._attn_kernel = attn_kernel
+        self._mlp_kernel = mlp_kernel
         self._prefilling = {}           # slot -> [req, next_offset]
 
     def _create_cache(self):
@@ -149,7 +150,8 @@ class FastServingEngine(ServingEngine):
             logits, self.cache = fused.decode_step_fused(
                 self.params, tokens, pos, self.cache, self.config,
                 staged_kv=self._staged if self._flash else False,
-                attn_kernel=self._attn_kernel if self._flash else "row")
+                attn_kernel=self._attn_kernel if self._flash else "row",
+                mlp_kernel=self._mlp_kernel)
         else:
             logits, self.cache = stacked.decode_step_w4a8(
                 self.params, tokens, pos, self.cache, self.config)

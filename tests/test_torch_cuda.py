@@ -445,3 +445,221 @@ def test_paged_engine_on_card_counts_launches(dev):
     assert [fn.launches - b for fn, b in zip(counters, before)] == [
         4 * L * 4, L, 3 * L, 4]
     assert eng.allocator.free_pages == 16
+
+
+def _lowrank_group(rng, layers, splits, K, rank, bits, M):
+    f = 8 // bits
+    N, nR = sum(splits), len(splits) * rank
+    high = 255 if bits == 8 else 256
+    return dict(
+        x=torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)),
+        packed=torch.from_numpy(rng.integers(0, high, size=(layers, N, K // f),
+                                             dtype=np.uint8)),
+        scales=torch.from_numpy(rng.uniform(1e-3, 1e-2, size=(layers, N, 1))
+                                .astype(np.float32)),
+        R=torch.from_numpy(rng.integers(-127, 128, size=(layers, nR, K),
+                                        dtype=np.int8)),
+        Rs=torch.from_numpy(rng.uniform(1e-4, 1e-3, size=(layers, nR, 1))
+                            .astype(np.float32)),
+        L=torch.from_numpy(rng.integers(-127, 128, size=(layers, N, rank),
+                                        dtype=np.int8)),
+        Ls=torch.from_numpy(rng.uniform(1e-4, 1e-3, size=(layers, N, 1))
+                            .astype(np.float32)))
+
+
+def _rel(got, ref):
+    got, ref = got.cpu(), ref.cpu()
+    return float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+
+
+# splits whose row tiles straddle two and three projections (tiles of 32
+# rows at M <= 8, 8 rows above), and a single projection of any rank
+_SPLITS = [((40, 24, 136), 128), ((512, 256, 256), 128), ((96,), 24)]
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_l_kernel_matches_plain(dev, splits, rank, M, bits):
+    # exact integer sums; the factor dots sum in another f32 order
+    g = _lowrank_group(np.random.default_rng(700 + M + bits), 2, splits, 256,
+                       rank, bits, M)
+    xr = K.thin_xr(g["x"], g["R"][1], g["Rs"][1])
+    args = (g["packed"], g["scales"], 1, xr, g["L"], g["Ls"], bits, rank,
+            splits)
+    ref = K.quantized_matmul_w4a8_l_stacked_plain(g["x"], *args)
+    before = K.quantized_matmul_w4a8_l_stacked.launches
+    y = K.quantized_matmul_w4a8_l_stacked(
+        g["x"].to(dev), *(a.to(dev) if torch.is_tensor(a) else a
+                          for a in args))
+    assert K.quantized_matmul_w4a8_l_stacked.launches == before + 1
+    torch.testing.assert_close(y.cpu(), ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_lr_kernel_matches_plain(dev, splits, rank, M, bits):
+    # xr from the kernel's first phase against the plain thin dot (f32
+    # sums in another order), then the output against the plain version
+    # on the kernel's own xr: an xr element that rounds to the other bf16
+    # neighbour before the L dot moved outputs by up to 4.7e-4 (1.1e-4 of
+    # their largest), so the output is not held to the plain xr. Two
+    # launches give the same bits.
+    g = _lowrank_group(np.random.default_rng(800 + M + bits), 2, splits, 512,
+                       rank, bits, M)
+    d = {k: t.to(dev) for k, t in g.items()}
+    y = K.quantized_matmul_w4a8_lr_stacked(
+        d["x"], d["packed"], d["scales"], 1, d["R"], d["Rs"], d["L"],
+        d["Ls"], bits, rank, splits)
+    xq, sx = K.quantize_activations_int8(d["x"])
+    y2, xr = K._launch_lr(d["x"], xq, sx, d["packed"], d["scales"], 1,
+                          d["R"], d["Rs"], d["L"], d["Ls"], bits, rank,
+                          splits)
+    assert torch.equal(y, y2)
+    xr_ref = K.thin_xr(g["x"], g["R"][1], g["Rs"][1])
+    torch.testing.assert_close(xr.cpu(), xr_ref, rtol=1e-5,
+                               atol=1e-5 * float(xr_ref.abs().max()))
+    ref = K.quantized_matmul_w4a8_l_stacked_plain(
+        g["x"], g["packed"], g["scales"], 1, xr.cpu(), g["L"], g["Ls"], bits,
+        rank, splits)
+    torch.testing.assert_close(y.cpu(), ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def _mlp_inputs(rng, L, h, im, rank, bits, M):
+    f = 8 // bits
+    high = 255 if bits == 8 else 256
+    u = rng.uniform
+    t = torch.from_numpy
+    x = t(rng.normal(size=(M, h)).astype(np.float32))
+    w = [t(rng.integers(0, high, size=(L, 2 * im, h // f), dtype=np.uint8)),
+         t(u(1e-3, 1e-2, (L, 2 * im, 1)).astype(np.float32))]
+    gu_R = t(rng.integers(-127, 128, size=(L, 2 * rank, h), dtype=np.int8))
+    gu_Rs = t(u(1e-4, 1e-3, (L, 2 * rank, 1)).astype(np.float32))
+    rest = [t(rng.integers(-127, 128, size=(L, 2 * im, rank),
+                           dtype=np.int8)),
+            t(u(1e-4, 1e-3, (L, 2 * im, 1)).astype(np.float32)),
+            t(u(0.5, 2.0, (L, 2)).astype(np.float32)),
+            t(rng.integers(0, high, size=(L, h, im // f), dtype=np.uint8)),
+            t(u(1e-3, 1e-2, (L, h, 1)).astype(np.float32)),
+            t(rng.integers(-127, 128, size=(L, rank, im), dtype=np.int8)),
+            t(u(1e-4, 1e-3, (L, rank, 1)).astype(np.float32)),
+            t(rng.integers(-127, 128, size=(L, h, rank), dtype=np.int8)),
+            t(u(1e-4, 1e-3, (L, h, 1)).astype(np.float32))]
+    return x, w, gu_R, gu_Rs, rest
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [3, 8, 33, 128])
+def test_mlp_kernel_matches_plain(dev, bits, M):
+    # the kernel requantizes m inside: an f32 ulp of m (expf against
+    # torch.sigmoid, the factor sums' order) can round one of its codes the
+    # other way, so the bound is rel-Frobenius, not elementwise
+    x, w, gu_R, gu_Rs, rest = _mlp_inputs(
+        np.random.default_rng(900 + M + bits), 2, 256, 512, 128, bits, M)
+    xr = K.thin_xr(x, gu_R[1], gu_Rs[1])
+    ref = K.quantized_matmul_w4a8_mlp_stacked_plain(x, *w, 1, xr, *rest,
+                                                    bits, 128)
+    y = K.quantized_matmul_w4a8_mlp_stacked(
+        x.to(dev), *(a.to(dev) for a in w), 1, xr.to(dev),
+        *(a.to(dev) for a in rest), bits, 128)
+    assert _rel(y, ref) <= 1e-3, _rel(y, ref)
+    with pytest.raises(ValueError, match="one row block"):
+        K.quantized_matmul_w4a8_mlp_stacked(
+            torch.zeros((129, 256), device=dev), *(a.to(dev) for a in w), 1,
+            torch.zeros((129, 256), device=dev), *(a.to(dev) for a in rest),
+            bits, 128)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("B", [3, 8, 32])
+def test_attn_o_kernel_matches_plain(dev, staged, B):
+    # f32 attention in another summation order, then an int8 requant of the
+    # attention inside the kernel (one code may round the other way)
+    rng = np.random.default_rng(1000 + B)
+    L, KVH, D, T, h, rank = 2, 4, 128, 64, 256, 128
+    pos = torch.from_numpy(rng.integers(0, T, size=B).astype(np.int32))
+    pos[0] = 0
+    args = _decode_inputs(rng, L, B, KVH, 1, D, T)
+    o = [torch.from_numpy(a) for a in (
+        rng.integers(0, 256, size=(L, h, KVH * D // 2), dtype=np.uint8),
+        rng.uniform(1e-3, 1e-2, (L, h, 1)).astype(np.float32),
+        rng.integers(-127, 128, size=(L, rank, KVH * D), dtype=np.int8),
+        rng.uniform(1e-4, 1e-3, (L, rank, 1)).astype(np.float32),
+        rng.integers(-127, 128, size=(L, h, rank), dtype=np.int8),
+        rng.uniform(1e-4, 1e-3, (L, h, 1)).astype(np.float32))]
+    ref = AT.flash_decode_attn_o_plain(*args, 1, pos, *o, 4, rank,
+                                       staged=staged, block_t=32)
+    y = AT.flash_decode_attn_o(*(a.to(dev) for a in args), 1, pos.to(dev),
+                               *(a.to(dev) for a in o), 4, rank,
+                               staged=staged, block_t=32)
+    assert _rel(y, ref) <= 1e-3, _rel(y, ref)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(fk="l", staged_kv="uniform", attn_dots="i8"),
+    dict(fk="lr", staged_kv="uniform", attn_dots="i8"),
+    dict(fk="l", staged_kv=True, attn_dots="f32", mlp_kernel=True,
+         attn_o_kernel=True),
+    dict(fk="l", staged_kv=False, attn_dots="f32", mlp_kernel=True,
+         attn_o_kernel=True)])
+def test_factor_path_steps_on_card(dev, flags, monkeypatch):
+    # the fused step's options on a 2-layer tiny-mha at rank 128: exact
+    # launches per step, then the same steps with the plain versions on the
+    # card (the same glue; an f32 ulp can flip one int8 code)
+    flags = dict(flags)
+    fk = flags.pop("fk")
+    config = dataclasses.replace(TINY_MHA, num_layers=2)
+    params = fused.quantize_factors_int8_fused(fused.fuse_stacked(
+        bench_params.build_compressed_llama_params(config, rank=128, seed=0,
+                                                   device=dev)),
+        fuse_factor_kernel=fk)
+    assert params.layers.qkv.L_cat is not None
+    Lk = config.num_layers
+    counters = (K.quantized_matmul_w4a8_l_stacked,
+                K.quantized_matmul_w4a8_lr_stacked,
+                K.quantized_matmul_w4a8_mlp_stacked, AT.flash_decode_attn_o,
+                K.quantized_matmul_w4a8_stacked, K.int8_matmul)
+    expect = {"l": [4 * Lk, 0, 0, 0, 0, 1], "lr": [0, 2 * Lk, 0, 0, 2 * Lk,
+                                                   1]}[fk]
+    if flags.get("mlp_kernel"):
+        expect = [Lk, 0, Lk, Lk, 0, 1]
+    B, T = 4, 16
+
+    def run():
+        cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+        tokens = torch.tensor([1, 2, 3, 4], device=dev)
+        out = []
+        for step in range(3):
+            pos = torch.full((B,), 5 + step, dtype=torch.int32, device=dev)
+            before = [fn.launches for fn in counters]
+            logits, cache = fused.decode_step_fused(params, tokens, pos,
+                                                    cache, config, **flags)
+            out.append(([fn.launches - b for fn, b in zip(counters, before)],
+                        logits.cpu()))
+            tokens = logits.argmax(-1)
+        return out
+
+    kern = run()
+    assert all(launches == expect for launches, _ in kern)
+    for name, plain in (
+            ("quantized_matmul_w4a8_l_stacked",
+             K.quantized_matmul_w4a8_l_stacked_plain),
+            ("quantized_matmul_w4a8_lr_stacked",
+             K.quantized_matmul_w4a8_lr_stacked_plain),
+            ("quantized_matmul_w4a8_mlp_stacked",
+             K.quantized_matmul_w4a8_mlp_stacked_plain),
+            ("quantized_matmul_w4a8_stacked",
+             K.quantized_matmul_w4a8_stacked_plain),
+            ("int8_matmul", K.int8_matmul_plain)):
+        monkeypatch.setattr(K, name, plain)
+    monkeypatch.setattr(AT, "flash_decode_attn_o",
+                        AT.flash_decode_attn_o_plain)
+    monkeypatch.setattr(AT, "flash_decode_q8_staged",
+                        AT.flash_decode_q8_staged_plain)
+    monkeypatch.setattr(AT, "flash_decode_q8", AT.flash_decode_q8_plain)
+    for (_, got), (_, ref) in zip(kern, run()):
+        assert _rel(got, ref) <= 5e-3, _rel(got, ref)
+        assert torch.equal(got.argmax(-1), ref.argmax(-1))

@@ -16,12 +16,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 import bench
 from ee274_convexcaldera_llm_quantization_tpu.models import fused as JF
 from ee274_convexcaldera_llm_quantization_tpu.models import llama as JL
 from ee274_convexcaldera_llm_quantization_tpu.models.config import (
-    TINY, TINY_MHA)
+    TINY, TINY_MHA, ModelConfig)
+from ee274_convexcaldera_llm_quantization_tpu.ops import attention as JA
 from ee274_convexcaldera_llm_quantization_tpu.ops import kernels as JK
 from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
 from ee274_convexcaldera_llm_quantization_tpu_torch.interop import (
@@ -73,10 +75,11 @@ def _flatten(obj, prefix, arrays, meta):
         raise TypeError(f"cannot flatten {type(obj).__name__} at {prefix}")
 
 
-def _jax_params(config):
-    p = bench.build_compressed_llama_params(config, num_bits=4, rank=16,
+def _jax_params(config, rank=16, factor_kernel=False):
+    p = bench.build_compressed_llama_params(config, num_bits=4, rank=rank,
                                             seed=0)
-    return JF.quantize_factors_int8_fused(JF.fuse_stacked(p))
+    return JF.quantize_factors_int8_fused(JF.fuse_stacked(p),
+                                          fuse_factor_kernel=factor_kernel)
 
 
 def _to_port(jparams, device="cpu"):
@@ -85,19 +88,35 @@ def _to_port(jparams, device="cpu"):
     return fused_params_from_numpy(arrays, meta, device=device)
 
 
+# The reference's fused attention + o_proj test model (tests/
+# test_flash_attention.py::TestDecodeStepAttnO): MHA, hidden 512, head_dim
+# 128, two layers.
+MHA_512 = ModelConfig(vocab_size=256, hidden_size=512, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                      max_seq_len=64)
+
+# name -> (config, rank, factor path). On TINY the qkv group fails
+# lr_stacked_supported (its k/v splits of 64 rows halve the common block
+# below 128), so "l"/"lr" there fuse gate/up only and o/down stay on the
+# "xla" path; the MHA configs fuse every group.
+_PARAM_SETS = {"tiny": (TINY, 16, False), "tiny-mha": (TINY_MHA, 16, False),
+               "tiny-l": (TINY, 128, "l"), "tiny-lr": (TINY, 128, "lr"),
+               "tiny-mha-l": (TINY_MHA, 128, "l"),
+               "tiny-mha-lr": (TINY_MHA, 128, "lr"),
+               "mha512-l": (MHA_512, 128, "l")}
 _PARAMS = {}
 
 
 def _params(name):
     if name not in _PARAMS:
-        config = {"tiny": TINY, "tiny-mha": TINY_MHA}[name]
-        jp = _jax_params(config)
+        config, rank, fk = _PARAM_SETS[name]
+        jp = _jax_params(config, rank, fk)
         _PARAMS[name] = (config, jp, _to_port(jp))
     return _PARAMS[name]
 
 
 def _port_config(config):
-    return TC.PRESETS[{TINY: "tiny", TINY_MHA: "tiny-mha"}[config]]
+    return TC.ModelConfig(**dataclasses.asdict(config))
 
 
 def _assert_caches_match(tc, jc, scale_rtol=LOGIT_RTOL):
@@ -146,11 +165,22 @@ class _Rounding:
     no trace made before holds the recorder and none made inside outlives
     it. Calls of the reference's own jitted functions inside the context
     (an engine's) retrace and record too.
+
+    The two megakernels requantize inside the kernel (the whole-MLP
+    kernel's ``m``, the fused attention + o_proj kernel's attention
+    output), where the port's plain versions call
+    ``quantize_activations_int8``. Their kernel bodies are wrapped to report
+    those codes from the requantizing grid step (an unordered callback:
+    Pallas kernels take no ordered effects), and the kernel's wrapper
+    moves them into the record in program order with an ordered callback
+    on the kernel's output, which runs only after the kernel.
     """
 
     def __init__(self, fn=None, static=("config", "interpret", "staged_kv",
-                                        "attn_dots", "attn_kernel")):
+                                        "attn_dots", "attn_kernel",
+                                        "mlp_kernel", "attn_o_kernel")):
         self.jax, self.port, self.force = [], [], {}
+        self.pending = []
         self.fn = JF.decode_step_fused if fn is None else fn
         self.static = static
 
@@ -177,14 +207,60 @@ class _Rounding:
             return codes, scale
         return wrapped
 
+    def _kernel_wrap(self, orig, at, refs):
+        """A megakernel body that also reports, at grid step ``at(kw)``,
+        the int8 codes and the values / scale of its requantization
+        (``refs``: the indices of the codes, values and scale refs)."""
+        def body(*args, **kw):
+            orig(*args, **kw)
+            codes, vals, scale = (args[i] for i in refs)
+
+            @pl.when(pl.program_id(0) == at(kw))
+            def _report():
+                jax.debug.callback(
+                    lambda c, r: self.pending.append((np.array(c),
+                                                      np.array(r))),
+                    codes[:], vals[:] / scale[:, :1], ordered=False)
+        return body
+
+    def _flush_wrap(self, orig):
+        """The megakernel's wrapper: after the kernel, its reported codes
+        join the record, cut to the caller's M rows (the kernel pads to
+        32)."""
+        def wrapped(x, *args, **kw):
+            out = orig(x, *args, **kw)
+            rows = x.shape[0]
+
+            def flush(_):
+                self.jax.extend((c[:rows], r[:rows])
+                                for c, r in self.pending)
+                self.pending.clear()
+            jax.debug.callback(flush, out, ordered=True)
+            return out
+        return wrapped
+
     def __enter__(self):
         self.saved = [(m, n, getattr(m, n)) for m, n in (
             (JK, "quantize_activations_int8"), (JL, "quantize_kv"),
-            (TK, "quantize_activations_int8"), (TL, "quantize_kv"))]
-        for (m, n, orig), wrap in zip(self.saved, (
+            (TK, "quantize_activations_int8"), (TL, "quantize_kv"),
+            (JK, "_qmm_w4a8_mlp_stacked_kernel"),
+            (JA, "_flash_attn_o_kernel"),
+            (JK, "quantized_matmul_w4a8_mlp_stacked"),
+            (JA, "flash_decode_attn_o"))]
+        for (m, n, orig), wrap in zip(self.saved[:4], (
                 self._jax_wrap, self._jax_wrap, self._port_wrap,
                 self._port_wrap)):
             setattr(m, n, wrap(orig, n == "quantize_kv"))
+        # whole-MLP kernel: m8_ref, gm_ref, sm_ref at program G1; fused
+        # attention + o_proj: xq8_ref, attn_ref, sx_ref at program B * nt
+        (_, _, mlp), (_, _, attn_o), (_, _, mlp_fn), (_, _, attn_o_fn) = \
+            self.saved[4:]
+        JK._qmm_w4a8_mlp_stacked_kernel = self._kernel_wrap(
+            mlp, lambda kw: kw["G1"], (18, 16, 19))
+        JA._flash_attn_o_kernel = self._kernel_wrap(
+            attn_o, lambda kw: kw["B"] * kw["nt"], (20, 19, 21))
+        JK.quantized_matmul_w4a8_mlp_stacked = self._flush_wrap(mlp_fn)
+        JA.flash_decode_attn_o = self._flush_wrap(attn_o_fn)
         jax.clear_caches()
         self.jax_step = jax.jit(self.fn.__wrapped__,
                                 static_argnames=self.static)
@@ -270,11 +346,15 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _step_both(rec, params, tokens, pos, jcache, tcache, **kw):
+def _step_both(rec, params, tokens, pos, jcache, tcache, ratio_tol=None,
+               max_flips=None, logit_rel=None, **kw):
     """One step of the reference and the port from the same cache.
 
     ``tcache`` is overwritten with ``jcache`` first; roundings are replayed
-    (:func:`_replay`) and the replay is held to the tight bound. Returns
+    (:func:`_replay`, flips within ``ratio_tol``, at most ``max_flips``)
+    and the replay is held to the tight bound, or, where ``logit_rel`` is
+    given, to that rel-Frobenius bound on the logits and that rtol on the
+    K/V scales. Returns
     ``(reference logits, jcache, tcache, readings)``: the codes replayed,
     and the logits' rel-Frobenius difference before and after the
     replay."""
@@ -292,13 +372,18 @@ def _step_both(rec, params, tokens, pos, jcache, tcache, **kw):
             torch.from_numpy(pos), tcache, _port_config(config),
             **kw)[0].numpy()
 
-    (jl, jcache), tl, first, flips, _ = _replay(rec, run_jax, run_port)
+    (jl, jcache), tl, first, flips, _ = _replay(
+        rec, run_jax, run_port, max_flips=max_flips, ratio_tol=ratio_tol)
     jl = np.asarray(jl)
-    np.testing.assert_allclose(tl, jl, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    if logit_rel is None:
+        np.testing.assert_allclose(tl, jl, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    else:
+        assert _rel(tl, jl) <= logit_rel, _rel(tl, jl)
     np.testing.assert_array_equal(tl.argmax(-1), jl.argmax(-1))
     first_rel = _rel(first, jl)
     assert first_rel <= FLIP_LOGIT_REL, first_rel
-    _assert_caches_match(tcache, jcache)
+    _assert_caches_match(tcache, jcache,
+                         LOGIT_RTOL if logit_rel is None else logit_rel)
     return jl, jcache, tcache, dict(flips=flips, before=first_rel,
                                     after=_rel(tl, jl))
 
@@ -309,12 +394,15 @@ _CACHES = {"head": (JL.HeadMajorQuantKVCache, TL.HeadMajorQuantKVCache),
 
 
 def _loop_over_seeds(name, seeds, attn_dots="i8", cache="head", T=16,
-                     **kw):
-    """Six steps per seeded prompt (three prompt tokens, then the
-    reference's greedy tokens), each step from the reference's cache."""
+                     ratio_tol=None, max_flips=None, logit_rel=None,
+                     steps=6, **kw):
+    """``steps`` steps per seeded prompt (three prompt tokens, then the
+    reference's greedy tokens), each step from the reference's cache and
+    held to :func:`_step_both`'s bounds (``ratio_tol``, ``max_flips``,
+    ``logit_rel``)."""
     params = _params(name)
     config = params[0]
-    B, prompt_len, steps = 2, 3, 6
+    B, prompt_len = 2, 3
     jcls, tcls = _CACHES[cache]
     readings = []
     with _Rounding() as rec:
@@ -329,7 +417,8 @@ def _loop_over_seeds(name, seeds, attn_dots="i8", cache="head", T=16,
                 pos = np.full((B,), step, np.int32)
                 jl, jcache, tcache, r = _step_both(
                     rec, params, tok, pos, jcache, tcache,
-                    attn_dots=attn_dots, **kw)
+                    ratio_tol=ratio_tol, max_flips=max_flips,
+                    logit_rel=logit_rel, attn_dots=attn_dots, **kw)
                 if r["flips"]:
                     flip_steps.append((step, r["flips"]))
                     before = max(before, r["before"])
@@ -498,7 +587,6 @@ class TestPortSurface:
             _to_port(_params("tiny")[1], device="cuda")
 
     @pytest.mark.parametrize("flag", [
-        dict(mlp_kernel=True), dict(attn_o_kernel=True),
         dict(attn_kernel="ab", attn_dots="bf16"), dict(tp_axis="tp"),
         dict(proj_kernel="persistent"), dict(staged_kv=True,
                                              attn_dots="bf16"),
@@ -511,7 +599,37 @@ class TestPortSurface:
                                  torch.tensor([0], dtype=torch.int32), cache,
                                  TC.TINY, **flag)
 
-    def test_unported_factor_paths_raise(self):
+    def test_unknown_factor_path_raises(self):
+        # the reference's names: False / "xla", "l", True / "lr"
         _, _, tparams = _params("tiny")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.quantize_factors_int8_fused(tparams, fuse_factor_kernel="l")
+        with pytest.raises(ValueError, match="factor kernel"):
+            TF.quantize_factors_int8_fused(tparams, fuse_factor_kernel="x")
+
+    @pytest.mark.parametrize("name,flag,match", [
+        # the reference's ValueError guards of decode_step_fused
+        ("tiny", dict(mlp_kernel=True), "mlp_kernel"),
+        ("tiny", dict(attn_o_kernel=True), "attn_o_kernel"),
+        ("tiny-l", dict(attn_o_kernel=True), "attn_o_kernel"),
+        ("mha512-l", dict(attn_o_kernel=True, attn_dots="i8"), "f32"),
+        ("mha512-l", dict(attn_o_kernel=True, attn_dots="bf16"), "f32"),
+        ("mha512-l", dict(attn_o_kernel=True, attn_kernel="ab"),
+         "mutually exclusive"),
+        ("mha512-l", dict(attn_o_kernel=True, cache="quant"),
+         "attn_o_kernel")])
+    def test_megakernel_guards_raise(self, name, flag, match):
+        # mlp_kernel on "xla" params; attn_o on GQA (TINY), with dots other
+        # than f32, with the all-batch grid, on a token-major cache
+        config, jparams, tparams = _params(name)
+        flag = dict(flag)
+        jcls, tcls = _CACHES[flag.pop("cache", "head")]
+        with pytest.raises(ValueError, match=match):
+            JF.decode_step_fused(
+                jparams, jnp.asarray([1], jnp.int32),
+                jnp.asarray([0], jnp.int32), jcls.create(config, 1, 8),
+                config, interpret=True, **flag)
+        with pytest.raises(ValueError, match=match):
+            TF.decode_step_fused(
+                tparams, torch.tensor([1]),
+                torch.tensor([0], dtype=torch.int32),
+                tcls.create(_port_config(config), 1, 8, device="cpu"),
+                _port_config(config), **flag)

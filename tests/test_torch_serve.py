@@ -184,8 +184,11 @@ def test_eos_and_validation():
 def test_unported_options_raise():
     _, _, tparams = _params("tiny")
     cfg = _port_config(_params("tiny")[0])
-    with pytest.raises(NotImplementedError, match="Queue B item 12"):
-        TFE.FastServingEngine(tparams, cfg, mlp_kernel=True, device="cpu")
+    # mlp_kernel is ported: the engine takes it and the step's guard
+    # refuses params without the fused-factor layout, as the reference's
+    # (tests/test_torch_megakernels.py)
+    assert TFE.FastServingEngine(tparams, cfg, mlp_kernel=True,
+                                 device="cpu")._mlp_kernel
     # unfused stacked params serve without flash attention or chunked
     # prefill (tests/test_torch_engines.py); those options need fused ones
     stacked = bench_params.build_compressed_llama_params(cfg, rank=4,
