@@ -32,7 +32,13 @@ caught):
    L-fused kernel on the four projections (qkv and gate/up also at M =
    512), the LR-fused kernel on qkv and gate/up, the whole-MLP kernel and
    the attention + o_proj kernel (staged and inline; the flipped int8 codes
-   of their inner requantization counted against the plain version's).
+   of their inner requantization counted against the plain version's); the
+   decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
+   persistent launch on o and down at M 8 and 512, bit-equal to kernel 1
+   and timed beside it; ``bf16_matmul_stacked`` at rank-128 factor shapes
+   and 4096 x 4096 beside one bf16 torch.matmul; decode blocks over 256
+   tokens (the all-batch kernel on one 2000-token block, 512-token pages, a
+   7-head GQA block of 7000 tokens) in i8, f32 and bf16.
 3. One Llama-2-7B-width, 2-layer model, the same weights on the card and
    the CPU: 40 steps from position 0, each step on the card against the
    plain step on the CPU (from the CPU's cache, and from the card's own)
@@ -82,6 +88,16 @@ caught):
    same cache, exact launches, ms/step and the device time of one step as a
    CUDA graph; (d) ``FastServingEngine(mlp_kernel=True)`` on "l", 8
    requests.
+9. The persistent projection launch and bf16 dots, Llama-2-7B, 32 layers,
+   on phase 4's params (``phase_proj_dots``, run before phase 8): batch 8,
+   a cache of eight 128-token prompts, from position 128: (a)
+   ``proj_kernel="persistent"`` against the grid step (identical logits and
+   K/V codes, 64 persistent and 64 kernel-1 launches per step); (b)
+   ``attn_dots="bf16"`` staged, inline and all-batch against the f32 step
+   and the plain versions; each with ms/step and the device time of one
+   step as a CUDA graph; (c) the paged step at dots bf16 against the staged
+   step; (d) ``FastServingEngine(max_seq_len=2000)``, decoding on one
+   2000-token all-batch block, 8 requests.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -90,11 +106,13 @@ run for the W4A8, staged attention and int8 head kernels; phase 5 (a) for
 flash prefill and the all-batch kernel, 5 (b) for the inline kernel; phase
 6 (a) for the grouped kernel, 6 (b) for the flat W4A8 kernel, 7 (b) for
 the paged kernel, 8 (a) for the L-fused kernel, 8 (b) for the LR-fused
-kernel, 8 (c) for the whole-MLP and attention + o_proj kernels;
+kernel, 8 (c) for the whole-MLP and attention + o_proj kernels, 9 (a) for
+the persistent launch; ``bf16_matmul_stacked`` has no caller in either
+package, and its launches are phase 2's checks;
 ``launches_per_step`` per decode step or prefill, ``steps`` of them);
 ``ms``, ``plain_ms`` and ``bound_ms`` are per launch at the main path's
 shapes (for the W4A8 kernels, the mean over one layer's decode
-projections).
+projections; for the persistent launch, o and down).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,6 +147,24 @@ def _bound_ms(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# the decode kernels' dot products by mode: int8, bf16 operands (exact
+# products, f32 sums) or f32
+_DOTS_RATE = {"i8": INT8_OPS_PER_S, "bf16": BF16_OPS_PER_S,
+              "f32": F32_OPS_PER_S}
+
+
+def _attn_ok(torch, out, ref, dots):
+    """A decode kernel's output against its plain version: f32 dots within
+    rtol 2e-5 / atol 2e-6 (sums in another order); i8 and bf16 within
+    1e-4 rel-Frobenius (expf and sum order can flip one int8 code, or round
+    one p * v_scale to its other bf16 neighbour). Returns (ok, text)."""
+    if dots == "f32":
+        return (torch.allclose(out, ref, rtol=2e-5, atol=2e-6),
+                "rtol 2e-5, atol 2e-6")
+    rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
+    return rel <= 1e-4, f"rel-Frobenius {rel:.3e} <= 1e-4"
 
 
 def _time_ms(torch, fn, iters: int, reps: int = 5) -> float:
@@ -235,6 +271,9 @@ def phase_kernels(torch, dev, record):
             ("7b mixed pos", 8, 32, 1, 128, 256,
              [0, 1, 100, 128, 129, 200, 255, 256], "f32", False),
             ("7b bench pos 128", 8, 32, 1, 128, 256, [128] * 8, "i8", True),
+            ("7b bench pos 128", 8, 32, 1, 128, 256, [128] * 8, "f32", False),
+            ("7b bench pos 128", 8, 32, 1, 128, 256, [128] * 8, "bf16",
+             False),
             ("7b T=2048", 8, 32, 1, 128, 2048,
              [0, 255, 256, 700, 1024, 1500, 2047, 2048], "i8", False),
             ("llama3-8b GQA", 8, 8, 4, 128, 2048,
@@ -259,13 +298,7 @@ def phase_kernels(torch, dev, record):
                                               dots=dots)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
-        if dots == "i8":
-            ok = rel <= 1e-4
-            bound_txt = f"rel-Frobenius {rel:.3e} <= 1e-4"
-        else:
-            ok = torch.allclose(out, ref, rtol=2e-5, atol=2e-6)
-            bound_txt = "rtol 2e-5, atol 2e-6"
+        ok, bound_txt = _attn_ok(torch, out, ref, dots)
         ms = _time_ms(torch, lambda i: AT.flash_decode_q8_staged(
             q, k, v, ks, vs, kn, vn, i % Lk, p, dots=dots), 50)
         plain_ms = _time_ms(torch, lambda i: AT.flash_decode_q8_staged_plain(
@@ -273,7 +306,8 @@ def phase_kernels(torch, dev, record):
         live = sum(min(x, T) for x in pos)
         nbytes = (KVH * live * (2 * D + 8) + 2 * B * KVH * G * D * 4
                   + 2 * B * KVH * D * 4 + B * 4)
-        bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D)
+        bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
+                              _DOTS_RATE[dots])
         print(f"flash_decode_q8_staged {name} dots={dots} B={B} KVH={KVH} "
               f"G={G} D={D} T={T}: max diff {err:.3e} ({bound_txt}) kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
@@ -319,6 +353,232 @@ def phase_kernels(torch, dev, record):
     _phase_kernels_packed(torch, dev, gen, record)
     _phase_kernels_paged(torch, dev, gen, record)
     _phase_kernels_lowrank(torch, dev, gen, record)
+    _phase_kernels_proj(torch, dev, gen, record)
+    _phase_kernels_long_blocks(torch, dev, gen)
+
+
+def _phase_kernels_proj(torch, dev, gen, record):
+    """The W4A8 kernel's persistent launch against kernel 1 (its grid
+    launch, bit for bit) and the plain version: Llama-2-7B's o (4096 x
+    4096) and down (4096 x 11008), 4-bit, at M 8 and 512, each timed beside
+    kernel 1 in this run; M 1, 7 and 33 and bits 2 and 8 checked too. The
+    record takes M 8, the mean of o and down (a layer's two launches of it).
+    Then ``bf16_matmul_stacked`` at the rank-128 factor shapes (R: 128 x
+    4096, L: 4096 x 128) and 4096 x 4096, M 8 and 512, beside one bf16
+    ``torch.matmul`` on the same operands; it has no caller in either
+    package, so its launches are this phase's checks, and the record takes
+    the mean of the two factor shapes at M 8."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+
+    rec = record["quantized_matmul_w4a8_stacked_persistent"]
+    main = []
+    cases = [("o", 4096, 4096, 4, M, True) for M in (8, 512)]
+    cases += [("down", 4096, 11008, 4, M, True) for M in (8, 512)]
+    cases += [("o", 4096, 4096, 4, M, False) for M in (1, 7, 33)]
+    cases += [("o", 4096, 4096, 8, 8, False),
+              ("down", 4096, 11008, 2, 8, False)]
+    for name, N, Kd, bits, M, timed in cases:
+        f = 8 // bits
+        layer_bytes = N * Kd // f
+        Lk = max(2, math.ceil(200e6 / layer_bytes)) if timed else 2
+        packed = torch.randint(0, 256, (Lk, N, Kd // f), generator=gen,
+                               dtype=torch.uint8, device=dev)
+        scales = torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01
+        x = torch.randn((M, Kd), generator=gen, device=dev)
+        y = K.quantized_matmul_w4a8_stacked_persistent(x, packed, scales, 1,
+                                                       bits)
+        y1 = K.quantized_matmul_w4a8_stacked(x, packed, scales, 1, bits)
+        ref = K.quantized_matmul_w4a8_stacked_plain(x, packed, scales, 1,
+                                                    bits)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 1e-6 * float(ref.abs().max())
+        if not (torch.equal(y, y1)
+                and torch.allclose(y, ref, rtol=1e-6, atol=tol)):
+            raise AssertionError(f"persistent {name} M={M} {bits}-bit: not "
+                                 "kernel 1's output bit for bit, or not "
+                                 "the plain version's")
+        rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+        line = (f"w4a8 persistent {name} M={M} N={N} K={Kd} {bits}-bit: "
+                f"equal to kernel 1 bit for bit, max diff vs plain "
+                f"{err:.3e} (bound rtol 1e-6, atol {tol:.3e})")
+        if timed:
+            xq, sx = K.quantize_activations_int8(x)
+            iters = 50 if M == 8 else 5
+            ms = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
+                xq, sx, packed, scales, i % Lk, bits, persistent=True),
+                iters)
+            ms1 = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
+                xq, sx, packed, scales, i % Lk, bits), iters)
+            plain_ms = _time_ms(
+                torch, lambda i: K.quantized_matmul_w4a8_stacked_plain(
+                    x, packed, scales, i % Lk, bits), 2, reps=3)
+            nbytes = M * Kd + M * 4 + layer_bytes + N * 4 + M * N * 4
+            ops = 2 * M * N * Kd
+            bound, by = _bound_ms(nbytes, ops)
+            line += (f"; persistent {ms:.4f} ms, kernel 1 {ms1:.4f} ms "
+                     f"({ms / ms1:.2f}x), plain {plain_ms:.4f} ms, bound "
+                     f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)")
+            if M == 8:
+                main.append((ms, plain_ms, nbytes, ops, ms1))
+        print(line, flush=True)
+        del packed
+    torch.cuda.empty_cache()
+    mean = [statistics.fmean(t[j] for t in main) for j in range(5)]
+    bound, by = _bound_ms(mean[2], mean[3])
+    print(f"w4a8 persistent M=8: mean of o and down {mean[0]:.4f} ms, "
+          f"kernel 1 {mean[4]:.4f} ms, bound {bound:.4f} ms", flush=True)
+    rec.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by)
+
+    rec = record["bf16_matmul_stacked"]
+    K.bf16_matmul_stacked.launches = 0
+    main = []
+    for name, N, Kd in (("R", 128, 4096), ("L", 4096, 128),
+                        ("4096^2", 4096, 4096)):
+        for M in (8, 512):
+            layer_bytes = N * Kd * 2
+            Lk = max(2, math.ceil(200e6 / layer_bytes))
+            W = (torch.randn((Lk, N, Kd), generator=gen, device=dev)
+                 * 0.05).to(torch.bfloat16)
+            x = torch.randn((M, Kd), generator=gen, device=dev)
+            y = K.bf16_matmul_stacked(x, W, 1)
+            ref = K.bf16_matmul_stacked_plain(x, W, 1)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            tol = 1e-5 * float(ref.abs().max())
+            # exact bf16 products on both sides, f32 sums in another order
+            if not torch.allclose(y, ref, rtol=1e-5, atol=tol):
+                raise AssertionError(f"bf16_matmul_stacked {name} M={M} "
+                                     "disagrees with plain")
+            rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+            xb = x.to(torch.bfloat16)
+            iters = 50 if M == 8 else 20
+            ms = _time_ms(torch, lambda i: K._launch_bf16_stacked(
+                xb, W, i % Lk), iters)
+            plain_ms = _time_ms(torch, lambda i: K.bf16_matmul_stacked_plain(
+                x, W, i % Lk), 3, reps=3)
+            lib_ms = _time_ms(torch, lambda i: torch.matmul(
+                xb, W[i % Lk].T), iters)
+            nbytes = M * Kd * 2 + layer_bytes + M * N * 4
+            ops = 2 * M * N * Kd
+            bound, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
+            print(f"bf16_matmul_stacked {name} M={M} N={N} K={Kd}: max diff "
+                  f"{err:.3e} (bound rtol 1e-5, atol {tol:.3e}) kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 torch.matmul "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                  f"{bound / ms:.1%} of bound)", flush=True)
+            if M == 8 and name != "4096^2":
+                main.append((ms, plain_ms, nbytes, ops, lib_ms))
+            del W
+    torch.cuda.empty_cache()
+    mean = [statistics.fmean(t[j] for t in main) for j in range(5)]
+    bound, by = _bound_ms(mean[2], mean[3], BF16_OPS_PER_S)
+    n = K.bf16_matmul_stacked.launches
+    rec.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by,
+               library_ms=mean[4], launches=n, launches_per_step=1, steps=n)
+
+
+def _phase_kernels_long_blocks(torch, dev, gen):
+    """Decode blocks longer than the kernel's 256-token sub-tile, in dots
+    i8, f32 and bf16 against the plain versions, with their times: the
+    all-batch kernel at T 2000 (one block, since 2000 % 128 != 0) on
+    Llama-2-7B heads at batch 8, beside the same context in 250-token
+    blocks of the row kernel; the paged kernel on 512-token pages (ctx
+    2048); and a GQA block of 7 query heads per kv head at D 64 (Qwen2-0.5B's
+    heads) over T 7000, B 1, KVH 2: 7 x 7000 logits, far over shared
+    memory."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT)
+
+    def inputs(L, B, KVH, G, D, T):
+        return dict(
+            q=torch.randn((B, KVH, G, D), generator=gen, device=dev),
+            k=torch.randint(-127, 128, (L, B, KVH, T, D), generator=gen,
+                            dtype=torch.int8, device=dev),
+            v=torch.randint(-127, 128, (L, B, KVH, T, D), generator=gen,
+                            dtype=torch.int8, device=dev),
+            ks=torch.rand((L, B, KVH, T), generator=gen, device=dev) * 0.02,
+            vs=torch.rand((L, B, KVH, T), generator=gen, device=dev) * 0.02,
+            kn=torch.randn((B, KVH, D), generator=gen, device=dev),
+            vn=torch.randn((B, KVH, D), generator=gen, device=dev))
+
+    for name, B, KVH, G, D, T, pos in (
+            ("7b T=2000", 8, 32, 1, 128, 2000,
+             [0, 250, 700, 999, 1000, 1500, 1999, 2000]),
+            ("G7 D64 T=7000", 1, 2, 7, 64, 7000, [6999])):
+        Lk = 2 if T == 2000 else 4
+        t = inputs(Lk, B, KVH, G, D, T)
+        args = [t[n] for n in ("q", "k", "v", "ks", "vs", "kn", "vn")]
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        if AT._ab_blocks(B, KVH, D, T, 64)[1] != T:
+            raise AssertionError(f"{name}: expected one block of {T}")
+        live = sum(min(x, T) for x in pos)
+        nbytes = (KVH * live * (2 * D + 8) + 2 * B * KVH * G * D * 4
+                  + 2 * B * KVH * D * 4 + B * 4)
+        for dots in ("i8", "f32", "bf16"):
+            out = AT.flash_decode_q8_ab(*args, 1, p, staged=True, dots=dots)
+            ref = AT.flash_decode_q8_ab_plain(*args, 1, p, staged=True,
+                                              dots=dots)
+            torch.cuda.synchronize()
+            ok, bound_txt = _attn_ok(torch, out, ref, dots)
+            ms = _time_ms(torch, lambda i: AT.flash_decode_q8_ab(
+                *args, i % Lk, p, staged=True, dots=dots), 20)
+            bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
+                                  _DOTS_RATE[dots])
+            line = (f"long block: flash_decode_q8_ab {name} B={B} KVH={KVH} "
+                    f"G={G} D={D}, one block of {T} tokens, staged, "
+                    f"dots={dots}: {bound_txt}; kernel {ms:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)")
+            if T == 2000:
+                # the same context in 250-token blocks of the row kernel:
+                # one walk per block, no recomputed logits
+                ms_row = _time_ms(torch, lambda i: AT._launch_decode(
+                    "flash_decode_staged_launch", *args, i % Lk, p, 250,
+                    dots), 20)
+                line += f"; row kernel, 250-token blocks {ms_row:.4f} ms"
+            print(line, flush=True)
+            if not ok:
+                raise AssertionError(f"long block {name} {dots} disagrees "
+                                     "with plain")
+        del t, args
+    torch.cuda.empty_cache()
+
+    # the paged kernel on 512-token pages: block == page
+    B, KVH, G, D, P, ctx = 8, 32, 1, 128, 512, 2048
+    max_pages = ctx // P
+    NP = B * max_pages + 4
+    pos = [0, 300, 511, 512, 1024, 1500, 2047, 2048]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    t = inputs(2, NP, KVH, G, D, P)
+    t["q"] = torch.randn((B, KVH, G, D), generator=gen, device=dev)
+    t["kn"] = torch.randn((B, KVH, D), generator=gen, device=dev)
+    t["vn"] = torch.randn((B, KVH, D), generator=gen, device=dev)
+    args = [t[n] for n in ("q", "k", "v", "ks", "vs", "kn", "vn")]
+    perm = torch.randperm(NP, generator=torch.Generator().manual_seed(P))
+    tables = perm[:B * max_pages].reshape(B, max_pages).to(
+        device=dev, dtype=torch.int32)
+    live = sum(pos)
+    nbytes = (KVH * live * (2 * D + 8) + 2 * B * KVH * G * D * 4
+              + 2 * B * KVH * D * 4 + B * 4)
+    for dots in ("i8", "f32", "bf16"):
+        out = AT.flash_decode_q8_paged(*args, 1, tables, p, dots=dots)
+        ref = AT.flash_decode_q8_paged_plain(*args, 1, tables, p, dots=dots)
+        torch.cuda.synchronize()
+        ok, bound_txt = _attn_ok(torch, out, ref, dots)
+        ms = _time_ms(torch, lambda i: AT._launch_decode(
+            "flash_decode_paged_launch", *args, i % 2, p, P, dots,
+            page_tables=tables), 20)
+        bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
+                              _DOTS_RATE[dots])
+        print(f"long block: flash_decode_q8_paged 7b {P}-token pages, ctx "
+              f"{ctx}, pos {pos}, dots={dots}: {bound_txt}; kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}; {bound / ms:.1%} "
+              f"of bound)", flush=True)
+        if not ok:
+            raise AssertionError(f"long pages {dots} disagree with plain")
+    del t, args
+    torch.cuda.empty_cache()
 
 
 def _phase_kernels_packed(torch, dev, gen, record):
@@ -530,9 +790,9 @@ def _phase_kernels_decode(torch, dev, gen, record):
     ragged = [0, 700, 1300, 1900, 2300, 2700, 3400, 4095]
     cases = [("ab", "7b T=4096 ragged", 4096, ragged, st, dots,
               st and dots == "f32")
-             for st in (True, False) for dots in ("f32", "i8")]
+             for st in (True, False) for dots in ("f32", "i8", "bf16")]
     cases += [("row", "7b bench pos 128", 256, [128] * 8, False, dots,
-               dots == "i8") for dots in ("i8", "f32")]
+               dots == "i8") for dots in ("i8", "f32", "bf16")]
     for kind, name, T, pos, staged, dots, main in cases:
         B, KVH, G, D = 8, 32, 1, 128
         layer_bytes = B * KVH * T * (2 * D + 8)
@@ -562,13 +822,7 @@ def _phase_kernels_decode(torch, dev, gen, record):
         out, ref = fn(1), fn(1, plain=True)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
-        if dots == "i8":
-            ok = rel <= 1e-4
-            bound_txt = f"rel-Frobenius {rel:.3e} <= 1e-4"
-        else:
-            ok = torch.allclose(out, ref, rtol=2e-5, atol=2e-6)
-            bound_txt = "rtol 2e-5, atol 2e-6"
+        ok, bound_txt = _attn_ok(torch, out, ref, dots)
         ms = _time_ms(torch, fn, 50)
         plain_ms = _time_ms(torch, lambda i: fn(i, plain=True), 2, reps=3)
         # tokens attended per row: < pos (staged) or <= pos (inline)
@@ -576,8 +830,7 @@ def _phase_kernels_decode(torch, dev, gen, record):
         nbytes = (KVH * live * (2 * D + 8) + 2 * B * KVH * G * D * 4
                   + (2 * B * KVH * D * 4 if staged else 0) + B * 4)
         ops = 4 * KVH * G * live * D
-        bound, by = _bound_ms(nbytes, ops, INT8_OPS_PER_S if dots == "i8"
-                              else F32_OPS_PER_S)
+        bound, by = _bound_ms(nbytes, ops, _DOTS_RATE[dots])
         print(f"{label} {name} dots={dots} B={B} KVH={KVH} G={G} D={D} "
               f"T={T}: max diff {err:.3e} ({bound_txt}) kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
@@ -615,7 +868,7 @@ def _phase_kernels_paged(torch, dev, gen, record):
     nbytes = (KVH * live * (2 * D + 8) + 2 * B * KVH * G * D * 4
               + 2 * B * KVH * D * 4 + B * 4)
     staged_ms = {}
-    for dots in ("i8", "f32"):
+    for dots in ("i8", "f32", "bf16"):
         # the staged kernel's block (256) over the same context
         kc, vc = (torch.randint(-127, 128, (Lk, B, KVH, ctx, D),
                                 generator=gen, dtype=torch.int8, device=dev)
@@ -639,19 +892,13 @@ def _phase_kernels_paged(torch, dev, gen, record):
         tables = perm[:B * max_pages].reshape(B, max_pages).to(
             device=dev, dtype=torch.int32)
         args = (q, k, v, ks, vs, kn, vn)
-        for dots in ("i8", "f32"):
+        for dots in ("i8", "f32", "bf16"):
             out = AT.flash_decode_q8_paged(*args, 1, tables, p, dots=dots)
             ref = AT.flash_decode_q8_paged_plain(*args, 1, tables, p,
                                                  dots=dots)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
-            rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
-            if dots == "i8":
-                ok = rel <= 1e-4
-                bound_txt = f"rel-Frobenius {rel:.3e} <= 1e-4"
-            else:
-                ok = torch.allclose(out, ref, rtol=2e-5, atol=2e-6)
-                bound_txt = "rtol 2e-5, atol 2e-6"
+            ok, bound_txt = _attn_ok(torch, out, ref, dots)
             ms = _time_ms(torch, lambda i: AT._launch_decode(
                 "flash_decode_paged_launch", *args, i % Lk, p, P, dots,
                 page_tables=tables), 50)
@@ -659,8 +906,7 @@ def _phase_kernels_paged(torch, dev, gen, record):
                 torch, lambda i: AT.flash_decode_q8_paged_plain(
                     *args, i % Lk, tables, p, dots=dots), 2, reps=3)
             bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
-                                  INT8_OPS_PER_S if dots == "i8"
-                                  else F32_OPS_PER_S)
+                                  _DOTS_RATE[dots])
             print(f"flash_decode_q8_paged 7b page {P} dots={dots} B={B} "
                   f"KVH={KVH} G={G} D={D} ctx {ctx} pos {pos}: max diff "
                   f"{err:.3e} ({bound_txt}) kernel {ms:.4f} ms, plain "
@@ -995,6 +1241,9 @@ class _PlainKernels:
             attention as AT, kernels as K)
         swaps = [(K, "quantized_matmul_w4a8_stacked",
                   K.quantized_matmul_w4a8_stacked_plain),
+                 (K, "quantized_matmul_w4a8_stacked_persistent",
+                  K.quantized_matmul_w4a8_stacked_persistent_plain),
+                 (K, "bf16_matmul_stacked", K.bf16_matmul_stacked_plain),
                  (K, "quantized_matmul_w4a8_l_stacked",
                   K.quantized_matmul_w4a8_l_stacked_plain),
                  (K, "quantized_matmul_w4a8_lr_stacked",
@@ -1889,6 +2138,220 @@ def phase_paged(torch, dev, params, record):
     torch.cuda.empty_cache()
     print(f"paged phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+def phase_proj_dots(torch, dev, params, record):
+    """Phase 9, on phase 4's Llama-2-7B params (32 layers, factor path
+    "xla"), batch 8, context 256, from position 128: eight seeded 128-token
+    prompts prefilled with flash prefill, then, from copies of that cache,
+    (a) ``decode_step_fused(proj_kernel="persistent")`` at dots i8, staged
+    "uniform": logits and K/V codes identical to the grid step's, exactly 64
+    persistent and 64 kernel-1 launches per step, eager ms/step and the
+    device time of one step as a CUDA graph beside the grid step's; (b)
+    ``attn_dots="bf16"`` staged "uniform", inline and all-batch: the first
+    step within ``KERN_REL`` of the f32 step and of the plain versions,
+    argmax equal, then the same timings; (c) ``paged_decode_step_fused(
+    attn_dots="bf16")`` over a pool holding the same cache (identity tables,
+    256-token pages) against the staged bf16 step: identical logits and
+    pool; (d) ``FastServingEngine(flash_attn=True, max_slots=8,
+    max_seq_len=2000)``, whose "auto" decode takes the all-batch kernel on
+    one 2000-token block: 8 seeded requests of 16-1500 prompt tokens, 16
+    new tokens each, every prefill and tick with its exact launches, the
+    first tick against the plain versions, tokens/s."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import paged
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve.fast_engine \
+        import FastServingEngine
+
+    t_phase = time.perf_counter()
+    config = LLAMA2_7B
+    L = config.num_layers
+    B, T, P0, steps = 8, 256, 128, 8
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    gen = torch.Generator().manual_seed(13)
+    prompts = torch.randint(0, config.vocab_size, (B, P0), generator=gen)
+    first = []
+    for b in range(B):
+        logits, _ = fused.prefill_into_slot_fused(
+            params, prompts[b:b + 1].to(dev), b, cache, config, flash=True)
+        first.append(logits.argmax())
+    tok0 = torch.stack(first)
+    pos0 = torch.full((B,), P0, dtype=torch.int32, device=dev)
+
+    # (a) the persistent launch gives the grid step's bits
+    cg, cp = _copy_cache(cache, dev), _copy_cache(cache, dev)
+    lg, _ = fused.decode_step_fused(params, tok0, pos0, cg, config,
+                                    staged_kv="uniform", attn_dots="i8")
+    lp, _ = fused.decode_step_fused(params, tok0, pos0, cp, config,
+                                    staged_kv="uniform", attn_dots="i8",
+                                    proj_kernel="persistent")
+    if not (torch.equal(lg, lp) and all(
+            torch.equal(getattr(cg, f), getattr(cp, f))
+            for f in ("k", "v", "k_scale", "v_scale"))):
+        raise AssertionError("proj (a): the persistent step is not the grid "
+                             "step bit for bit")
+    print("proj (a): proj_kernel='persistent' step from the cache at "
+          f"position {P0}: logits and K/V codes identical to the grid "
+          "step's", flush=True)
+    del cg, cp
+
+    names = ("w4a8_stacked", "persistent", "staged", "inline", "ab",
+             "int8_matmul")
+    counters = (K.quantized_matmul_w4a8_stacked,
+                K.quantized_matmul_w4a8_stacked_persistent,
+                AT.flash_decode_q8_staged, AT.flash_decode_q8,
+                AT.flash_decode_q8_ab, K.int8_matmul)
+    runs = [("a persistent", dict(staged_kv="uniform", attn_dots="i8",
+                                  proj_kernel="persistent"),
+             (2 * L, 2 * L, L, 0, 0, 1)),
+            ("a grid", dict(staged_kv="uniform", attn_dots="i8"),
+             (4 * L, 0, L, 0, 0, 1)),
+            ("b staged bf16", dict(staged_kv="uniform", attn_dots="bf16"),
+             (4 * L, 0, L, 0, 0, 1)),
+            ("b inline bf16", dict(staged_kv=False, attn_dots="bf16"),
+             (4 * L, 0, 0, L, 0, 1)),
+            ("b ab bf16", dict(staged_kv=True, attn_kernel="ab",
+                               attn_dots="bf16"),
+             (4 * L, 0, 0, 0, L, 1))]
+    counts = {}
+    for run, kw, per_step in runs:
+        if kw["attn_dots"] == "bf16":
+            f32_kw = dict(kw, attn_dots="f32")
+            lf, _ = fused.decode_step_fused(params, tok0, pos0,
+                                            _copy_cache(cache, dev), config,
+                                            **f32_kw)
+            lb, _ = fused.decode_step_fused(params, tok0, pos0,
+                                            _copy_cache(cache, dev), config,
+                                            **kw)
+            with _PlainKernels():
+                lpl, _ = fused.decode_step_fused(
+                    params, tok0, pos0, _copy_cache(cache, dev), config, **kw)
+            e_f, e_p = _rel(torch, lb, lf), _rel(torch, lb, lpl)
+            print(f"proj ({run}) {kw}: first step against the f32 step "
+                  f"{e_f:.3e}, against the plain versions {e_p:.3e} (logits "
+                  f"rel-Frobenius, bound {KERN_REL:g})", flush=True)
+            if not (e_f <= KERN_REL and e_p <= KERN_REL
+                    and _same_argmax(torch, lb, lf)
+                    and _same_argmax(torch, lb, lpl)):
+                raise AssertionError(f"proj ({run}): the step disagrees")
+        crun = _copy_cache(cache, dev)
+        for c in counters:
+            c.launches = 0
+        times = []
+        tok, pos = tok0, pos0
+        for i in range(1 + steps):
+            before = [c.launches for c in counters]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, _ = fused.decode_step_fused(params, tok, pos, crun,
+                                                config, **kw)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t1))
+            delta = tuple(c.launches - b for c, b in zip(counters, before))
+            if delta != per_step:
+                raise AssertionError(f"proj ({run}) step {i}: launches "
+                                     f"{dict(zip(names, delta))}, expected "
+                                     f"{dict(zip(names, per_step))}")
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"proj ({run}): non-finite logits")
+            tok = logits.argmax(-1)
+            pos = pos + 1
+        counts[run] = dict(zip(names, (c.launches for c in counters)))
+        med = statistics.median(times)
+        dev_ms = _time_ms(torch, lambda i: fused.decode_step_fused(
+            params, tok, pos, crun, config, **kw), 1, reps=5)
+        print(f"proj ({run}): {steps} steps from position {P0 + 1}, exact "
+              f"launches per step {dict(zip(names, per_step))}; median "
+              f"{med:.3f} ms/step eager (min {min(times):.3f}, max "
+              f"{max(times):.3f}), {1e3 * B / med:.1f} tok/s; device time of "
+              f"one step as a CUDA graph {dev_ms:.3f} ms (card idle "
+              f"{1 - dev_ms / med:.1%} of the eager step)", flush=True)
+        del crun
+    record["quantized_matmul_w4a8_stacked_persistent"].update(
+        launches=counts["a persistent"]["persistent"],
+        launches_per_step=2 * L, steps=1 + steps)
+
+    # (c) the paged bf16 step is the staged bf16 step: one 256-token page
+    # per row holding the same cache
+    pool = paged.PagedQuantKVPool.create(config, B, T, device=dev)
+    cstaged = _copy_cache(cache, dev)
+    for f in ("k", "v", "k_scale", "v_scale"):
+        getattr(pool, f).copy_(getattr(cache, f))
+    tables = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    tok, pos = tok0, pos0
+    for step in range(4):
+        lc, _ = fused.decode_step_fused(params, tok, pos, cstaged, config,
+                                        staged_kv=True, attn_dots="bf16")
+        lpg, _ = paged.paged_decode_step_fused(params, tok, pos, pool,
+                                               tables, config,
+                                               attn_dots="bf16")
+        if not torch.equal(lc, lpg):
+            raise AssertionError(f"proj (c): step {step} logits differ")
+        tok, pos = lc.argmax(-1), pos + 1
+    if not all(torch.equal(getattr(pool, f), getattr(cstaged, f))
+               for f in ("k", "v", "k_scale", "v_scale")):
+        raise AssertionError("proj (c): the pool differs from the cache")
+    print("proj (c): paged_decode_step_fused(attn_dots='bf16'), identity "
+          "tables, 256-token pages: 4 steps with logits and K/V codes "
+          "identical to decode_step_fused(staged_kv=True, attn_dots='bf16')",
+          flush=True)
+    del pool, cstaged, cache
+    torch.cuda.empty_cache()
+
+    # (d) serving at max_seq_len 2000: one 2000-token all-batch block
+    counters = (K.quantized_matmul_w4a8_stacked, AT.flash_prefill,
+                AT.flash_decode_q8_ab, K.int8_matmul)
+    names = ("w4a8_stacked", "flash_prefill", "flash_decode_q8_ab",
+             "int8_matmul")
+    per_prefill = (4 * L, L, 0, 1)
+    per_tick = (4 * L, 0, L, 1)
+
+    def check_tick(decode, args, kw):
+        params_, tokens, pos_, cache_, cfg = args
+        kern, _ = decode(params_, tokens, pos_, _copy_cache(cache_, dev), cfg,
+                         **kw)
+        with _PlainKernels():
+            plain, _ = decode(params_, tokens, pos_,
+                              _copy_cache(cache_, dev), cfg, **kw)
+        e = _rel(torch, kern, plain)
+        print(f"proj (d): first tick (positions {pos_.tolist()}) kernels vs "
+              f"plain versions on the card: {e:.3e} (bound {KERN_REL:g})",
+              flush=True)
+        if not (e <= KERN_REL and _same_argmax(torch, kern, plain)):
+            raise AssertionError("proj (d): the first tick disagrees with "
+                                 "the plain versions")
+
+    gen = torch.Generator().manual_seed(14)
+    lens = torch.randint(16, 1501, (8,), generator=gen).tolist()
+    reqs = [dict(uid=i, prompt=torch.randint(0, config.vocab_size, (n,),
+                                             generator=gen).numpy(),
+                 max_new_tokens=16) for i, n in enumerate(lens)]
+    engine = FastServingEngine(params, config, flash_attn=True, max_slots=8,
+                               max_seq_len=2000, device=dev)
+    bt = AT._ab_blocks(8, config.num_kv_heads, config.head_dim, 2000, 64)[1]
+    if engine._attn_kernel != "ab" or bt != 2000:
+        raise AssertionError(f"proj (d): expected the all-batch kernel on "
+                             f"one 2000-token block, got "
+                             f"{engine._attn_kernel!r}, block {bt}")
+    watch = _Watch(torch, counters, per_prefill, per_tick, None, check_tick)
+    wall, ntok = _serve(torch, engine, watch, reqs)
+    print(f"proj (d) FastServingEngine(max_seq_len=2000), decode on one "
+          f"{bt}-token all-batch block, 8 requests of {min(lens)}-"
+          f"{max(lens)} prompt tokens: "
+          f"{sum(len(v) for v in watch.prefill_ms.values())} prefills and "
+          f"{len(watch.tick_ms)} ticks with their exact launches (totals "
+          f"{dict(zip(names, watch.counted))}); decode tick median "
+          f"{statistics.median(watch.tick_ms):.2f} ms; {ntok} tokens in "
+          f"{wall:.2f} s: {ntok / wall:.1f} tokens/s", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"proj phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase_options(torch, dev, record):
     """The fused step's options, Llama-2-7B, 32 layers, batch 8, context
     256, from position 128 (phase 8). One bf16 fused param set (seed 0, rank
@@ -2377,6 +2840,10 @@ def main() -> int:
             source=src + "w4a8_lowrank.cu", replaces=ref + "kernels.py:1252"),
         "flash_decode_attn_o": dict(source=src + "attn_o.cu",
                                     replaces=ref + "attention.py:1066"),
+        "quantized_matmul_w4a8_stacked_persistent": dict(
+            source=src + "w4a8_stacked.cu", replaces=ref + "kernels.py:689"),
+        "bf16_matmul_stacked": dict(source=src + "grouped_matmul.cu",
+                                    replaces=ref + "kernels.py:1382"),
     }
     measured = ("launches", "launches_per_step", "steps", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2388,6 +2855,7 @@ def main() -> int:
     params = phase_full(torch, dev, record)
     phase_serving(torch, dev, params, record)
     phase_paged(torch, dev, params, record)
+    phase_proj_dots(torch, dev, params, record)
     del params
     torch.cuda.empty_cache()
     phase_options(torch, dev, record)
@@ -2400,7 +2868,8 @@ def main() -> int:
             raise AssertionError(f"{name}: {missing} not measured")
     # library_ms: one SDPA call for flash_prefill (f32, causal); for
     # quantized_matmul, one bf16 torch.matmul on its weights dequantized
-    # beforehand. No single PyTorch call computes the other functions
+    # beforehand; for bf16_matmul_stacked, one bf16 torch.matmul on its
+    # operands. No single PyTorch call computes the other functions
     # (packed offset-binary codes rescaled per row of int8 activations, with
     # or without the int8 low-rank factors and the MLP's requantization;
     # attention over an int8 cache with per-token scales, or over an int8

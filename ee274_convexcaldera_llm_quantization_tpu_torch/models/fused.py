@@ -20,7 +20,9 @@ half of the factors inside the W4A8 kernel (the L-fused kernel over the
 N-concatenated ``L_cat``; o and down as groups of one), "lr" both halves
 (qkv and gate/up); ``mlp_kernel`` makes gate/up, SiLU, the requantization
 and down one launch, ``attn_o_kernel`` fuses the decode attention with
-o_proj.
+o_proj; ``proj_kernel="persistent"`` runs o and down on the persistent
+launch of the W4A8 kernel; ``attn_dots`` picks the decode kernels' dot
+mode ("f32", "bf16" or "i8").
 """
 
 from __future__ import annotations
@@ -252,14 +254,16 @@ def _apply_fused(fp: FusedW4A8Linear, l: int, y: torch.Tensor):
 
 
 def _apply_plain(lin: CalderaLinear, l: int, y: torch.Tensor,
-                 factor_kernel: str = "xla") -> torch.Tensor:
+                 factor_kernel: str = "xla",
+                 proj_kernel: str = "grid") -> torch.Tensor:
     """Layer ``l`` of a single stacked w4a8 projection on ``y`` (..., in).
     ``factor_kernel="l"`` with int8 factors adds the L half inside the
-    packed kernel (a group of one; ``xr`` a torch dot); otherwise one
-    stacked W4A8 launch plus the torch factor dots. Global scale and bias
-    applied."""
+    packed kernel (a group of one; ``xr`` a torch dot) and ignores
+    ``proj_kernel``, as the reference does; otherwise one stacked W4A8
+    launch (on the persistent grid when ``proj_kernel="persistent"``) plus
+    the torch factor dots. Global scale and bias applied."""
     if factor_kernel != "l" or lin.L_scale is None:
-        return _apply_w4a8(lin, l, y)
+        return _apply_w4a8(lin, l, y, proj_kernel == "persistent")
     y2 = y.reshape(-1, y.shape[-1])
     xr = K.thin_xr(y2, lin.R[l], lin.R_scale[l])
     out = K.quantized_matmul_w4a8_l_stacked(
@@ -340,7 +344,7 @@ def _qkv(lp: FusedLayerStack, l: int, x: torch.Tensor, cos, sin,
 
 
 def _mlp(lp: FusedLayerStack, l: int, x: torch.Tensor, config: ModelConfig,
-         mlp_kernel: bool = False) -> torch.Tensor:
+         mlp_kernel: bool = False, proj_kernel: str = "grid") -> torch.Tensor:
     """RMSNorm, gate/up, SiLU and the down residual; ``mlp_kernel`` runs
     them as one whole-MLP kernel launch."""
     y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
@@ -348,7 +352,7 @@ def _mlp(lp: FusedLayerStack, l: int, x: torch.Tensor, config: ModelConfig,
         return x + _apply_mlp_mega(lp, l, y)
     gate, up = _apply_fused(lp.gateup, l, y)
     return x + _apply_plain(lp.down_proj, l, gate * torch.sigmoid(gate) * up,
-                            lp.qkv.factor_kernel)
+                            lp.qkv.factor_kernel, proj_kernel)
 
 
 def _mlp_and_o(lp: FusedLayerStack, l: int, x: torch.Tensor,
@@ -420,14 +424,18 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
     to per-row writes for ragged positions; here both modes take the
     per-row indexed write, so ragged positions stay correct by
     construction. ``attn_kernel``: "row" or "ab" (the all-batch kernel's
-    block partition; head-major only). ``attn_dots``: "i8" or "f32".
+    block partition; head-major only). ``attn_dots``: "i8", "bf16" or
+    "f32" (the decode kernels' dots over the cache blocks).
     ``mlp_kernel``: the whole MLP as one kernel launch per layer (params
     quantized with factor path "l" or "lr"). ``attn_o_kernel``: attention
     fused with o_proj in one kernel launch per layer (head-major cache, MHA,
-    ``attn_dots="f32"``, row grid). ``head_pallas`` is accepted and has no
-    effect: the int8 head always runs the int8 matmul kernel on the card and
-    its plain version on the CPU. Other flag values are not ported yet and
-    raise.
+    ``attn_dots="f32"``, row grid). ``proj_kernel``: "grid" or
+    "persistent", the launch of the o and down projections' W4A8 kernel
+    where they take it (not inside ``attn_o_kernel`` or ``mlp_kernel``, not
+    on factor path "l"); the output is the same bit for bit. ``head_pallas``
+    is accepted and has no effect: the int8 head always runs the int8 matmul
+    kernel on the card and its plain version on the CPU. ``tp_axis`` is not
+    ported yet and raises.
     """
     if attn_kernel not in ("row", "ab"):
         raise ValueError(f"unknown attn_kernel {attn_kernel!r}")
@@ -460,9 +468,7 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
                          f"only, got {attn_dots!r}")
     if staged_kv and not head_major:
         raise ValueError("staged_kv requires a HeadMajorQuantKVCache")
-    if proj_kernel == "persistent":
-        raise _not_ported("proj_kernel='persistent'", "Queue B item 14")
-    if proj_kernel != "grid":
+    if proj_kernel not in ("grid", "persistent"):
         raise ValueError(f"unknown proj_kernel {proj_kernel!r}")
     if head_major:
         AT._check_dots(attn_dots)
@@ -545,8 +551,8 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
             x = x + attn * lp.o_proj.global_scale[l]
         else:
             x = x + _apply_plain(lp.o_proj, l, attn.reshape(B, config.q_dim),
-                                 lp.qkv.factor_kernel)
-        x = _mlp(lp, l, x, config, mlp_kernel)
+                                 lp.qkv.factor_kernel, proj_kernel)
+        x = _mlp(lp, l, x, config, mlp_kernel, proj_kernel)
     if staged_kv:
         _commit(cache, staging, pos)
     logits = llama._logits(x, params.embed, params.final_norm,
@@ -557,7 +563,7 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
 def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
                             slot: int, cache, config: ModelConfig,
                             last_pos: Optional[int] = None,
-                            flash: bool = False):
+                            flash: bool = False, proj_kernel: str = "grid"):
     """Prefill one (1, S) prompt into batch row ``slot`` of the cache, on
     the fused path.
 
@@ -566,8 +572,12 @@ def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
     when ``flash``, else the plain attention with a causal mask. The K/V of
     all S tokens (a bucket's pad tokens too) are written into the cache at
     columns ``0 .. S-1``, in place. Returns ``(logits (vocab,) f32 of row
-    last_pos (the last row when None), cache)``.
+    last_pos (the last row when None), cache)``. ``proj_kernel`` is accepted
+    and not used, as in the reference: its prefill runs o and down on the
+    grid kernel whatever the flag.
     """
+    if proj_kernel not in ("grid", "persistent"):
+        raise ValueError(f"unknown proj_kernel {proj_kernel!r}")
     _check_cache(cache)
     resolve_device(tokens.device)
     lp = params.layers

@@ -150,12 +150,15 @@ def _low_rank_layer(lin: CalderaLinear, l: int, y: torch.Tensor):
         None if lin.R_scale is None else lin.R_scale[l])
 
 
-def _apply_w4a8(lin: CalderaLinear, l: int, y: torch.Tensor):
+def _apply_w4a8(lin: CalderaLinear, l: int, y: torch.Tensor,
+                persistent: bool = False):
     """Layer ``l`` of a stacked w4a8 projection on ``y`` (..., in): one
-    stacked W4A8 launch plus the low-rank term, global scale and bias."""
+    stacked W4A8 launch (on the persistent grid when ``persistent``) plus
+    the low-rank term, global scale and bias."""
     y2 = y.reshape(-1, y.shape[-1])
-    out = (K.quantized_matmul_w4a8_stacked(y2, lin.packed, lin.scales, l,
-                                           lin.num_bits)
+    qmm = (K.quantized_matmul_w4a8_stacked_persistent if persistent
+           else K.quantized_matmul_w4a8_stacked)
+    out = (qmm(y2, lin.packed, lin.scales, l, lin.num_bits)
            + _low_rank_layer(lin, l, y2))
     out = out * lin.global_scale[l]
     if lin.b is not None:

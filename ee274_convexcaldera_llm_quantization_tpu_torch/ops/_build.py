@@ -36,12 +36,17 @@ ENTRIES = {
     "w4a8_stacked": {
         # xq, sx, packed, scales, out, M, N, K, bits, layer, stream
         "w4a8_stacked_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # the same arguments, persistent grid
+        "w4a8_stacked_persistent_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _I, _P],
         # xq, sx, packed, scales, out, M, N, K, bits, stream
         "w4a8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "grouped_matmul": {
         # x (bf16), packed, scales, out, M, N, K, bits, group, stream
         "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x (bf16), W (bf16, layer-stacked), out, M, N, K, layer, stream
+        "bf16_stacked_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "int8_matmul": {
         # xq, sx, w8, scales, out, M, N, K, stream
@@ -49,18 +54,18 @@ ENTRIES = {
     },
     "flash_decode": {
         # q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
-        # block_t, scale, i8, stream
+        # block_t, scale, dots (0 f32, 1 bf16, 2 i8), stream
         "flash_decode_staged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        # q, k, v, ks, vs, pos, out, B, KVH, G, D, T, block_t, scale, i8,
-        # stream
+        # q, k, v, ks, vs, pos, out, B, KVH, G, D, T, block_t, scale,
+        # dots, stream
         "flash_decode_inline_launch": [_P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _F, _I, _P],
         # as staged, then staged (0/1) before the stream
         "flash_decode_ab_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
         # q, k, v, ks, vs, k_new, v_new, pos, page_tables, out, B, KVH, G,
-        # D, max_pages, page_size, scale, i8, stream
+        # D, max_pages, page_size, scale, dots, stream
         "flash_decode_paged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },

@@ -32,9 +32,8 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.ops import _build
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
 
 _NEG_INF = -1e30
-_DOTS = ("i8", "f32")
-# the CUDA decode kernel keeps a block's logits in shared memory
-_MAX_CUDA_BLOCK_T = 256
+# the decode kernels' dot modes, as the C entries number them
+_DOTS = {"f32": 0, "bf16": 1, "i8": 2}
 
 
 def resolve_block_t(block_t: int, T: int) -> int:
@@ -74,9 +73,6 @@ def _ab_blocks(B: int, KVH: int, D: int, T: int, block_t: int,
 
 
 def _check_dots(dots: str) -> None:
-    if dots == "bf16":
-        raise NotImplementedError(
-            "dots='bf16' is not ported yet (ROADMAP.md, Queue B item 2)")
     if dots not in _DOTS:
         raise ValueError(f"unknown dots {dots!r}")
 
@@ -100,8 +96,11 @@ def _decode_blocks_plain(q, k, v, ks, vs, layer: int, pos, bt: int,
                          dots: str, staged: bool):
     """Online softmax over the cache blocks of ``layer``, block by block as
     the kernel walks them (same updates, same i8 quantization blocks).
-    Attends the tokens ``< pos`` (staged) or ``<= pos`` (inline). Returns
-    the running (max, sum, accumulator), (B, KVH, G, 1 | D) f32."""
+    Attends the tokens ``< pos`` (staged) or ``<= pos`` (inline). In
+    ``dots="bf16"`` q and ``p * v_scale`` round to bf16 before their dots
+    with the int8 codes (exact in bf16); the products are exact in f32, so
+    the dots are f32 matmuls of the rounded values. Returns the running
+    (max, sum, accumulator), (B, KVH, G, 1 | D) f32."""
     _check_dots(dots)
     B, KVH, G, D = q.shape
     T = k.shape[3]
@@ -119,6 +118,7 @@ def _decode_blocks_plain(q, k, v, ks, vs, layer: int, pos, bt: int,
         qs = qf.abs().amax(dim=3, keepdim=True).clamp_min(1e-12) * (
             1.0 / 127.0)
         qi = torch.round(qf / qs)
+    qd = qf.to(torch.bfloat16).float() if dots == "bf16" else qf
     last = torch.clamp(n - 1, min=0) // bt
     for t in range(T // bt):
         sl = slice(t * bt, (t + 1) * bt)
@@ -126,7 +126,7 @@ def _decode_blocks_plain(q, k, v, ks, vs, layer: int, pos, bt: int,
         if dots == "i8":
             logits = (qi.double() @ kb.double().transpose(-1, -2)).float() * qs
         else:
-            logits = qf @ kb.float().transpose(-1, -2)
+            logits = qd @ kb.float().transpose(-1, -2)
         logits = logits * (ksl[:, :, sl] * scale)[:, :, None, :]
         tok = t * bt + torch.arange(bt, device=dev)
         valid = tok[None, None, None, :] < n[:, None, None, None]
@@ -141,6 +141,8 @@ def _decode_blocks_plain(q, k, v, ks, vs, layer: int, pos, bt: int,
             pvs = pv.amax(dim=3, keepdim=True).clamp_min(1e-30) * (1.0 / 127.0)
             pvi = torch.round(pv / pvs)
             contrib = (pvi.double() @ vb.double()).float() * pvs
+        elif dots == "bf16":
+            contrib = pv.to(torch.bfloat16).float() @ vb.float()
         else:
             contrib = pv @ vb.float()
         acc_new = acc * alpha + contrib
@@ -216,12 +218,10 @@ def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
     the page ids (:func:`_check_pages`)."""
     B, KVH, G, D = q.shape
     T = k.shape[3]
-    if G > 8 or D > 128 or D % 16 or bt > _MAX_CUDA_BLOCK_T:
+    if G > 8 or D > 128 or D % 16:
         raise ValueError(
-            f"the CUDA decode kernel takes G <= 8, D <= 128 with D % 16 == 0 "
-            f"and blocks (pages) of at most {_MAX_CUDA_BLOCK_T} tokens; got "
-            f"G={G} D={D} block_t={bt} (T={T}; the all-batch partition is "
-            "one block of the whole T when T <= 128 or T % 128 != 0)")
+            f"the CUDA decode kernel takes G <= 8, D <= 128 with D % 16 == 0; "
+            f"got G={G} D={D}")
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError("the KV cache must be int8")
     qf = q.float().contiguous()
@@ -264,7 +264,7 @@ def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
         T = tables[0].shape[1]              # the entry takes max_pages
     fn = getattr(_build.library("flash_decode"), entry)
     err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, T, bt, _scale_f32(D),
-             int(dots == "i8"), *flags, _build.stream_ptr(q.device))
+             _DOTS[dots], *flags, _build.stream_ptr(q.device))
     _build.check(err, entry)
     return out
 
@@ -285,8 +285,11 @@ def flash_decode_q8_staged(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
     ``ks``/``vs`` (L, B, KVH, T) f32; ``k_new``/``v_new`` this step's
     dequantized K/V, (B, KVH, D) or layer-stacked (L, B, KVH, D); ``pos``
     (B,) int32, the cache holding tokens ``< pos[b]``; ``dots`` "i8" (int8
-    q and p * v_scale, exact integer dots) or "f32". Returns
-    (B, KVH, G, D) f32.
+    q and p * v_scale, exact integer dots), "bf16" (both rounded to bf16,
+    f32 sums) or "f32"; the current token's dot is f32 in every mode. Any
+    ``block_t``: the CUDA kernel walks a block longer than its shared
+    memory in passes (``csrc/flash_decode.cuh``). Returns (B, KVH, G, D)
+    f32.
     """
     _check_dots(dots)
     _check_layer(k, layer)
@@ -411,8 +414,8 @@ def flash_decode_q8_paged(q, k, v, ks, vs, k_new, v_new, layer: int,
     ``page_tables`` (B, max_pages) int, every id ``< NP``; ``pos`` (B,)
     int32, the pool holding row ``b``'s tokens ``< pos[b]`` (logical token
     ``j`` at page ``page_tables[b, j // P]``, offset ``j % P``); ``dots``
-    "i8" or "f32". Block == page, so pages hold at most 256 tokens on the
-    card. Returns (B, KVH, G, D) f32.
+    "i8", "bf16" or "f32". Block == page, of any size. Returns
+    (B, KVH, G, D) f32.
     """
     _check_dots(dots)
     _check_layer(k, layer)
@@ -540,12 +543,9 @@ def _launch_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos, o_packed,
     Lk, h = o_packed.shape[:2]
     qdim = KVH * D
     f = K._pack_factor(num_bits)
-    if (D > 128 or D % 16 or bt > _MAX_CUDA_BLOCK_T
-            or num_bits not in (2, 4, 8) or qdim % (16 * f)):
-        raise ValueError(f"the CUDA kernel takes D <= 128 with D % 16 == 0, "
-                         f"blocks of at most {_MAX_CUDA_BLOCK_T} tokens and "
-                         f"2/4/8-bit codes; got D={D}, block_t={bt}, "
-                         f"{num_bits}-bit")
+    if D > 128 or D % 16 or num_bits not in (2, 4, 8) or qdim % (16 * f):
+        raise ValueError(f"the CUDA kernel takes D <= 128 with D % 16 == 0 "
+                         f"and 2/4/8-bit codes; got D={D}, {num_bits}-bit")
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError("the KV cache must be int8")
     if o_R.dtype != torch.int8 or o_L.dtype != torch.int8:

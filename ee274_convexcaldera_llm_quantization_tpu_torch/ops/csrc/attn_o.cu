@@ -78,9 +78,11 @@ __global__ void __launch_bounds__(kThreads) attn_o_kernel(AttnOArgs a) {
 
   // phase 1: attention of each (b, head) stream, and its absmax
   for (int bh = blockIdx.x; bh < B * a.KVH; bh += gridDim.x) {
-    const float o = flash_decode::decode_attend<kThreads, 1, false, STAGED>(
-        bh, a.q, a.k, a.v, a.ks, a.vs, a.kn, a.vn, a.pos, nullptr, 0, a.attn,
-        a.KVH, 1, a.D, a.T, a.bt, a.scale);
+    const float o =
+        flash_decode::decode_attend<kThreads, 1, flash_decode::kDotsF32,
+                                    STAGED>(
+            bh, a.q, a.k, a.v, a.ks, a.vs, a.kn, a.vn, a.pos, nullptr, 0,
+            a.attn, a.KVH, 1, a.D, a.T, a.bt, a.scale);
     const float m = lowrank::warp_max_f(fabsf(o));
     if (lane == 0) wmax[warp] = m;
     __syncthreads();
@@ -180,8 +182,7 @@ extern "C" int attn_o_launch(
   const int qdim = KVH * D;
   if ((bits != 2 && bits != 4 && bits != 8) || B < 1 || B > 32 || KVH < 1 ||
       D < 16 || D > flash_decode::kMaxD || D % 16 != 0 || block_t < 1 ||
-      block_t > flash_decode::kMaxBT || T % block_t != 0 || rank < 1 ||
-      qdim % (16 * (8 / bits)) != 0 ||
+      T % block_t != 0 || rank < 1 || qdim % (16 * (8 / bits)) != 0 ||
       (staged && (k_new == nullptr || v_new == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int f = 8 / bits;

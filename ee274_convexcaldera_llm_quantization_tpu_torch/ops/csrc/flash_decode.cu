@@ -44,24 +44,28 @@
 //   for p @ V (4-byte loads, 128 B per warp and token) and add their
 //   partial sums; logits and probabilities stay in shared memory, the f32
 //   output accumulator in registers (one head_dim column per thread);
-// - I8 = true is the reference's dots="i8": q quantizes per g over D
-//   (qs = max(|q|, 1e-12) * (1/127)), p * vs quantizes per g over each
-//   block_t block (pvs = max(pv, 1e-30) * (1/127)) and both dots run as
-//   exact integer sums (__dp4a for QK). The block partition is therefore
-//   part of the result, and the blocks here are the reference's blocks.
-//   I8 = false is dots="f32", the exactness twin.
-// - block_t is at most 256 (logits of a whole block sit in shared memory);
-//   the wrappers raise on a larger block rather than re-partition it.
+// - three dot modes of the cache blocks (the entries' `dots`): kDotsI8 is
+//   the reference's dots="i8": q quantizes per g over D (qs = max(|q|,
+//   1e-12) * (1/127)), p * vs quantizes per g over each block_t block
+//   (pvs = max(pv, 1e-30) * (1/127)) and both dots run as exact integer
+//   sums (__dp4a for QK). The block partition is therefore part of the
+//   result, and the blocks here are the reference's blocks. kDotsBF16 is
+//   dots="bf16": q and p * vs round to bf16 (round to nearest even) before
+//   their dots with the int8 codes, which bf16 holds exactly; a bf16 x int8
+//   product is exact in f32, so the f32 FMA loops of kDotsF32 (the
+//   exactness twin) compute it on the rounded operands. The staged current
+//   token keeps f32 dots in every mode, as in the reference.
+// - a block may hold any number of tokens: see decode_attend in
+//   flash_decode.cuh for the sub-tile walks of a block over 256 tokens.
 #include "flash_decode.cuh"
 
 namespace {
 
-using flash_decode::kMaxBT;
 using flash_decode::kMaxD;
 constexpr int kThreads = 128;
 constexpr int kMaxG = 8;
 
-template <bool I8, bool STAGED>
+template <int DOTS, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const float* __restrict__ q,
                     const int8_t* __restrict__ k,
@@ -74,48 +78,48 @@ flash_decode_kernel(const float* __restrict__ q,
                     const int* __restrict__ pt, int max_pages,
                     float* __restrict__ out, int KVH, int G, int D, int T,
                     int bt, float scale) {
-  flash_decode::decode_attend<kThreads, kMaxG, I8, STAGED>(
+  flash_decode::decode_attend<kThreads, kMaxG, DOTS, STAGED>(
       blockIdx.x, q, k, v, ks, vs, kn, vn, pos, pt, max_pages, out, KVH, G,
       D, T, bt, scale);
+}
+
+template <int DOTS, bool STAGED>
+void launch_one(dim3 grid, cudaStream_t st, const float* qp,
+                const int8_t* kp, const int8_t* vp, const float* ksp,
+                const float* vsp, const float* knp, const float* vnp,
+                const int* pp, const int* ptp, int max_pages, float* op,
+                int KVH, int G, int D, int T, int block_t, float scale) {
+  flash_decode_kernel<DOTS, STAGED><<<grid, kThreads, 0, st>>>(
+      qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
+      block_t, scale);
 }
 
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* k_new, const void* v_new,
            const void* pos, const void* page_tables, int max_pages,
            void* out, int B, int KVH, int G, int D, int T, int block_t,
-           float scale, int i8, bool staged, void* stream) {
+           float scale, int dots, bool staged, void* stream) {
   if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || D < 16 || D > kMaxD ||
-      D % 16 != 0 || block_t < 1 || block_t > kMaxBT || T % block_t != 0 ||
+      D % 16 != 0 || block_t < 1 || T % block_t != 0 ||
+      dots < flash_decode::kDotsF32 || dots > flash_decode::kDotsI8 ||
       (page_tables != nullptr && (max_pages < 1 || T != max_pages * block_t)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B * KVH);
-  const auto* qp = static_cast<const float*>(q);
-  const auto* kp = static_cast<const int8_t*>(k);
-  const auto* vp = static_cast<const int8_t*>(v);
-  const auto* ksp = static_cast<const float*>(ks);
-  const auto* vsp = static_cast<const float*>(vs);
-  const auto* knp = static_cast<const float*>(k_new);
-  const auto* vnp = static_cast<const float*>(v_new);
-  const auto* pp = static_cast<const int*>(pos);
-  const auto* ptp = static_cast<const int*>(page_tables);
-  auto* op = static_cast<float*>(out);
-  if (i8 && staged)
-    flash_decode_kernel<true, true><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
-        block_t, scale);
-  else if (i8)
-    flash_decode_kernel<true, false><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
-        block_t, scale);
-  else if (staged)
-    flash_decode_kernel<false, true><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
-        block_t, scale);
-  else
-    flash_decode_kernel<false, false><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
-        block_t, scale);
+  const auto fn =
+      dots == flash_decode::kDotsI8
+          ? (staged ? launch_one<flash_decode::kDotsI8, true>
+                    : launch_one<flash_decode::kDotsI8, false>)
+      : dots == flash_decode::kDotsBF16
+          ? (staged ? launch_one<flash_decode::kDotsBF16, true>
+                    : launch_one<flash_decode::kDotsBF16, false>)
+          : (staged ? launch_one<flash_decode::kDotsF32, true>
+                    : launch_one<flash_decode::kDotsF32, false>);
+  fn(dim3(B * KVH), static_cast<cudaStream_t>(stream),
+     static_cast<const float*>(q), static_cast<const int8_t*>(k),
+     static_cast<const int8_t*>(v), static_cast<const float*>(ks),
+     static_cast<const float*>(vs), static_cast<const float*>(k_new),
+     static_cast<const float*>(v_new), static_cast<const int*>(pos),
+     static_cast<const int*>(page_tables), max_pages,
+     static_cast<float*>(out), KVH, G, D, T, block_t, scale);
   return (int)cudaGetLastError();
 }
 
@@ -125,28 +129,28 @@ extern "C" int flash_decode_staged_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* k_new, const void* v_new, const void* pos,
     void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
-    int i8, void* stream) {
+    int dots, void* stream) {
   return launch(q, k, v, ks, vs, k_new, v_new, pos, nullptr, 0, out, B, KVH,
-                G, D, T, block_t, scale, i8, true, stream);
+                G, D, T, block_t, scale, dots, true, stream);
 }
 
 extern "C" int flash_decode_inline_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, void* out, int B, int KVH, int G, int D,
-    int T, int block_t, float scale, int i8, void* stream) {
+    int T, int block_t, float scale, int dots, void* stream) {
   return launch(q, k, v, ks, vs, nullptr, nullptr, pos, nullptr, 0, out, B,
-                KVH, G, D, T, block_t, scale, i8, false, stream);
+                KVH, G, D, T, block_t, scale, dots, false, stream);
 }
 
 extern "C" int flash_decode_ab_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* k_new, const void* v_new, const void* pos,
     void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
-    int i8, int staged, void* stream) {
+    int dots, int staged, void* stream) {
   if (staged && (k_new == nullptr || v_new == nullptr))
     return (int)cudaErrorInvalidValue;
   return launch(q, k, v, ks, vs, k_new, v_new, pos, nullptr, 0, out, B, KVH,
-                G, D, T, block_t, scale, i8, staged != 0, stream);
+                G, D, T, block_t, scale, dots, staged != 0, stream);
 }
 
 // k, v: one layer of the pool (NP, KVH, page_size, D) int8; ks, vs (NP, KVH,
@@ -156,10 +160,10 @@ extern "C" int flash_decode_paged_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* k_new, const void* v_new, const void* pos,
     const void* page_tables, void* out, int B, int KVH, int G, int D,
-    int max_pages, int page_size, float scale, int i8, void* stream) {
+    int max_pages, int page_size, float scale, int dots, void* stream) {
   if (k_new == nullptr || v_new == nullptr || page_tables == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch(q, k, v, ks, vs, k_new, v_new, pos, page_tables, max_pages,
-                out, B, KVH, G, D, max_pages * page_size, page_size, scale, i8,
-                true, stream);
+                out, B, KVH, G, D, max_pages * page_size, page_size, scale,
+                dots, true, stream);
 }

@@ -1,4 +1,6 @@
-// Grouped-scale packed matmul in bf16 with f32 accumulation.
+// Grouped-scale packed matmul in bf16 with f32 accumulation, and the plain
+// bf16 matmul against one layer of a stacked bf16 weight (bf16_kernel, at
+// the end).
 //
 // Replaces the TPU kernel ee274_convexcaldera_llm_quantization_tpu/ops/
 // kernels.py::quantized_matmul (_qmm_kernel):
@@ -60,6 +62,67 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The tensor-core products of one step: D k values of the (BM, 64) tile,
+// staged in shared memory as xs (BM rows) and ws (64 rows) of stride LD,
+// added to this warp's f32 accumulators.
+template <int BM, int D, int LD>
+__device__ __forceinline__ void mma_step(
+    const __nv_bfloat16* xs, const __nv_bfloat16* ws,
+    float (&acc)[Warps<BM>::MI][Warps<BM>::NI][4]) {
+  using WP = Warps<BM>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp / WP::WN, wn = warp % WP::WN;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a[WP::MI][4], b[WP::NI][2];
+#pragma unroll
+    for (int mi = 0; mi < WP::MI; ++mi) {
+      const __nv_bfloat16* r0 =
+          xs + ((wm * WP::MI + mi) * 16 + g8) * LD + kk + 2 * t4;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < WP::NI; ++ni) {
+      const __nv_bfloat16* c0 =
+          ws + ((wn * WP::NI + ni) * 8 + g8) * LD + kk + 2 * t4;
+      b[ni][0] = *reinterpret_cast<const uint32_t*>(c0);
+      b[ni][1] = *reinterpret_cast<const uint32_t*>(c0 + 8);
+    }
+#pragma unroll
+    for (int mi = 0; mi < WP::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < WP::NI; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// Write this warp's accumulators of the tile at (m0, n0) into out (M, N).
+template <int BM>
+__device__ __forceinline__ void store_tile(
+    const float (&acc)[Warps<BM>::MI][Warps<BM>::NI][4], float* out, int M,
+    int N, int m0, int n0) {
+  using WP = Warps<BM>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp / WP::WN, wn = warp % WP::WN;
+#pragma unroll
+  for (int mi = 0; mi < WP::MI; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < WP::NI; ++ni) {
+      const int col = n0 + (wn * WP::NI + ni) * 8 + 2 * t4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + (wm * WP::MI + mi) * 16 + g8 + (e >= 2 ? 8 : 0);
+        const int n = col + (e & 1);
+        if (m < M && n < N) out[(size_t)m * N + n] = acc[mi][ni][e];
+      }
+    }
+  }
+}
+
 // x (M, K) bf16, w (N, K / F) uint8, s (N, K / G) f32, out (M, N) f32.
 // K % (32 * F) == 0, G % 16 == 0, (K / F) % G == 0.
 template <int BITS, int BM>
@@ -80,8 +143,6 @@ grouped_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(16) __nv_bfloat16 ws[kBN * LD];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
   const int P = K / F;   // packed bytes per weight row
   const int SG = K / G;  // scales per weight row
@@ -121,7 +182,6 @@ grouped_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-  const int wm = warp / WP::WN, wn = warp % WP::WN;
   uint4 wv;
   float sc[F];
   uint4 xv[XV];
@@ -162,46 +222,11 @@ grouped_kernel(const __nv_bfloat16* __restrict__ x,
       load_w(j0 + kCB, wv, sc);
       load_x(j0 + kCB, xv);
     }
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[WP::MI][4], b[WP::NI][2];
-#pragma unroll
-      for (int mi = 0; mi < WP::MI; ++mi) {
-        const __nv_bfloat16* r0 =
-            xs + ((wm * WP::MI + mi) * 16 + g8) * LD + kk + 2 * t4;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < WP::NI; ++ni) {
-        const __nv_bfloat16* c0 =
-            ws + ((wn * WP::NI + ni) * 8 + g8) * LD + kk + 2 * t4;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(c0);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(c0 + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < WP::MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < WP::NI; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
+    mma_step<BM, D, LD>(xs, ws, acc);
     __syncthreads();
   }
 
-#pragma unroll
-  for (int mi = 0; mi < WP::MI; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < WP::NI; ++ni) {
-      const int col = n0 + (wn * WP::NI + ni) * 8 + 2 * t4;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + (wm * WP::MI + mi) * 16 + g8 + (e >= 2 ? 8 : 0);
-        const int n = col + (e & 1);
-        if (m < M && n < N) out[(size_t)m * N + n] = acc[mi][ni][e];
-      }
-    }
-  }
+  store_tile<BM>(acc, out, M, N, m0, n0);
 }
 
 template <int BITS>
@@ -220,6 +245,98 @@ cudaError_t launch(const __nv_bfloat16* x, const uint8_t* w, const float* s,
     grouped_kernel<BITS, 64><<<dim3(nblocks, (M + 63) / 64), kThreads, 0,
                                stream>>>(x, w, s, out, M, N, K, G);
   }
+  return cudaGetLastError();
+}
+
+// y = x @ W.T with x (M, K) and W (N, K) both bf16 (one layer of a stack):
+// the grouped kernel's tiles, mma_step and store_tile without the
+// dequantization (the weights are bf16 already). Each step stages 64 k of
+// the tile's 64 weight rows (four 16-byte loads per thread) and of its BM
+// activation rows; the next step's loads go out before this step's
+// products. Loads past K read zeros, so K needs only K % 8 == 0.
+template <int BM>
+__global__ void __launch_bounds__(kThreads)
+bf16_kernel(const __nv_bfloat16* __restrict__ x,
+            const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
+            int M, int N, int K) {
+  constexpr int D = 64;      // k values per step
+  constexpr int LD = D + 8;  // shared row stride in bf16
+  constexpr int WV = kBN * D / 8 / kThreads;  // weight loads per thread
+  constexpr int XN = BM * D / 8;              // activation loads per step
+  constexpr int XV = (XN + kThreads - 1) / kThreads;
+  using WP = Warps<BM>;
+
+  __shared__ __align__(16) __nv_bfloat16 xs[BM * LD];
+  __shared__ __align__(16) __nv_bfloat16 ws[kBN * LD];
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
+  const __nv_bfloat16* wt = w + (size_t)n0 * K;
+  const __nv_bfloat16* xt = x + (size_t)m0 * K;
+  // 16-byte load i of a step at k0: row i / 8, k0 + 8 * (i % 8) .. + 7
+  auto load = [&](const __nv_bfloat16* base, int rows, int k0, int i) {
+    const int r = i / 8, k = k0 + 8 * (i % 8);
+    return r < rows && k < K
+               ? __ldg(reinterpret_cast<const uint4*>(base + (size_t)r * K +
+                                                      k))
+               : make_uint4(0u, 0u, 0u, 0u);
+  };
+  uint4 wv[WV], xv[XV];
+  auto load_step = [&](int k0) {
+#pragma unroll
+    for (int v = 0; v < WV; ++v)
+      wv[v] = load(wt, N - n0, k0, tid + v * kThreads);
+#pragma unroll
+    for (int v = 0; v < XV; ++v) {
+      const int i = tid + v * kThreads;
+      xv[v] = i < XN ? load(xt, M - m0, k0, i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  float acc[WP::MI][WP::NI][4];
+#pragma unroll
+  for (int mi = 0; mi < WP::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < WP::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  load_step(0);
+  for (int k0 = 0; k0 < K; k0 += D) {
+#pragma unroll
+    for (int v = 0; v < WV; ++v) {
+      const int i = tid + v * kThreads;
+      *reinterpret_cast<uint4*>(ws + (i / 8) * LD + 8 * (i % 8)) = wv[v];
+    }
+#pragma unroll
+    for (int v = 0; v < XV; ++v) {
+      const int i = tid + v * kThreads;
+      if (i < XN)
+        *reinterpret_cast<uint4*>(xs + (i / 8) * LD + 8 * (i % 8)) = xv[v];
+    }
+    __syncthreads();
+    if (k0 + D < K) load_step(k0 + D);
+    mma_step<BM, D, LD>(xs, ws, acc);
+    __syncthreads();
+  }
+
+  store_tile<BM>(acc, out, M, N, m0, n0);
+}
+
+cudaError_t launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                        float* out, int M, int N, int K,
+                        cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int nblocks = (N + kBN - 1) / kBN;
+  if (M <= 16)
+    bf16_kernel<16><<<dim3(nblocks, 1), kThreads, 0, stream>>>(x, w, out, M,
+                                                               N, K);
+  else
+    bf16_kernel<64><<<dim3(nblocks, (M + 63) / 64), kThreads, 0, stream>>>(
+        x, w, out, M, N, K);
   return cudaGetLastError();
 }
 
@@ -244,4 +361,20 @@ extern "C" int grouped_matmul_launch(const void* x, const void* packed,
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// x (M, K) bf16, W (layers, N, K) bf16, out (M, N) f32: y = x @ W[layer].T
+// (the layer a pointer offset). Replaces the TPU kernel
+// ee274_convexcaldera_llm_quantization_tpu/ops/kernels.py::
+// bf16_matmul_stacked (_bf16_stacked_kernel). Bound on an H100: the layer's
+// bf16 weight bytes at decode M, the bf16 operations (2 M N K at 989
+// TFLOP/s) at prefill M.
+extern "C" int bf16_stacked_launch(const void* x, const void* W, void* out,
+                                   int M, int N, int K, int layer,
+                                   void* stream) {
+  const auto* w = static_cast<const __nv_bfloat16*>(W) +
+                  (size_t)layer * (size_t)N * (size_t)K;
+  return (int)launch_bf16(static_cast<const __nv_bfloat16*>(x), w,
+                          static_cast<float*>(out), M, N, K,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -21,14 +21,12 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "rowdot.cuh"
 
 namespace lowrank {
 
+using rowdot::allow_smem;
+using rowdot::coop_grid;
 using rowdot::kThreads;
 using rowdot::kWarps;
 using rowdot::Tile;
@@ -253,51 +251,6 @@ __device__ __forceinline__ void xr_rows(const float* act, int mt, int K,
 // global writes before it with the reads after it.
 __device__ __forceinline__ void grid_sync() {
   cooperative_groups::this_grid().sync();
-}
-
-// Grid size of a cooperative launch: at most the CTAs that fit on the card
-// at once (occupancy query x SMs, asked once per kernel, device and shared
-// memory size, so that launches captured in a CUDA graph query nothing),
-// and no more than the work's units.
-template <typename Kernel>
-inline cudaError_t coop_grid(Kernel kernel, size_t smem, int units,
-                             int* grid) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t>, int> caps;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const auto key = std::make_tuple((const void*)kernel, dev, smem);
-  int cap = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    const auto it = caps.find(key);
-    if (it != caps.end()) cap = it->second;
-  }
-  if (cap == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    cap = per_sm * sms;
-    std::lock_guard<std::mutex> lock(mu);
-    caps[key] = cap;
-  }
-  *grid = units < cap ? units : cap;
-  if (*grid < 1) *grid = 1;
-  return cudaSuccess;
-}
-
-// Allow up to `bytes` of dynamic shared memory for `kernel` (above the 48 KB
-// default), once per kernel.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace lowrank

@@ -2,9 +2,12 @@
 // against a flat one.
 //
 // Replaces the TPU kernels ee274_convexcaldera_llm_quantization_tpu/ops/
-// kernels.py::quantized_matmul_w4a8_stacked (_qmm_w4a8_stacked_kernel) and
-// quantized_matmul_w4a8 (_qmm_w4a8_kernel), the same function without the
-// layer axis:
+// kernels.py::quantized_matmul_w4a8_stacked (_qmm_w4a8_stacked_kernel),
+// quantized_matmul_w4a8_stacked_persistent (_qmm_w4a8_persistent_kernel:
+// the same function, one program per M tile walking every output block
+// with hand double-buffered weight DMAs; here w4a8_stacked_persistent_launch,
+// rowdot.cuh's persistent launch) and quantized_matmul_w4a8
+// (_qmm_w4a8_kernel), the same function without the layer axis:
 //   y[m, n] = sx[m] * s[n] * (sum_k xq[m, k] * u[n, k] - maxq * sum_k xq[m, k])
 // with u the offset-binary 2/4/8-bit codes of layer `layer`.
 //
@@ -15,26 +18,70 @@
 // tensor: no layer slice is ever copied.
 #include "rowdot.cuh"
 
+namespace {
+
+// The layer's weights and scales: pointer offsets into the stacked tensors.
+struct Layer {
+  const uint8_t* w;
+  const float* ws;
+};
+
+Layer layer_of(const void* packed, const void* scales, int N, int K,
+               int bits, int layer) {
+  const int f = 8 / bits;
+  return {static_cast<const uint8_t*>(packed) +
+              (size_t)layer * (size_t)N * (size_t)(K / f),
+          static_cast<const float*>(scales) + (size_t)layer * N};
+}
+
+}  // namespace
+
 extern "C" int w4a8_stacked_launch(const void* xq, const void* sx,
                                    const void* packed, const void* scales,
                                    void* out, int M, int N, int K, int bits,
                                    int layer, void* stream) {
   if (bits != 2 && bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
-  const int f = 8 / bits;
-  const uint8_t* w = static_cast<const uint8_t*>(packed) +
-                     (size_t)layer * (size_t)N * (size_t)(K / f);
-  const float* ws = static_cast<const float*>(scales) + (size_t)layer * N;
+  const Layer l = layer_of(packed, scales, N, K, bits, layer);
   const int8_t* x = static_cast<const int8_t*>(xq);
   const float* s = static_cast<const float*>(sx);
   float* y = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bits == 2)
-    err = rowdot::launch<2, rowdot::kOffsetPacked>(x, s, w, ws, y, M, N, K, st);
+    err = rowdot::launch<2, rowdot::kOffsetPacked>(x, s, l.w, l.ws, y, M, N,
+                                                   K, st);
   else if (bits == 4)
-    err = rowdot::launch<4, rowdot::kOffsetPacked>(x, s, w, ws, y, M, N, K, st);
+    err = rowdot::launch<4, rowdot::kOffsetPacked>(x, s, l.w, l.ws, y, M, N,
+                                                   K, st);
   else
-    err = rowdot::launch<8, rowdot::kOffset8>(x, s, w, ws, y, M, N, K, st);
+    err = rowdot::launch<8, rowdot::kOffset8>(x, s, l.w, l.ws, y, M, N, K,
+                                              st);
+  return (int)err;
+}
+
+// The same function on the persistent grid (rowdot::launch_persistent):
+// bit-equal output. The activations of min(M, 8) rows of K and two 32-row
+// weight stages must fit in shared memory (M * K + 64 KB <= 226 KB for M
+// <= 8).
+extern "C" int w4a8_stacked_persistent_launch(
+    const void* xq, const void* sx, const void* packed, const void* scales,
+    void* out, int M, int N, int K, int bits, int layer, void* stream) {
+  if (bits != 2 && bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
+  const Layer l = layer_of(packed, scales, N, K, bits, layer);
+  const int8_t* x = static_cast<const int8_t*>(xq);
+  const float* s = static_cast<const float*>(sx);
+  float* y = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bits == 2)
+    err = rowdot::launch_persistent<2, rowdot::kOffsetPacked>(
+        x, s, l.w, l.ws, y, M, N, K, st);
+  else if (bits == 4)
+    err = rowdot::launch_persistent<4, rowdot::kOffsetPacked>(
+        x, s, l.w, l.ws, y, M, N, K, st);
+  else
+    err = rowdot::launch_persistent<8, rowdot::kOffset8>(x, s, l.w, l.ws, y,
+                                                         M, N, K, st);
   return (int)err;
 }
 

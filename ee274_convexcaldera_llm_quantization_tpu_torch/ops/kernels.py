@@ -7,7 +7,9 @@ packed as uint8 in ``f = 8 / bits`` row-global planes, MSB first, so byte
 j + (f-1) K/f`` (plane ``p`` at shift ``bits * (f - 1 - p)``).
 
 The kernel wrappers (:func:`quantized_matmul`, :func:`quantized_matmul_w4a8`,
-:func:`quantized_matmul_w4a8_stacked`, :func:`int8_matmul` and the
+:func:`quantized_matmul_w4a8_stacked` and its persistent launch
+:func:`quantized_matmul_w4a8_stacked_persistent`, :func:`int8_matmul`,
+:func:`bf16_matmul_stacked` and the
 low-rank-fused :func:`quantized_matmul_w4a8_l_stacked`,
 :func:`quantized_matmul_w4a8_lr_stacked`,
 :func:`quantized_matmul_w4a8_mlp_stacked`) launch a
@@ -288,6 +290,24 @@ def quantized_matmul_w4a8_stacked_plain(
     return _rescale(acc, row_scales[layer], sx)
 
 
+def _check_w4a8_stacked(x, packed, row_scales, layer: int,
+                        num_bits: int) -> None:
+    if packed.dtype != torch.uint8:
+        raise TypeError(f"packed must be uint8, got {packed.dtype}")
+    f = _pack_factor(num_bits)
+    K = x.shape[1]
+    Lk, N, P = packed.shape
+    if P * f != K or row_scales.shape != (Lk, N, 1):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, scales "
+                         f"{tuple(row_scales.shape)} at {num_bits}-bit")
+    if not 0 <= layer < Lk:
+        raise IndexError(f"layer {layer} out of range for {Lk} layers")
+    if x.device.type != "cpu" and (num_bits not in (2, 4, 8) or K % (16 * f)):
+        raise ValueError(f"the CUDA kernel takes 2/4/8-bit codes with "
+                         f"K % {16 * f} == 0, got {num_bits}-bit K={K}")
+
+
 def quantized_matmul_w4a8_stacked(
         x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
         layer: int, num_bits: int,
@@ -299,23 +319,10 @@ def quantized_matmul_w4a8_stacked(
     (M, N) f32. CUDA tensors go through ``csrc/w4a8_stacked.cu``; CPU
     tensors through :func:`quantized_matmul_w4a8_stacked_plain`.
     """
-    if packed.dtype != torch.uint8:
-        raise TypeError(f"packed must be uint8, got {packed.dtype}")
-    f = _pack_factor(num_bits)
-    M, K = x.shape
-    Lk, N, P = packed.shape
-    if P * f != K or row_scales.shape != (Lk, N, 1):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, packed "
-                         f"{tuple(packed.shape)}, scales "
-                         f"{tuple(row_scales.shape)} at {num_bits}-bit")
-    if not 0 <= layer < Lk:
-        raise IndexError(f"layer {layer} out of range for {Lk} layers")
+    _check_w4a8_stacked(x, packed, row_scales, layer, num_bits)
     if x.device.type == "cpu":
         return quantized_matmul_w4a8_stacked_plain(
             x, packed, row_scales, layer, num_bits, act_scale)
-    if num_bits not in (2, 4, 8) or K % (16 * f):
-        raise ValueError(f"the CUDA kernel takes 2/4/8-bit codes with "
-                         f"K % {16 * f} == 0, got {num_bits}-bit K={K}")
     xq, sx = quantize_activations_int8(x, act_scale)
     out = _launch_w4a8_stacked(xq, sx, packed, row_scales.float(), layer,
                                num_bits)
@@ -324,10 +331,11 @@ def quantized_matmul_w4a8_stacked(
 
 
 def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
-                         num_bits: int):
+                         num_bits: int, persistent: bool = False):
     """Launch ``csrc/w4a8_stacked.cu`` on quantized activations against
-    layer ``layer`` of a stacked (L, N, K/f) tensor, or on a flat (N, K/f)
-    tensor when ``layer`` is None (the flat entry point)."""
+    layer ``layer`` of a stacked (L, N, K/f) tensor (on the persistent grid
+    when ``persistent``), or on a flat (N, K/f) tensor when ``layer`` is
+    None (the flat entry point)."""
     M, K = xq.shape
     N = packed.shape[-2]
     sx = sx.contiguous()
@@ -339,6 +347,8 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
     stream = _build.stream_ptr(xq.device)
     if layer is None:
         err = lib.w4a8_launch(*args, stream)
+    elif persistent:
+        err = lib.w4a8_stacked_persistent_launch(*args, layer, stream)
     else:
         err = lib.w4a8_stacked_launch(*args, layer, stream)
     _build.check(err, "w4a8_stacked")
@@ -346,6 +356,53 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
 
 
 quantized_matmul_w4a8_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# W4A8 stacked matmul on a persistent grid (replaces the TPU kernel #4)
+# ---------------------------------------------------------------------------
+
+# dynamic shared memory of a persistent CTA (csrc/rowdot.cuh): the int8
+# activations of up to 8 rows of K and two 32-row stages of 1024 packed
+# bytes, within 226 KB
+_PERSIST_SMEM = 226 * 1024
+_PERSIST_STAGES = 2 * 32 * 1024
+
+# the persistent kernel's function is kernel 1's, bit for bit
+quantized_matmul_w4a8_stacked_persistent_plain = \
+    quantized_matmul_w4a8_stacked_plain
+
+
+def quantized_matmul_w4a8_stacked_persistent(
+        x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
+        layer: int, num_bits: int,
+        act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`quantized_matmul_w4a8_stacked` on a persistent grid: as many
+    CTAs as fit on the card, each walking its row tiles with the next
+    weight stage loading (``cp.async``) while the current one computes, and
+    the activations staged once per CTA (``w4a8_stacked_persistent_launch``
+    of ``csrc/w4a8_stacked.cu``). Same arguments; the output equals the grid
+    kernel's bit for bit. CPU tensors go through its plain version. On the
+    card ``min(M, 8) * K`` bytes of activations must fit beside the weight
+    stages (K <= 20992 at M >= 8).
+    """
+    _check_w4a8_stacked(x, packed, row_scales, layer, num_bits)
+    if x.device.type == "cpu":
+        return quantized_matmul_w4a8_stacked_persistent_plain(
+            x, packed, row_scales, layer, num_bits, act_scale)
+    M, K = x.shape
+    if min(M, 8) * K + _PERSIST_STAGES > _PERSIST_SMEM:
+        raise ValueError(f"the persistent kernel stages min(M, 8) x K int8 "
+                         f"activations in shared memory; M={M} K={K} is "
+                         f"over its {_PERSIST_SMEM - _PERSIST_STAGES} bytes")
+    xq, sx = quantize_activations_int8(x, act_scale)
+    out = _launch_w4a8_stacked(xq, sx, packed, row_scales.float(), layer,
+                               num_bits, persistent=True)
+    quantized_matmul_w4a8_stacked_persistent.launches += 1
+    return out
+
+
+quantized_matmul_w4a8_stacked_persistent.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -884,6 +941,66 @@ def _launch_int8_matmul(xq, sx, w_int8, scales):
 
 
 int8_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Stacked bf16 matmul (replaces the TPU kernel #8)
+# ---------------------------------------------------------------------------
+
+def bf16_matmul_stacked_plain(x: torch.Tensor, W: torch.Tensor,
+                              layer: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bf16_matmul_stacked`: an f32 matmul
+    of the bf16 operands (each product exact in f32; TF32 is off for f32
+    matmuls by PyTorch's default)."""
+    return _bf16(x) @ W[layer].float().T
+
+
+def bf16_matmul_stacked(x: torch.Tensor, W: torch.Tensor,
+                        layer: int) -> torch.Tensor:
+    """``y = bf16(x) @ W[layer].T`` in f32 with the layer selected by a
+    pointer offset (no copy of the slab).
+
+    ``x`` (M, K) float, cast to bf16; ``W`` (L, N, K) bf16. Returns (M, N)
+    f32. CUDA tensors go through ``bf16_stacked_launch`` of
+    ``csrc/grouped_matmul.cu`` (the grouped kernel's bf16 ``mma.sync``
+    tiles, f32 accumulators); CPU tensors through
+    :func:`bf16_matmul_stacked_plain`. Neither package calls it on its
+    serving paths; it is the reference's kernel for factor matmuls.
+    """
+    if W.dtype != torch.bfloat16:
+        raise TypeError(f"W must be bf16, got {W.dtype}")
+    M, K = x.shape
+    Lk, N, Kw = W.shape
+    if Kw != K:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, W "
+                         f"{tuple(W.shape)}")
+    if not 0 <= layer < Lk:
+        raise IndexError(f"layer {layer} out of range for {Lk} layers")
+    if x.device.type == "cpu":
+        return bf16_matmul_stacked_plain(x, W, layer)
+    if K % 8:
+        raise ValueError(f"the CUDA kernel reads 16-byte rows: K % 8 == 0, "
+                         f"got K={K}")
+    out = _launch_bf16_stacked(x.to(torch.bfloat16).contiguous(), W, layer)
+    bf16_matmul_stacked.launches += 1
+    return out
+
+
+def _launch_bf16_stacked(xb, W, layer: int):
+    """Launch ``bf16_stacked_launch`` of ``csrc/grouped_matmul.cu`` on bf16
+    activations against layer ``layer`` of ``W``."""
+    M, K = xb.shape
+    N = W.shape[1]
+    _check_cuda_operands(xb, W)
+    out = torch.empty((M, N), dtype=torch.float32, device=xb.device)
+    err = _build.library("grouped_matmul").bf16_stacked_launch(
+        xb.data_ptr(), W.data_ptr(), out.data_ptr(), M, N, K, layer,
+        _build.stream_ptr(xb.device))
+    _build.check(err, "bf16_stacked")
+    return out
+
+
+bf16_matmul_stacked.launches = 0
 
 
 def low_rank_matmul(x2: torch.Tensor, L: torch.Tensor, R: torch.Tensor,

@@ -268,8 +268,8 @@ def paged_decode_step_fused(params: fused.FusedStackedParams,
     ``active`` (B,) bool masks unused rows, whose commits go to
     ``scratch_page`` (a pool page the allocator never hands out); it
     requires ``scratch_page``. ``attn_dots``: "f32" (the reference's
-    default) or "i8". Returns (logits (B, vocab), pool), the pool written
-    in place.
+    default), "bf16" or "i8". Returns (logits (B, vocab), pool), the pool
+    written in place.
     """
     if tp_axis is not None:
         raise fused._not_ported("tp_axis", "Queue A item 19")

@@ -92,9 +92,13 @@ class TestStagedFlashDecode:
         assert TA.resolve_block_t(256, 2048) == 256
 
     def test_bf16_dots_not_ported(self):
+        # the name is kept from when dots="bf16" raised; it is ported now
+        # and matches the reference's bf16 kernel on the same inputs
         inp = _inputs(32, L=1, B=1, KVH=1, G=1, D=32, T=32, pos=[3])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(inp, 0, dots="bf16")
+        out = _port(inp, 0, dots="bf16")
+        ref = _jax(JA.flash_decode_q8_staged, inp, 0, interpret=True,
+                   dots="bf16")
+        np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL)
 
 
 def _port_inline(inp, layer, **kw):

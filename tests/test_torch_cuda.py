@@ -37,6 +37,16 @@ def _close(y, ref):
                                atol=1e-6 * float(ref.abs().max()))
 
 
+def _attn_close(out, ref, dots):
+    if dots == "f32":
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-6)
+    else:
+        # expf and sum order can flip one int8 probability code, or round
+        # one bf16 p * v_scale to its other neighbour
+        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
+        assert rel <= 1e-4, rel
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("M", [1, 8, 33])
 def test_w4a8_kernel_matches_plain(dev, bits, M):
@@ -54,6 +64,56 @@ def test_w4a8_kernel_matches_plain(dev, bits, M):
     _close(y, ref)
 
 
+@pytest.mark.parametrize("bits,M,N,Kd", [
+    (bits, M, 200, 512) for bits in (2, 4, 8)
+    for M in (1, 7, 8, 9, 33, 128)] + [
+    (4, M, 4096, 11008) for M in (1, 8, 33)])
+def test_persistent_kernel_equals_grid_kernel(dev, bits, M, N, Kd):
+    # the same exact i32 sums and epilogue: bit for bit, at M tiles of 8
+    # (ragged ones too), N not a multiple of the 32-row tile, and
+    # down_proj's K (88 KB of activations at M >= 8, six weight stages)
+    rng = np.random.default_rng(450 + bits + M)
+    f = 8 // bits
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
+    high = 255 if bits == 8 else 256
+    packed = torch.from_numpy(
+        rng.integers(0, high, size=(2, N, Kd // f), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(2, N, 1)).astype(np.float32))
+    args = (x.to(dev), packed.to(dev), scales.to(dev), 1, bits)
+    before = K.quantized_matmul_w4a8_stacked_persistent.launches
+    y = K.quantized_matmul_w4a8_stacked_persistent(*args)
+    assert K.quantized_matmul_w4a8_stacked_persistent.launches == before + 1
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked(*args))
+    _close(y, K.quantized_matmul_w4a8_stacked_plain(x, packed, scales, 1,
+                                                    bits))
+
+
+def test_persistent_kernel_rules(dev):
+    x = torch.zeros((8, 24576), device=dev)
+    packed = torch.zeros((1, 64, 12288), dtype=torch.uint8, device=dev)
+    scales = torch.ones((1, 64, 1), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.quantized_matmul_w4a8_stacked_persistent(x, packed, scales, 0, 4)
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 512])
+@pytest.mark.parametrize("N,Kd", [(128, 4096), (4096, 128), (200, 136)])
+def test_bf16_stacked_kernel_matches_plain(dev, M, N, Kd):
+    # bf16 x bf16 products are exact in f32 on both sides; only the order
+    # of the K f32 sums differs (mma.sync against the CPU's matmul)
+    rng = np.random.default_rng(480 + M + N)
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
+    W = torch.from_numpy(rng.normal(size=(3, N, Kd)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    before = K.bf16_matmul_stacked.launches
+    y = K.bf16_matmul_stacked(x.to(dev), W.to(dev), 2).cpu()
+    assert K.bf16_matmul_stacked.launches == before + 1
+    ref = K.bf16_matmul_stacked_plain(x, W, 2)
+    torch.testing.assert_close(y, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
 @pytest.mark.parametrize("M", [1, 8, 33])
 def test_int8_kernel_matches_plain(dev, M):
     rng = np.random.default_rng(500 + M)
@@ -66,7 +126,7 @@ def test_int8_kernel_matches_plain(dev, M):
            K.int8_matmul_plain(x, w8, s))
 
 
-@pytest.mark.parametrize("dots", ["i8", "f32"])
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
 @pytest.mark.parametrize("G,D", [(1, 128), (2, 32), (4, 128)])
 def test_attention_kernel_matches_plain(dev, dots, G, D):
     rng = np.random.default_rng(600 + G + D)
@@ -86,12 +146,7 @@ def test_attention_kernel_matches_plain(dev, dots, G, D):
                                           dots=dots)
     out = AT.flash_decode_q8_staged(*[a.to(dev) for a in args], 1,
                                     pos.to(dev), block_t=32, dots=dots).cpu()
-    if dots == "f32":
-        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-6)
-    else:
-        # expf and sum order can flip one int8 probability code
-        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
-        assert rel <= 1e-4, rel
+    _attn_close(out, ref, dots)
 
 
 def test_decode_step_kernels_match_plain_on_card(dev, monkeypatch):
@@ -141,6 +196,67 @@ def test_decode_step_kernels_match_plain_on_card(dev, monkeypatch):
                     - getattr(cplain, name).int()).abs().max()) <= 1
 
 
+@pytest.mark.parametrize("flags,per_step", [
+    (dict(staged_kv="uniform", attn_dots="i8", proj_kernel="persistent"),
+     [2, 2, 1, 0, 0, 1]),
+    (dict(staged_kv="uniform", attn_dots="bf16"), [4, 0, 1, 0, 0, 1]),
+    (dict(staged_kv=False, attn_dots="bf16"), [4, 0, 0, 1, 0, 1]),
+    (dict(staged_kv=True, attn_dots="bf16", attn_kernel="ab"),
+     [4, 0, 0, 0, 1, 1])])
+def test_step_options_on_card(dev, flags, per_step, monkeypatch):
+    # the persistent o/down launch and bf16 dots on a 2-layer tiny-mha:
+    # exact launches per layer, then the same steps through the plain
+    # versions on the card from the same glue (an f32 ulp of a sum can flip
+    # one int8 code or one bf16 rounding); the persistent step's logits and
+    # cache equal the grid step's bit for bit
+    config = dataclasses.replace(TINY_MHA, num_layers=2)
+    params = fused.quantize_factors_int8_fused(fused.fuse_stacked(
+        bench_params.build_compressed_llama_params(config, rank=16, seed=0,
+                                                   device=dev)))
+    Lk, B, T = config.num_layers, 4, 16
+    counters = (K.quantized_matmul_w4a8_stacked,
+                K.quantized_matmul_w4a8_stacked_persistent,
+                AT.flash_decode_q8_staged, AT.flash_decode_q8,
+                AT.flash_decode_q8_ab, K.int8_matmul)
+    expect = [n * Lk if i < 5 else n for i, n in enumerate(per_step)]
+
+    def run(**kw):
+        cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+        tokens = torch.tensor([1, 2, 3, 4], device=dev)
+        out = []
+        for step in range(3):
+            pos = torch.full((B,), 5 + step, dtype=torch.int32, device=dev)
+            before = [fn.launches for fn in counters]
+            logits, cache = fused.decode_step_fused(params, tokens, pos,
+                                                    cache, config, **kw)
+            out.append(([fn.launches - b for fn, b in zip(counters, before)],
+                        logits.cpu()))
+            tokens = logits.argmax(-1)
+        return out, cache
+
+    kern, ckern = run(**flags)
+    assert all(launches == expect for launches, _ in kern)
+    if flags.get("proj_kernel") == "persistent":
+        grid, cgrid = run(**dict(flags, proj_kernel="grid"))
+        for (_, a), (_, b) in zip(kern, grid):
+            assert torch.equal(a, b)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(getattr(ckern, name), getattr(cgrid, name))
+    for name, plain in (
+            ("quantized_matmul_w4a8_stacked",
+             K.quantized_matmul_w4a8_stacked_plain),
+            ("quantized_matmul_w4a8_stacked_persistent",
+             K.quantized_matmul_w4a8_stacked_persistent_plain),
+            ("int8_matmul", K.int8_matmul_plain)):
+        monkeypatch.setattr(K, name, plain)
+    for name in ("flash_decode_q8_staged", "flash_decode_q8",
+                 "flash_decode_q8_ab"):
+        monkeypatch.setattr(AT, name, getattr(AT, name + "_plain"))
+    for (_, got), (_, ref) in zip(kern, run(**flags)[0]):
+        assert _rel(got, ref) <= 5e-3, _rel(got, ref)
+        assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
 def _decode_inputs(rng, L, B, KVH, G, D, T):
     t = dict(
         q=rng.normal(size=(B, KVH, G, D)).astype(np.float32),
@@ -154,16 +270,7 @@ def _decode_inputs(rng, L, B, KVH, G, D, T):
             ("q", "k", "v", "ks", "vs", "kn", "vn")]
 
 
-def _attn_close(out, ref, dots):
-    if dots == "f32":
-        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-6)
-    else:
-        # expf and sum order can flip one int8 probability code
-        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
-        assert rel <= 1e-4, rel
-
-
-@pytest.mark.parametrize("dots", ["i8", "f32"])
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
 @pytest.mark.parametrize("G,D", [(1, 128), (2, 32), (4, 128)])
 def test_inline_kernel_matches_plain(dev, dots, G, D):
     rng = np.random.default_rng(700 + G + D)
@@ -178,7 +285,7 @@ def test_inline_kernel_matches_plain(dev, dots, G, D):
 
 
 @pytest.mark.parametrize("staged", [True, False])
-@pytest.mark.parametrize("dots", ["i8", "f32"])
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
 @pytest.mark.parametrize("G,D,T", [(1, 128, 256), (4, 128, 512),
                                    (2, 32, 100)])
 def test_ab_kernel_matches_plain(dev, staged, dots, G, D, T):
@@ -197,13 +304,28 @@ def test_ab_kernel_matches_plain(dev, staged, dots, G, D, T):
     _attn_close(out, ref, dots)
 
 
-def test_ab_kernel_rejects_a_block_over_256(dev):
-    # _ab_blocks gives one block of the whole T when T % 128 != 0: the
-    # kernel keeps a block's logits in shared memory, so it raises
-    args = [a.to(dev) for a in _decode_inputs(np.random.default_rng(1), 1,
-                                              2, 2, 1, 32, 320)]
-    with pytest.raises(ValueError, match="256"):
-        AT.flash_decode_q8_ab(*args, 0, torch.tensor([3, 9], device=dev))
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("B,KVH,G,D,T", [
+    (2, 2, 1, 32, 320), (8, 4, 1, 128, 2000), (1, 2, 7, 64, 7000)])
+def test_ab_kernel_rejects_a_block_over_256(dev, dots, B, KVH, G, D, T):
+    # The name is kept from when the kernel raised on such blocks. _ab_blocks
+    # gives one block of the whole T when T % 128 != 0; the kernel walks a
+    # block over 256 tokens in sub-tiles, in passes that recompute the
+    # logits (the i8 block is one quantization group), so it matches the
+    # plain version at any length: 320 and 2000 (Llama-2-7B heads), and a
+    # G 7, D 64 block far over shared memory (7 x 7000 logits)
+    rng = np.random.default_rng(T + G)
+    args = _decode_inputs(rng, 1, B, KVH, G, D, T)
+    pos = torch.from_numpy(rng.integers(T // 2, T, size=B).astype(np.int32))
+    pos[-1] = T - 1
+    assert AT._ab_blocks(B, KVH, D, T, 64)[1] == T
+    for staged in (True, False):
+        ref = AT.flash_decode_q8_ab_plain(*args, 0, pos, staged=staged,
+                                          dots=dots)
+        out = AT.flash_decode_q8_ab(*[a.to(dev) for a in args], 0,
+                                    pos.to(dev), staged=staged,
+                                    dots=dots).cpu()
+        _attn_close(out, ref, dots)
 
 
 @pytest.mark.parametrize("B,S,KVH,G,D", [
@@ -388,8 +510,9 @@ def _paged_inputs(rng, L, NP, KVH, P, G, D, B, max_pages):
             torch.from_numpy(tables.astype(np.int32)))
 
 
-@pytest.mark.parametrize("dots", ["i8", "f32"])
-@pytest.mark.parametrize("P,G,D", [(16, 1, 128), (32, 2, 32), (256, 4, 128)])
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("P,G,D", [(16, 1, 128), (32, 2, 32), (256, 4, 128),
+                                   (320, 1, 32), (512, 2, 64)])
 def test_paged_kernel_matches_plain(dev, dots, P, G, D):
     rng = np.random.default_rng(1000 + P + G)
     B, max_pages = 6, 4
@@ -417,10 +540,15 @@ def test_paged_kernel_rules(dev):
         AT.flash_decode_q8_paged(*args, 0, bad.to(dev), pos)
     with pytest.raises(ValueError, match="shape mismatch"):
         AT.flash_decode_q8_paged(*args, 0, tables.to(dev), pos[:1])
+    # a page of 320 tokens (it raised when blocks were capped at 256): the
+    # plain version's result
     big, big_tables = _paged_inputs(rng, 1, 2, 2, 320, 1, 32, 2, 1)
-    with pytest.raises(ValueError, match="256"):
-        AT.flash_decode_q8_paged(*[a.to(dev) for a in big], 0,
-                                 big_tables.to(dev), pos)
+    for dots in ("i8", "f32", "bf16"):
+        ref = AT.flash_decode_q8_paged_plain(*big, 0, big_tables, pos.cpu(),
+                                             dots=dots)
+        out = AT.flash_decode_q8_paged(*[a.to(dev) for a in big], 0,
+                                       big_tables.to(dev), pos, dots=dots)
+        _attn_close(out.cpu(), ref, dots)
 
 
 def test_paged_engine_on_card_counts_launches(dev):

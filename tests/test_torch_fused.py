@@ -178,7 +178,8 @@ class _Rounding:
 
     def __init__(self, fn=None, static=("config", "interpret", "staged_kv",
                                         "attn_dots", "attn_kernel",
-                                        "mlp_kernel", "attn_o_kernel")):
+                                        "mlp_kernel", "attn_o_kernel",
+                                        "proj_kernel")):
         self.jax, self.port, self.force = [], [], {}
         self.pending = []
         self.fn = JF.decode_step_fused if fn is None else fn
@@ -592,12 +593,29 @@ class TestPortSurface:
                                              attn_dots="bf16"),
         dict(attn_dots="bf16")])
     def test_unported_flags_raise(self, flag):
+        # tp_axis is the one flag left unported and raises; the others were
+        # ported since (their parity with the reference is in
+        # tests/test_torch_proj_options.py and test_torch_bf16_dots.py) and
+        # now run: the persistent launch gives the grid launch's logits bit
+        # for bit, bf16 dots finite logits of the step's shape
         _, _, tparams = _params("tiny")
-        cache = TL.HeadMajorQuantKVCache.create(TC.TINY, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.decode_step_fused(tparams, torch.tensor([1]),
-                                 torch.tensor([0], dtype=torch.int32), cache,
-                                 TC.TINY, **flag)
+
+        def step(**kw):
+            cache = TL.HeadMajorQuantKVCache.create(TC.TINY, 1, 8,
+                                                    device="cpu")
+            return TF.decode_step_fused(
+                tparams, torch.tensor([1]),
+                torch.tensor([0], dtype=torch.int32), cache, TC.TINY,
+                **kw)[0]
+        if "tp_axis" in flag:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                step(**flag)
+            return
+        logits = step(**flag)
+        assert logits.shape == (1, TC.TINY.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        if "proj_kernel" in flag:
+            assert torch.equal(logits, step())
 
     def test_unknown_factor_path_raises(self):
         # the reference's names: False / "xla", "l", True / "lr"

@@ -147,8 +147,13 @@ class TestPagedFlashDecode:
                 _port_paged(inp2, 0)
         with pytest.raises(ValueError, match="integer"):
             _port_paged(dict(inp, pt=inp["pt"].astype(np.float32)), 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_paged(inp, 0, dots="bf16")
+        # dots="bf16" raised until it was ported; it is the reference's now
+        np.testing.assert_allclose(
+            _port_paged(inp, 0, dots="bf16"),
+            _jax_paged(inp, 0, interpret=True, dots="bf16"), rtol=RTOL,
+            atol=ATOL)
+        with pytest.raises(ValueError, match="unknown dots"):
+            _port_paged(inp, 0, dots="bf8")
         with pytest.raises(IndexError, match="layer"):
             _port_paged(inp, 2)
 
@@ -393,8 +398,11 @@ class TestPagedFusedStep:
         with pytest.raises(NotImplementedError, match="Queue A item 19"):
             TP.paged_prefill_fused(tparams, torch.tensor([[1, 2]]), pool,
                                    torch.tensor([0, 1]), cfg, tp_axis="tp")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TP.paged_decode_step_fused(*args, attn_dots="bf16")
+        # attn_dots="bf16" raised until it was ported; an unknown mode raises
+        with pytest.raises(ValueError, match="unknown dots"):
+            TP.paged_decode_step_fused(*args, attn_dots="bf8")
+        logits, _ = TP.paged_decode_step_fused(*args, attn_dots="bf16")
+        assert bool(torch.isfinite(logits).all())
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="cuda"):
                 TP.PagedQuantKVPool.create(cfg, 4, 16)
