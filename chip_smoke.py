@@ -98,6 +98,14 @@ caught):
    step as a CUDA graph; (c) the paged step at dots bf16 against the staged
    step; (d) ``FastServingEngine(max_seq_len=2000)``, decoding on one
    2000-token all-batch block, 8 requests.
+10. The whole-step megakernel, Llama-2-7B, 32 layers (``phase_mega``, inside
+   phase 8 on its "l" params and cache, before (d)): the interleaved
+   gate/up set built once; (a) ``decode_step_persistent`` against the same
+   step through the plain versions, (b) against the fused "l" step (staged,
+   f32 dots), (c) 32 greedy steps of exactly one megastep and one int8 head
+   launch each, eager ms/step and one step as a CUDA graph beside phase 4's
+   and phase 8's steps, the kernel's own time and bound; (d) ragged
+   positions with the per-row commit against the plain versions.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -107,12 +115,13 @@ flash prefill and the all-batch kernel, 5 (b) for the inline kernel; phase
 6 (a) for the grouped kernel, 6 (b) for the flat W4A8 kernel, 7 (b) for
 the paged kernel, 8 (a) for the L-fused kernel, 8 (b) for the LR-fused
 kernel, 8 (c) for the whole-MLP and attention + o_proj kernels, 9 (a) for
-the persistent launch; ``bf16_matmul_stacked`` has no caller in either
-package, and its launches are phase 2's checks;
+the persistent launch, 10 (c) for the megastep; ``bf16_matmul_stacked`` has
+no caller in either package, and its launches are phase 2's checks;
 ``launches_per_step`` per decode step or prefill, ``steps`` of them);
 ``ms``, ``plain_ms`` and ``bound_ms`` are per launch at the main path's
 shapes (for the W4A8 kernels, the mean over one layer's decode
-projections; for the persistent launch, o and down).
+projections; for the persistent launch, o and down; for the megastep, one
+whole step).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -132,6 +141,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core peak
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+
+
+# (median eager ms/step, device ms of one step as a CUDA graph) of the
+# steps that phase 10 prints beside its own
+_STEP_MS = {}
 
 
 def _card_line() -> str:
@@ -1238,8 +1252,9 @@ class _PlainKernels:
 
     def __enter__(self):
         from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
-            attention as AT, kernels as K)
-        swaps = [(K, "quantized_matmul_w4a8_stacked",
+            attention as AT, kernels as K, megastep as MS)
+        swaps = [(MS, "megastep", MS.megastep_plain),
+                 (K, "quantized_matmul_w4a8_stacked",
                   K.quantized_matmul_w4a8_stacked_plain),
                  (K, "quantized_matmul_w4a8_stacked_persistent",
                   K.quantized_matmul_w4a8_stacked_persistent_plain),
@@ -1549,6 +1564,7 @@ def phase_full(torch, dev, record):
     print(f"device time of one step (CUDA graph replay): {dev_ms:.3f} ms; "
           f"the eager step is {med / dev_ms:.1f}x that, so the card is idle "
           f"{1 - dev_ms / med:.1%} of the eager step", flush=True)
+    _STEP_MS["phase 4, fused 'xla' step (i8 dots)"] = (med, dev_ms)
     return params
 
 
@@ -2474,6 +2490,7 @@ def phase_options(torch, dev, record):
         med = statistics.median(times)
         dev_ms = _time_ms(torch, lambda i: fused.decode_step_fused(
             params, tok, pos, crun, config, **kw), 1, reps=5)
+        _STEP_MS[f"phase 8 ({run}), fused {fk!r} step {kw}"] = (med, dev_ms)
         print(f"options ({run}): {steps} steps from position {P0 + 1}, exact "
               f"launches per step {dict(zip(names, per_step))}; median "
               f"{med:.3f} ms/step eager (min {min(times):.3f}, max "
@@ -2492,6 +2509,7 @@ def phase_options(torch, dev, record):
         record[rec_name].update(
             launches=counts["c staged"][name] + counts["c inline"][name],
             launches_per_step=L, steps=2 * n)
+    phase_mega(torch, dev, record, sets["l"], cache, tok0, pos0)
     del cache
     torch.cuda.empty_cache()
 
@@ -2554,6 +2572,207 @@ def phase_options(torch, dev, record):
           f"{wall:.2f} s: {ntok / wall:.1f} tokens/s", flush=True)
     del engine, params
     print(f"options phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_mega(torch, dev, record, params, cache, tok0, pos0):
+    """Phase 10, the whole-step megakernel: ``decode_step_persistent``,
+    Llama-2-7B, 32 layers, batch 8, on phase 8's "l" params and cache (eight
+    seeded 128-token prompts, context 256) from position 128, the reference's
+    ``bench.py --decode-path mega`` flow. The interleaved gate/up set is
+    built once. (a) The first step against the same step through the plain
+    versions (``megastep_plain``, the plain int8 head) from copies of one
+    cache: logits, x_out, the staged K/V codes and scales, the flipped codes
+    counted. (b) The same step against the fused "l" step (staged, f32
+    dots), which differs on purpose in the bf16 staging of m: logits, argmax
+    agreement, layer-0 K/V codes. (c) 32 greedy steps with exactly one
+    megastep and one int8 head launch each and no other kernel: median
+    eager ms/step and the device time of one step as a CUDA graph, beside
+    phase 4's and phase 8's steps; the kernel's own time, its plain
+    version's and its bound. (d) A step at ragged positions (one row at 0)
+    with the per-row commit against the plain versions."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, persistent)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K, megastep as MS)
+
+    t_phase = time.perf_counter()
+    config = LLAMA2_7B
+    L, B, T = config.num_layers, 8, cache.k.shape[3]
+    prep = persistent.prepare_gateup_interleaved(params.layers.gateup,
+                                                 config.intermediate_size)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in prep)
+    print(f"mega: interleaved gate/up set built once in "
+          f"{time.perf_counter() - t_phase:.2f} s ({nbytes / 1e9:.3f} GB)",
+          flush=True)
+
+    def step(tok, pos, c, **kw):
+        return persistent.decode_step_persistent(params, tok, pos, c, config,
+                                                 prep=prep, **kw)
+
+    args, kw = persistent.megastep_operands(params, tok0, pos0, cache, config,
+                                            prep)
+    ctas = MS.megastep_ctas(*args, **kw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"mega: cooperative grid of {ctas} CTAs of 256 threads, "
+          f"{ctas / sms:g} per SM on {sms} SMs (occupancy query)", flush=True)
+
+    # (a) the kernel against its plain version on the card
+    ck, cp = _copy_cache(cache, dev), _copy_cache(cache, dev)
+    lk, _ = step(tok0, pos0, ck)
+    with _PlainKernels():
+        lp, _ = step(tok0, pos0, cp)
+    got, ref = MS.megastep(*args, **kw), MS.megastep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    e_l, e_x = _rel(torch, lk, lp), _rel(torch, got[0], ref[0])
+    err = float((got[0] - ref[0]).abs().max())
+    d = [(g.int() - r.int()).abs() for g, r in ((got[1], ref[1]),
+                                                 (got[3], ref[3]))]
+    flips = sum(int((t != 0).sum()) for t in d)
+    d0 = max(int(t[0].max()) for t in d)
+    s_rel = max(float(((g - r).abs() / r).max()) for g, r in (
+        (got[2], ref[2]), (got[4], ref[4])))
+    print(f"mega (a) first step, kernel against plain versions from one "
+          f"cache: logits {e_l:.3e}, x_out {e_x:.3e} rel-Frobenius (bound "
+          f"{SYNC_REL:g}: the kernel's RMSNorm, factor and attention sums run "
+          f"in another order than torch's, and each int8 code that rounds "
+          f"the other way carries through the later layers), x_out max diff "
+          f"{err:.3e}; {flips} of {2 * got[1].numel()} staged K/V codes "
+          f"differ (layer 0 by at most {d0}), scales within {s_rel:.2e}",
+          flush=True)
+    if not (e_l <= SYNC_REL and e_x <= SYNC_REL and d0 <= 1
+            and _same_argmax(torch, lk, lp)):
+        raise AssertionError("mega (a): the kernel disagrees with its plain "
+                             "version")
+
+    # (b) against the fused "l" step (staged, f32 dots) from the same cache
+    cf = _copy_cache(cache, dev)
+    lf, cf = fused.decode_step_fused(params, tok0, pos0, cf, config,
+                                     staged_kv=True, attn_dots="f32")
+    e_f = _rel(torch, lk, lf)
+    agree = float((lk.argmax(-1) == lf.argmax(-1)).float().mean())
+    cols = pos0.long()
+    rows = torch.arange(B, device=dev)
+    n0 = sum(int((getattr(ck, n)[0][rows, :, cols]
+                  != getattr(cf, n)[0][rows, :, cols]).sum())
+             for n in ("k", "v"))
+    m0 = max(int((getattr(ck, n)[0][rows, :, cols].int()
+                  - getattr(cf, n)[0][rows, :, cols].int()).abs().max())
+             for n in ("k", "v"))
+    print(f"mega (b) against the fused 'l' step (staged, f32 dots): logits "
+          f"{e_f:.3e} rel-Frobenius (bound 5e-2: the megastep stages m "
+          f"through bf16 before its int8 codes), argmax agreement "
+          f"{agree:.0%}; layer-0 K/V codes: {n0} of "
+          f"{2 * B * config.num_kv_heads * config.head_dim} differ, by at "
+          f"most {m0}", flush=True)
+    if not (e_f <= 5e-2 and agree >= 0.75 and m0 <= 1):
+        raise AssertionError("mega (b): the megastep step disagrees with "
+                             "the fused 'l' step")
+    del ck, cp, cf
+
+    # (c) greedy steps: launches, eager and device time
+    counters = [getattr(m, n) for m, n in (
+        (K, "quantized_matmul"), (K, "quantized_matmul_w4a8"),
+        (K, "quantized_matmul_w4a8_stacked"),
+        (K, "quantized_matmul_w4a8_stacked_persistent"), (K, "int8_matmul"),
+        (K, "bf16_matmul_stacked"), (K, "quantized_matmul_w4a8_l_stacked"),
+        (K, "quantized_matmul_w4a8_lr_stacked"),
+        (K, "quantized_matmul_w4a8_mlp_stacked"),
+        (AT, "flash_decode_q8_staged"), (AT, "flash_decode_q8"),
+        (AT, "flash_decode_q8_ab"), (AT, "flash_decode_q8_paged"),
+        (AT, "flash_decode_attn_o"), (AT, "flash_prefill"),
+        (MS, "megastep"))]
+    per_step = [1 if c in (MS.megastep, K.int8_matmul) else 0
+                for c in counters]
+    crun = _copy_cache(cache, dev)
+    steps = 32
+    for c in counters:
+        c.launches = 0
+    times, tok, pos = [], tok0, pos0
+    for i in range(steps):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, crun = step(tok, pos, crun)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+        delta = [c.launches - b for c, b in zip(counters, before)]
+        if delta != per_step:
+            raise AssertionError(f"mega (c) step {i}: launches {delta}, "
+                                 f"expected {per_step}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"mega (c) step {i}: non-finite logits")
+        tok, pos = logits.argmax(-1), pos + 1
+    launches = MS.megastep.launches
+    med = statistics.median(times[1:])
+    dev_ms = _time_ms(torch, lambda i: step(tok, pos, crun), 1, reps=9)
+    a = MS._named(args, **kw)
+    ms = _time_ms(torch, lambda i: MS._launch(a), 10)
+    plain_ms = _time_ms(torch, lambda i: MS.megastep_plain(*args, **kw), 1,
+                        reps=3)
+    print(f"mega (c) {steps} greedy steps from position {int(pos0[0])}, "
+          f"exactly 1 megastep and 1 int8 head launch each and no other "
+          f"kernel (megastep launches {launches}); median {med:.3f} ms/step "
+          f"eager (min {min(times[1:]):.3f}, max {max(times[1:]):.3f}), "
+          f"{1e3 * B / med:.1f} tok/s; device time of one step as a CUDA "
+          f"graph {dev_ms:.3f} ms (card idle {1 - dev_ms / med:.1%} of the "
+          f"eager step); the megastep launch alone {ms:.3f} ms, its plain "
+          f"version {plain_ms:.1f} ms", flush=True)
+    for name, (m_eager, m_dev) in _STEP_MS.items():
+        print(f"  beside {name}: median {m_eager:.3f} ms/step eager, "
+              f"{m_dev:.3f} ms device", flush=True)
+
+    # bound: each byte of the step read once (every layer's weights, the
+    # live K/V of the cache: pos tokens of each row) and each output written
+    # once; the operations: int8 W4A8 dots, bf16 factor dots, f32 attention
+    lp_ = params.layers
+    weights = [lp_.attn_norm, lp_.mlp_norm, *args[4:29]]
+    w_bytes = sum(t.numel() * t.element_size() for t in weights)
+    KVH, D, h = config.num_kv_heads, config.head_dim, config.hidden_size
+    live = int(pos0.sum())
+    kv_bytes = L * KVH * live * (2 * D + 8)
+    io_bytes = (B * h * 4 * 2 + B * 4 + 2 * B * (D // 2) * 4
+                + 2 * L * B * KVH * (D + 4))
+    rank = kw["rank"]
+    im, qdim = config.intermediate_size, KVH * D
+    mac = qdim * 3 * h + h * qdim + 2 * im * h + h * im
+    lr_mac = rank * (3 * h + 3 * qdim + qdim + h + 2 * h + 2 * im + im + h)
+    ops = _ops_int8_units(i8=2 * B * L * mac, bf16=2 * B * L * lr_mac,
+                          f32=4 * L * KVH * (live + B) * D)
+    bound, by = _bound_ms(w_bytes + kv_bytes + io_bytes, ops)
+    print(f"mega: bound {bound:.3f} ms per step ({by}: "
+          f"{(w_bytes + kv_bytes + io_bytes) / 1e9:.3f} GB, of which weights "
+          f"{w_bytes / 1e9:.3f} GB and live K/V {kv_bytes / 1e9:.3f} GB); the "
+          f"launch runs at {bound / ms:.1%} of it", flush=True)
+    record["megastep"].update(launches=launches, launches_per_step=1,
+                              steps=steps, max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    del crun
+
+    # (d) ragged positions, per-row commit, against the plain versions
+    pos_r = torch.tensor([128, 64, 1, 0, 127, 100, 17, T - 1],
+                         dtype=torch.int32, device=dev)
+    ck, cp = _copy_cache(cache, dev), _copy_cache(cache, dev)
+    lk, ck = step(tok0, pos_r, ck, staged_kv="on")
+    with _PlainKernels():
+        lp, cp = step(tok0, pos_r, cp, staged_kv="on")
+    e_r = _rel(torch, lk, lp)
+    rows, cols = torch.arange(B, device=dev), pos_r.long()
+    m0 = max(int((getattr(ck, n)[0][rows, :, cols].int()
+                  - getattr(cp, n)[0][rows, :, cols].int()).abs().max())
+             for n in ("k", "v"))
+    print(f"mega (d) ragged positions {pos_r.tolist()}, per-row commit: "
+          f"logits against the plain versions {e_r:.3e} rel-Frobenius (bound "
+          f"{SYNC_REL:g}); layer-0 K/V codes committed at each row's "
+          f"position differ by at most {m0}", flush=True)
+    if not (e_r <= SYNC_REL and m0 <= 1 and _same_argmax(torch, lk, lp)):
+        raise AssertionError("mega (d): the ragged step disagrees with the "
+                             "plain versions")
+    del ck, cp, prep
+    torch.cuda.empty_cache()
+    print(f"mega phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def _views(params, config):
@@ -2844,6 +3063,8 @@ def main() -> int:
             source=src + "w4a8_stacked.cu", replaces=ref + "kernels.py:689"),
         "bf16_matmul_stacked": dict(source=src + "grouped_matmul.cu",
                                     replaces=ref + "kernels.py:1382"),
+        "megastep": dict(source=src + "megastep.cu",
+                         replaces=ref + "megastep.py:590"),
     }
     measured = ("launches", "launches_per_step", "steps", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by")
@@ -2873,8 +3094,8 @@ def main() -> int:
     # (packed offset-binary codes rescaled per row of int8 activations, with
     # or without the int8 low-rank factors and the MLP's requantization;
     # attention over an int8 cache with per-token scales, or over an int8
-    # pool through a page table, and int8 probabilities in dots="i8"), so
-    # theirs is null.
+    # pool through a page table, and int8 probabilities in dots="i8"; a whole
+    # decode step of those in one launch), so theirs is null.
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"],
                     **{k: r[k] for k in measured},

@@ -14,12 +14,15 @@ factors and KV with f32 per-row / per-(token, head) scales).
 - ``ops.attention`` — flash-decode attention over the head-major int8 KV
                       cache (staged, inline, all-batch, fused with o_proj)
                       or a paged pool, and causal flash prefill.
+- ``ops.megastep``  — the whole-step decode megakernel: every layer of an
+                      MHA decode step in one cooperative CUDA launch.
 - ``ops._build``    — builds ``ops/csrc/*.cu`` with ``nvcc`` at first use
                       and binds them with ``ctypes``.
 - ``models``        — config presets, the Llama model (caches, plain
                       attention, head, the unrolled model functions),
                       compressed linears, the stacked scan and W4A8 paths,
-                      and the fused prefill and decode steps.
+                      the fused prefill and decode steps, and the
+                      megakernel's decode step (``persistent``).
 - ``serve``         — sampling, ``ServingEngine`` (its own unfused path),
                       ``FastServingEngine`` (fused or stacked W4A8), paged
                       serving (``runtime``: the native page allocator and

@@ -1,2 +1,3 @@
 """Kernels of the prefill and decode steps: CUDA sources in ``csrc/``,
-wrappers and plain PyTorch versions in ``kernels`` and ``attention``."""
+wrappers and plain PyTorch versions in ``kernels``, ``attention`` and
+``megastep``."""

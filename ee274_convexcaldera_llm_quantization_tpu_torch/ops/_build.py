@@ -31,6 +31,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+_MEGASTEP = {
+    # sizeof(MegaArgs), checked against ops/megastep.py's mirror
+    "megastep_args_size": [],
+    # MegaArgs*, stream
+    "megastep_launch": [_P, _P],
+    # MegaArgs*, int* (the cooperative grid's CTAs)
+    "megastep_grid": [_P, _P],
+}
+
 # C entry points of each source: name -> argtypes (all return int).
 ENTRIES = {
     "w4a8_stacked": {
@@ -91,6 +100,9 @@ ENTRIES = {
         # block_t, scale, staged, h, bits, layer, rank, stream
         "attn_o_launch": [_P] * 19 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     },
+    # the whole-step megakernel (megastep.cuh), one library per bit width
+    "megastep": _MEGASTEP,
+    "megastep_2bit": _MEGASTEP,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

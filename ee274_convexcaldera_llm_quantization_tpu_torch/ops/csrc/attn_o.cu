@@ -136,11 +136,7 @@ cudaError_t launch(AttnOArgs a, cudaStream_t st) {
   constexpr int F = 8 / BITS;
   constexpr int RPB = Tile<MT>::kRowsPerBlock;
   auto kernel = attn_o_kernel<BITS, CODE, MT, STAGED>;
-  const int qdim = a.KVH * a.D;
-  const int pw = qdim / F / 4;
-  int jc = kCoopSmemBytes / (MT * F * 4);
-  jc -= jc % 4;
-  a.jc = jc > pw ? pw : jc;
+  a.jc = lowrank::pick_jc<F>(kCoopSmemBytes, MT, a.KVH * a.D);
   const size_t smem = kCoopSmemBytes + (size_t)MT * a.rank * 4;
   static const cudaError_t attr = lowrank::allow_smem(kernel, 200 * 1024);
   if (attr != cudaSuccess) return attr;

@@ -39,6 +39,14 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// A load of q or of the staged current token: CG = true reads data that
+// another thread of the same launch wrote (csrc/megastep.cu's scratch) from
+// L2, never through the non-coherent read-only path.
+template <bool CG>
+__device__ __forceinline__ float ld_in(const float* p) {
+  return CG ? __ldcg(p) : *p;
+}
+
 // Attends stream bh = b * KVH + h and returns, in thread tid < D, the output
 // of query head 0 at column tid (the value it wrote to out); every thread of
 // the CTA must call it. Calls in a loop need a __syncthreads() between them.
@@ -46,7 +54,8 @@ __device__ __forceinline__ float bf16_round(float x) {
 // ks, vs (B, KVH, T) f32; kn, vn (B, KVH, D) f32 (read only when STAGED);
 // pos (B) int32; out (B, KVH, G, D) f32. With a page table pt (B,
 // max_pages) int32, k, v are (NP, KVH, bt, D) and ks, vs (NP, KVH, bt)
-// instead, and T = max_pages * bt. DOTS is one of the kDots* modes.
+// instead, and T = max_pages * bt. DOTS is one of the kDots* modes. CG:
+// q, kn and vn were written earlier in the same launch (ld_in).
 //
 // A block of any length bt: the online-softmax update of a block needs its
 // max before any probability, and in kDotsI8 the absmax of all its p * vs
@@ -62,7 +71,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 // the whole block. Shared memory stays static and small (the block length
 // is unbounded: 7 heads x 32768 tokens would need 1.1 MB), at the price of
 // reading K two or three times for blocks over kSub tokens only.
-template <int NT, int MAXG, int DOTS, bool STAGED>
+template <int NT, int MAXG, int DOTS, bool STAGED, bool CG = false>
 __device__ __forceinline__ float decode_attend(
                     int bh, const float* __restrict__ q,
                     const int8_t* __restrict__ k,
@@ -101,7 +110,8 @@ __device__ __forceinline__ float decode_attend(
 
   const float* qb = q + (size_t)bh * G * D;
   for (int i = tid; i < G * D; i += kThreads)
-    qf[i] = DOTS == kDotsBF16 ? bf16_round(qb[i]) : qb[i];
+    qf[i] = DOTS == kDotsBF16 ? bf16_round(ld_in<CG>(qb + i))
+                                : ld_in<CG>(qb + i);
   __syncthreads();
   if (I8) {
     for (int g = warp; g < G; g += kWarps) {
@@ -360,7 +370,8 @@ __device__ __forceinline__ float decode_attend(
   for (int g = warp; g < G; g += kWarps) {
     float part = 0.f;
     for (int d = lane; d < D; d += 32)
-      part += qb[g * D + d] * kn[(size_t)bh * D + d];
+      part += ld_in<CG>(qb + g * D + d) *
+              ld_in<CG>(kn + (size_t)bh * D + d);
     const float logit = warp_sum(part) * scale;
     const float m_prev = m_s[g];
     const float s_prev = s_s[g];
@@ -375,7 +386,7 @@ __device__ __forceinline__ float decode_attend(
   }
   __syncthreads();
   if (tid < D) {
-    const float vcur = vn[(size_t)bh * D + tid];
+    const float vcur = ld_in<CG>(vn + (size_t)bh * D + tid);
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) {

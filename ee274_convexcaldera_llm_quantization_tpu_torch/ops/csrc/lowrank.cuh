@@ -44,6 +44,17 @@ struct Splits {
   int b1, b2, b3;
 };
 
+// Activation words per staged chunk of a packed row of K codes (F per byte)
+// for a staging region of `bytes` that holds mrows rows: a multiple of 4 and
+// at most the row's words, as rowdot::launch picks them.
+template <int F>
+inline int pick_jc(int bytes, int mrows, int K) {
+  const int pw = K / F / 4;
+  int jc = bytes / (mrows * F * 4);
+  jc -= jc % 4;
+  return jc > pw ? pw : jc;
+}
+
 __device__ __forceinline__ int proj_of(int n, Splits s) {
   return (n >= s.b1) + (n >= s.b2) + (n >= s.b3);
 }

@@ -44,21 +44,12 @@ namespace {
 
 using lowrank::kCoopSmemBytes;
 using lowrank::LFactor;
+using lowrank::pick_jc;
 using lowrank::Splits;
 using rowdot::kSmemBytes;
 using rowdot::kThreads;
 using rowdot::kWarps;
 using rowdot::Tile;
-
-// activation words per chunk of a packed row, as rowdot::launch picks them,
-// for a staging region of `bytes`
-template <int F>
-int pick_jc(int bytes, int mrows, int K) {
-  const int pw = K / F / 4;
-  int jc = bytes / (mrows * F * 4);
-  jc -= jc % 4;
-  return jc > pw ? pw : jc;
-}
 
 // ---------------------------------------------------------------------------
 // A. The L-fused kernel: one CTA per (row tile, m tile).

@@ -15,11 +15,13 @@ import pytest
 import torch
 
 from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
-from ee274_convexcaldera_llm_quantization_tpu_torch.models import fused, llama
+from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+    fused, llama, persistent)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
-    TINY_MHA)
+    LLAMA2_7B, TINY, TINY_MHA)
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import attention as AT
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
+from ee274_convexcaldera_llm_quantization_tpu_torch.ops import megastep as MS
 
 pytestmark = pytest.mark.cuda
 
@@ -791,3 +793,226 @@ def test_factor_path_steps_on_card(dev, flags, monkeypatch):
     for (_, got), (_, ref) in zip(kern, run()):
         assert _rel(got, ref) <= 5e-3, _rel(got, ref)
         assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The whole-step megakernel (csrc/megastep.cu)
+# ---------------------------------------------------------------------------
+
+_MEGA = {}
+
+
+def _mega_params(dev, name, bits):
+    """Factor path "l" params (rank 128) of TINY_MHA or a 2-layer
+    Llama-2-7B width, with their interleaved gate/up set; built once."""
+    if (name, bits) not in _MEGA:
+        config = {"tiny-mha": TINY_MHA,
+                  "7b-2l": dataclasses.replace(LLAMA2_7B, num_layers=2)}[name]
+        params = fused.quantize_factors_int8_fused(fused.fuse_stacked(
+            bench_params.build_compressed_llama_params(
+                config, num_bits=bits, rank=128, seed=3, device=dev)),
+            fuse_factor_kernel="l")
+        _MEGA[name, bits] = (config, params,
+                             persistent.prepare_gateup_interleaved(
+                                 params.layers.gateup,
+                                 config.intermediate_size))
+    return _MEGA[name, bits]
+
+
+def _mega_cache(dev, rng, config, B, T):
+    shape = (config.num_layers, B, config.num_kv_heads, T, config.head_dim)
+    codes = [torch.from_numpy(rng.integers(-127, 128, size=shape,
+                                           dtype=np.int8)) for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(1e-3, 2e-2, shape[:4]).astype(
+        np.float32)) for _ in range(2)]
+    return llama.HeadMajorQuantKVCache(codes[0].to(dev), codes[1].to(dev),
+                                       scales[0].to(dev), scales[1].to(dev))
+
+
+# Kernel against its plain version on the card from the same operands. The
+# integer sums are exact and every stage agrees with the plain one to a few
+# f32 ulps when it is given the same inputs (test_megastep_stages_match_
+# plain), but RMSNorm, the thin R dots and the attention sum in another
+# order, so now and then a value on a rounding edge takes the other int8
+# code and the flip carries through the rest of the step: one flipped code
+# of the RMSNorm output moved its row's K codes (about 5% of them, by one)
+# and, at 2 bits on random weights, that row's output by 4%. Readings over
+# these cases: x_out rel-Frobenius up to 6.0e-3 (Llama-2-7B width, 2-bit,
+# batch 8, ragged), K/V codes of layer 0 (whose inputs are the same) apart
+# by at most one.
+MEGA_X_REL = 2e-2
+MEGA_STAGE_BF16 = 1e-3
+
+
+def _mega_case(dev, name, bits, B, T, ragged, layers=None):
+    """Operands of one megastep call: a seeded cache and tokens, uniform
+    positions (128) or ragged ones with a row at 0 and one at T - 1."""
+    config, params, prep = _mega_params(dev, name, bits)
+    rng = np.random.default_rng(1100 + 7 * B + T + bits)
+    cache = _mega_cache(dev, rng, config, B, T)
+    pos = np.full(B, 128, np.int32)
+    if ragged:
+        pos = rng.integers(0, T, size=B).astype(np.int32)
+        pos[0] = 0
+        pos[-1] = T - 1 if B > 1 else 0
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, size=B))
+    args, kw = persistent.megastep_operands(
+        params, tokens.to(dev), torch.from_numpy(pos).to(dev), cache, config,
+        prep)
+    if layers is not None:       # a slice of the layer-stacked operands
+        args = tuple(t if n in ("x0", "pos", "cos", "sin") else t[layers]
+                     for n, t in zip(MS._OPERANDS, args))
+    return args, kw
+
+
+@pytest.mark.parametrize("name,bits,B,T,ragged", [
+    *[("tiny-mha", bits, B, T, ragged) for bits in (2, 4) for B in (1, 8, 32)
+      for T, ragged in ((256, False), (300, True))],
+    *[("7b-2l", 4, B, T, ragged) for B in (1, 8, 32)
+      for T, ragged in ((256, False), (300, True))],
+    ("7b-2l", 2, 8, 256, True)])
+def test_megastep_kernel_matches_plain(dev, name, bits, B, T, ragged):
+    # the whole step, both layers: T = 300 is one 300-token block, walked in
+    # 256-token sub-tiles; two launches give the same bits
+    args, kw = _mega_case(dev, name, bits, B, T, ragged)
+    before = MS.megastep.launches
+    got = MS.megastep(*args, **kw)
+    again = MS.megastep(*args, **kw)
+    assert MS.megastep.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref = MS.megastep_plain(*args, **kw)
+    assert bool(torch.isfinite(got[0]).all())
+    assert _rel(got[0], ref[0]) <= MEGA_X_REL, _rel(got[0], ref[0])
+    for g, r in ((got[1], ref[1]), (got[3], ref[3])):
+        assert int((g[0].int() - r[0].int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("name,bits,B,T,ragged", [
+    ("tiny-mha", 4, 8, 256, False), ("tiny-mha", 2, 32, 300, True),
+    ("7b-2l", 2, 8, 256, True), ("7b-2l", 4, 32, 300, True)])
+def test_megastep_stages_match_plain(dev, name, bits, B, T, ragged):
+    # one layer; each stage's plain version is given the kernel's own
+    # upstream values (its scratch), so no rounding flip upstream reaches
+    # it: RoPE, the K/V codes and the m codes are exact; the attention and
+    # the thin factor dots within a few f32 ulps. The residual after o_proj
+    # and down (y, x) also carries the bf16 casts of xr_o and xrd before
+    # their L dots, which can round to the other neighbour: one bf16
+    # spacing is up to 2^-7 of the value (3.0e-4 read on a row of x), so
+    # those take the factor paths' 1e-3. q/k/v from the step's own input
+    # hold the RMSNorm flips.
+    args, kw = _mega_case(dev, name, bits, B, T, ragged, layers=slice(0, 1))
+    a = MS._named(args, **kw)
+    (x, k8, ks8, v8, vs8), scr = MS._launch(a)
+    rank = kw["rank"]
+    r = MS._layer_plain(a, 0, a.x0.float(), feed=dict(
+        qkv=scr["qkv"], ao=scr["ao"], y_mlp=scr["y"],
+        sy_mlp=scr["sy"][:, None], xr_gu=scr["xr"][:B * 2 * rank].view(
+            B, 2 * rank), m=scr["m"]))
+
+    def rows(got, ref):
+        return max(_rel(g, q) for g, q in zip(got, ref))
+    assert rows(scr["qkv"], r["qkv"]) <= MEGA_X_REL
+    assert torch.equal(scr["qrot"], r["qrot"])
+    # the K/V scales absmax / 127: llama.quantize_kv's division by a Python
+    # scalar runs on the card as a multiplication by its reciprocal, one f32
+    # ulp from the kernel's division; a head whose scale is that ulp apart
+    # may round a code on an edge the other way, the others are exact
+    for codes, ref_codes, sc, ref_sc in ((k8[0], r["k8"], ks8[0], r["ks"]),
+                                         (v8[0], r["v8"], vs8[0], r["vs"])):
+        torch.testing.assert_close(sc, ref_sc, rtol=2.4e-7, atol=0)
+        d = (codes.int() - ref_codes.int()).abs()
+        assert int(d.max()) <= 1
+        assert int(d[sc == ref_sc].sum()) == 0
+    assert rows(scr["ao"], r["ao"]) <= 1e-5
+    assert rows(scr["y"], r["y_mlp"]) <= MEGA_STAGE_BF16
+    assert rows(scr["xr"][:B * 2 * rank].view(B, 2 * rank), r["xr_gu"]) <= \
+        1e-5
+    assert rows(scr["m"], r["m"]) <= 1e-5
+    assert torch.equal(scr["a8"][:B * a.im].view(B, a.im), r["m8"])
+    assert rows(scr["xrd"], r["xrd"]) <= 1e-5
+    assert rows(x, r["x"]) <= MEGA_STAGE_BF16
+
+
+def test_megastep_guards(dev):
+    # the reference's assert as a ValueError: batch 33, and a GQA layout
+    # (the fused q/k/v rows are not 3 x KVH x D); decode_step_persistent
+    # refuses a GQA model
+    config, params, prep = _mega_params(dev, "tiny-mha", 4)
+    rng = np.random.default_rng(1200)
+    for B, kvhd in ((33, None), (2, (2, config.head_dim))):
+        cache = _mega_cache(dev, rng, config, B, 128)
+        args, kw = persistent.megastep_operands(
+            params, torch.zeros(B, dtype=torch.int64, device=dev),
+            torch.full((B,), 3, dtype=torch.int32, device=dev), cache, config,
+            prep)
+        if kvhd is not None:
+            kw["kvhd"] = kvhd
+        with pytest.raises(ValueError, match="megastep constraints"):
+            MS.megastep(*args, **kw)
+    gqa = fused.quantize_factors_int8_fused(fused.fuse_stacked(
+        bench_params.build_compressed_llama_params(TINY, rank=128, seed=0,
+                                                   device=dev)),
+        fuse_factor_kernel="l")
+    assert not persistent.persistent_supported(gqa, TINY)
+    with pytest.raises(ValueError, match="not supported"):
+        persistent.decode_step_persistent(
+            gqa, torch.zeros(2, dtype=torch.int64, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev),
+            llama.HeadMajorQuantKVCache.create(TINY, 2, 16, device=dev), TINY)
+
+
+_ALL_KERNELS = (
+    (K, "quantized_matmul"), (K, "quantized_matmul_w4a8"),
+    (K, "quantized_matmul_w4a8_stacked"),
+    (K, "quantized_matmul_w4a8_stacked_persistent"), (K, "int8_matmul"),
+    (K, "bf16_matmul_stacked"), (K, "quantized_matmul_w4a8_l_stacked"),
+    (K, "quantized_matmul_w4a8_lr_stacked"),
+    (K, "quantized_matmul_w4a8_mlp_stacked"),
+    (AT, "flash_decode_q8_staged"), (AT, "flash_decode_q8"),
+    (AT, "flash_decode_q8_ab"), (AT, "flash_decode_q8_paged"),
+    (AT, "flash_decode_attn_o"), (AT, "flash_prefill"), (MS, "megastep"))
+
+
+@pytest.mark.parametrize("staged_kv", ["uniform", "on"])
+def test_megastep_persistent_step_on_card(dev, staged_kv, monkeypatch):
+    # three steps of decode_step_persistent at batch 8 (uniform positions,
+    # or ragged ones with a row at 0): one megastep and one int8 head launch
+    # per step and no other kernel; then the same steps, fed the same tokens,
+    # through the plain versions on the card
+    config, params, prep = _mega_params(dev, "tiny-mha", 4)
+    B, T = 8, 256
+    start = (np.full(B, 40) if staged_kv == "uniform"
+             else np.asarray([0, 3, 17, 40, 99, 128, 200, 250]))
+
+    counters = [getattr(m, n) for m, n in _ALL_KERNELS]
+
+    def run(feed):
+        cache = _mega_cache(dev, np.random.default_rng(1300), config, B, T)
+        out = []
+        for step, tokens in enumerate(feed):
+            pos = torch.from_numpy((start + step).astype(np.int32)).to(dev)
+            before = [c.launches for c in counters]
+            logits, cache = persistent.decode_step_persistent(
+                params, tokens, pos, cache, config, staged_kv=staged_kv,
+                prep=prep)
+            out.append(([c.launches - b for c, b in zip(counters, before)],
+                        logits.cpu()))
+            if len(feed) < 3:      # greedy: the next step's tokens
+                feed.append(logits.argmax(-1))
+        return out, cache
+
+    feed = [torch.arange(1, B + 1, device=dev)]
+    kern, ckern = run(feed)
+    expect = [1 if n in ("int8_matmul", "megastep") else 0
+              for _, n in _ALL_KERNELS]
+    assert all(launches == expect for launches, _ in kern)
+    monkeypatch.setattr(MS, "megastep", MS.megastep_plain)
+    monkeypatch.setattr(K, "int8_matmul", K.int8_matmul_plain)
+    plain, cplain = run(feed)
+    for (_, got), (_, ref) in zip(kern, plain):
+        assert _rel(got, ref) <= MEGA_X_REL, _rel(got, ref)
+    for name in ("k", "v"):
+        # the first layer's committed codes at most one apart (a flip)
+        d = (getattr(ckern, name)[0].int() - getattr(cplain, name)[0].int())
+        assert int(d.abs().max()) <= 1
