@@ -35,8 +35,10 @@ caught):
    of their inner requantization counted against the plain version's); the
    decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
    persistent launch on o and down at M 8 and 512, bit-equal to kernel 1
-   and timed beside it; ``bf16_matmul_stacked`` at rank-128 factor shapes
-   and 4096 x 4096 beside one bf16 torch.matmul; decode blocks over 256
+   and timed beside it; ``bf16_matmul_stacked`` (TMA + wgmma, split-K at
+   M <= 16) at rank-128 factor shapes and 4096 x 4096 beside one bf16
+   torch.matmul, with its plan, the M 16/17 edge and a repeated split-K
+   launch equal bit for bit; decode blocks over 256
    tokens (the all-batch kernel on one 2000-token block, 512-token pages, a
    7-head GQA block of 7000 tokens) in i8, f32 and bf16.
 3. One Llama-2-7B-width, 2-layer model, the same weights on the card and
@@ -379,9 +381,12 @@ def _phase_kernels_proj(torch, dev, gen, record):
     record takes M 8, the mean of o and down (a layer's two launches of it).
     Then ``bf16_matmul_stacked`` at the rank-128 factor shapes (R: 128 x
     4096, L: 4096 x 128) and 4096 x 4096, M 8 and 512, beside one bf16
-    ``torch.matmul`` on the same operands; it has no caller in either
-    package, so its launches are this phase's checks, and the record takes
-    the mean of the two factor shapes at M 8."""
+    ``torch.matmul`` on the same operands, against the last layer of the
+    stack, each with the plan it ran (path, splits, grid); R and 4096 x
+    4096 also at M 16 and 17 (the two paths' edge), untimed; every split-K
+    case launched twice and held equal bit for bit. It has no caller in
+    either package, so its launches are this phase's checks, and the
+    record takes the mean of the two factor shapes at M 8."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         kernels as K)
 
@@ -447,25 +452,41 @@ def _phase_kernels_proj(torch, dev, gen, record):
 
     rec = record["bf16_matmul_stacked"]
     K.bf16_matmul_stacked.launches = 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main = []
-    for name, N, Kd in (("R", 128, 4096), ("L", 4096, 128),
-                        ("4096^2", 4096, 4096)):
-        for M in (8, 512):
-            layer_bytes = N * Kd * 2
-            Lk = max(2, math.ceil(200e6 / layer_bytes))
-            W = (torch.randn((Lk, N, Kd), generator=gen, device=dev)
-                 * 0.05).to(torch.bfloat16)
-            x = torch.randn((M, Kd), generator=gen, device=dev)
-            y = K.bf16_matmul_stacked(x, W, 1)
-            ref = K.bf16_matmul_stacked_plain(x, W, 1)
-            torch.cuda.synchronize()
-            err = float((y - ref).abs().max())
-            tol = 1e-5 * float(ref.abs().max())
-            # exact bf16 products on both sides, f32 sums in another order
-            if not torch.allclose(y, ref, rtol=1e-5, atol=tol):
-                raise AssertionError(f"bf16_matmul_stacked {name} M={M} "
-                                     "disagrees with plain")
-            rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+    cases = [(name, N, Kd, M, True) for name, N, Kd in (
+        ("R", 128, 4096), ("L", 4096, 128), ("4096^2", 4096, 4096))
+        for M in (8, 512)]
+    cases += [(name, N, Kd, M, False) for name, N, Kd in (
+        ("R", 128, 4096), ("4096^2", 4096, 4096)) for M in (16, 17)]
+    for name, N, Kd, M, timed in cases:
+        layer_bytes = N * Kd * 2
+        Lk = max(2, math.ceil(200e6 / layer_bytes)) if timed else 3
+        W = (torch.randn((Lk, N, Kd), generator=gen, device=dev)
+             * 0.05).to(torch.bfloat16)
+        x = torch.randn((M, Kd), generator=gen, device=dev)
+        y = K.bf16_matmul_stacked(x, W, Lk - 1)
+        ref = K.bf16_matmul_stacked_plain(x, W, Lk - 1)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max())
+        # exact bf16 products on both sides, f32 sums in another order
+        if not torch.allclose(y, ref, rtol=1e-5, atol=tol):
+            raise AssertionError(f"bf16_matmul_stacked {name} M={M} "
+                                 "disagrees with plain")
+        plan = K._bf16_stacked_plan(M, N, Kd, sms)
+        line = (f"bf16_matmul_stacked {name} M={M} N={N} K={Kd}: plan "
+                f"{plan['path']}, {plan['splits']} split(s) of "
+                f"{plan['split_steps']} steps, grid {plan['grid']}; max diff "
+                f"{err:.3e} (bound rtol 1e-5, atol {tol:.3e})")
+        if plan["splits"] > 1:
+            # the partials are summed in split order: the same bits again
+            if not torch.equal(y, K.bf16_matmul_stacked(x, W, Lk - 1)):
+                raise AssertionError(f"bf16_matmul_stacked {name} M={M}: "
+                                     "two launches differ")
+            line += "; a second launch equal bit for bit"
+        rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
+        if timed:
             xb = x.to(torch.bfloat16)
             iters = 50 if M == 8 else 20
             ms = _time_ms(torch, lambda i: K._launch_bf16_stacked(
@@ -477,18 +498,21 @@ def _phase_kernels_proj(torch, dev, gen, record):
             nbytes = M * Kd * 2 + layer_bytes + M * N * 4
             ops = 2 * M * N * Kd
             bound, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
-            print(f"bf16_matmul_stacked {name} M={M} N={N} K={Kd}: max diff "
-                  f"{err:.3e} (bound rtol 1e-5, atol {tol:.3e}) kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 torch.matmul "
-                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-                  f"{bound / ms:.1%} of bound)", flush=True)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 "
+                     f"torch.matmul {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), "
+                     f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of "
+                     f"bound)")
             if M == 8 and name != "4096^2":
                 main.append((ms, plain_ms, nbytes, ops, lib_ms))
-            del W
+        print(line, flush=True)
+        del W
     torch.cuda.empty_cache()
     mean = [statistics.fmean(t[j] for t in main) for j in range(5)]
     bound, by = _bound_ms(mean[2], mean[3], BF16_OPS_PER_S)
     n = K.bf16_matmul_stacked.launches
+    print(f"bf16_matmul_stacked M=8: mean of R and L {mean[0]:.4f} ms, bf16 "
+          f"torch.matmul {mean[4]:.4f} ms ({mean[0] / mean[4]:.2f}x)",
+          flush=True)
     rec.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by,
                library_ms=mean[4], launches=n, launches_per_step=1, steps=n)
 
@@ -3061,7 +3085,7 @@ def main() -> int:
                                     replaces=ref + "attention.py:1066"),
         "quantized_matmul_w4a8_stacked_persistent": dict(
             source=src + "w4a8_stacked.cu", replaces=ref + "kernels.py:689"),
-        "bf16_matmul_stacked": dict(source=src + "grouped_matmul.cu",
+        "bf16_matmul_stacked": dict(source=src + "bf16_gemm.cu",
                                     replaces=ref + "kernels.py:1382"),
         "megastep": dict(source=src + "megastep.cu",
                          replaces=ref + "megastep.py:590"),

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds): ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 -shared -Xcompiler -fPIC``. All sources build in parallel, one ``nvcc`` per
-source. The library file name carries a hash of the sources and flags, so a
+source; :func:`library` builds only the source it is asked for. The library
+file name carries a hash of the source, every header and the flags, so a
 stale build is never loaded. Pointers and the stream go to the C entries as
 ``c_void_p``; every entry returns ``cudaGetLastError()`` after its launch and
 :func:`check` raises on a non-zero code.
@@ -54,8 +55,11 @@ ENTRIES = {
     "grouped_matmul": {
         # x (bf16), packed, scales, out, M, N, K, bits, group, stream
         "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x (bf16), W (bf16, layer-stacked), out, M, N, K, layer, stream
-        "bf16_stacked_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "bf16_gemm": {
+        # x (bf16), W (bf16, layer-stacked), out, split-K workspace, M, N, K,
+        # layer, path, cols, split_steps, splits, stream
+        "bf16_stacked_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     },
     "int8_matmul": {
         # xq, sx, w8, scales, out, M, N, K, stream
@@ -126,13 +130,13 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, float]:
-    """Build every source whose library is missing, all ``nvcc`` processes
-    started together; load them all. Returns the seconds each build took
-    (0.0 for a library that was already built)."""
+def build(names) -> Dict[str, float]:
+    """Build each source of ``names`` whose library is missing, all ``nvcc``
+    processes started together, and load them. Returns the seconds each
+    build took (0.0 for a library that was already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ENTRIES:
+    for name in names:
         if name in _libs:
             continue
         out = _lib_path(name)
@@ -156,21 +160,27 @@ def build_all() -> Dict[str, float]:
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
-    for name, entries in ENTRIES.items():
+    for name in names:
         if name in _libs:
             continue
         lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in entries.items():
+        for fn, argtypes in ENTRIES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
-    return dict(build_seconds)
+    return {name: build_seconds[name] for name in names}
+
+
+def build_all() -> Dict[str, float]:
+    """:func:`build` of every source in ``ENTRIES``."""
+    return build(list(ENTRIES))
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built (alone) on first
+    use."""
     if name not in _libs:
-        build_all()
+        build([name])
     return _libs[name]
 
 

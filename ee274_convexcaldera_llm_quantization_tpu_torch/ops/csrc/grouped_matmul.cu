@@ -1,6 +1,4 @@
-// Grouped-scale packed matmul in bf16 with f32 accumulation, and the plain
-// bf16 matmul against one layer of a stacked bf16 weight (bf16_kernel, at
-// the end).
+// Grouped-scale packed matmul in bf16 with f32 accumulation.
 //
 // Replaces the TPU kernel ee274_convexcaldera_llm_quantization_tpu/ops/
 // kernels.py::quantized_matmul (_qmm_kernel):
@@ -248,98 +246,6 @@ cudaError_t launch(const __nv_bfloat16* x, const uint8_t* w, const float* s,
   return cudaGetLastError();
 }
 
-// y = x @ W.T with x (M, K) and W (N, K) both bf16 (one layer of a stack):
-// the grouped kernel's tiles, mma_step and store_tile without the
-// dequantization (the weights are bf16 already). Each step stages 64 k of
-// the tile's 64 weight rows (four 16-byte loads per thread) and of its BM
-// activation rows; the next step's loads go out before this step's
-// products. Loads past K read zeros, so K needs only K % 8 == 0.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-bf16_kernel(const __nv_bfloat16* __restrict__ x,
-            const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
-            int M, int N, int K) {
-  constexpr int D = 64;      // k values per step
-  constexpr int LD = D + 8;  // shared row stride in bf16
-  constexpr int WV = kBN * D / 8 / kThreads;  // weight loads per thread
-  constexpr int XN = BM * D / 8;              // activation loads per step
-  constexpr int XV = (XN + kThreads - 1) / kThreads;
-  using WP = Warps<BM>;
-
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * LD];
-  __shared__ __align__(16) __nv_bfloat16 ws[kBN * LD];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kBN;
-  const __nv_bfloat16* wt = w + (size_t)n0 * K;
-  const __nv_bfloat16* xt = x + (size_t)m0 * K;
-  // 16-byte load i of a step at k0: row i / 8, k0 + 8 * (i % 8) .. + 7
-  auto load = [&](const __nv_bfloat16* base, int rows, int k0, int i) {
-    const int r = i / 8, k = k0 + 8 * (i % 8);
-    return r < rows && k < K
-               ? __ldg(reinterpret_cast<const uint4*>(base + (size_t)r * K +
-                                                      k))
-               : make_uint4(0u, 0u, 0u, 0u);
-  };
-  uint4 wv[WV], xv[XV];
-  auto load_step = [&](int k0) {
-#pragma unroll
-    for (int v = 0; v < WV; ++v)
-      wv[v] = load(wt, N - n0, k0, tid + v * kThreads);
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int i = tid + v * kThreads;
-      xv[v] = i < XN ? load(xt, M - m0, k0, i) : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  float acc[WP::MI][WP::NI][4];
-#pragma unroll
-  for (int mi = 0; mi < WP::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < WP::NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  load_step(0);
-  for (int k0 = 0; k0 < K; k0 += D) {
-#pragma unroll
-    for (int v = 0; v < WV; ++v) {
-      const int i = tid + v * kThreads;
-      *reinterpret_cast<uint4*>(ws + (i / 8) * LD + 8 * (i % 8)) = wv[v];
-    }
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int i = tid + v * kThreads;
-      if (i < XN)
-        *reinterpret_cast<uint4*>(xs + (i / 8) * LD + 8 * (i % 8)) = xv[v];
-    }
-    __syncthreads();
-    if (k0 + D < K) load_step(k0 + D);
-    mma_step<BM, D, LD>(xs, ws, acc);
-    __syncthreads();
-  }
-
-  store_tile<BM>(acc, out, M, N, m0, n0);
-}
-
-cudaError_t launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                        float* out, int M, int N, int K,
-                        cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return cudaErrorInvalidValue;
-  const int nblocks = (N + kBN - 1) / kBN;
-  if (M <= 16)
-    bf16_kernel<16><<<dim3(nblocks, 1), kThreads, 0, stream>>>(x, w, out, M,
-                                                               N, K);
-  else
-    bf16_kernel<64><<<dim3(nblocks, (M + 63) / 64), kThreads, 0, stream>>>(
-        x, w, out, M, N, K);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int grouped_matmul_launch(const void* x, const void* packed,
@@ -361,20 +267,4 @@ extern "C" int grouped_matmul_launch(const void* x, const void* packed,
   else
     err = cudaErrorInvalidValue;
   return (int)err;
-}
-
-// x (M, K) bf16, W (layers, N, K) bf16, out (M, N) f32: y = x @ W[layer].T
-// (the layer a pointer offset). Replaces the TPU kernel
-// ee274_convexcaldera_llm_quantization_tpu/ops/kernels.py::
-// bf16_matmul_stacked (_bf16_stacked_kernel). Bound on an H100: the layer's
-// bf16 weight bytes at decode M, the bf16 operations (2 M N K at 989
-// TFLOP/s) at prefill M.
-extern "C" int bf16_stacked_launch(const void* x, const void* W, void* out,
-                                   int M, int N, int K, int layer,
-                                   void* stream) {
-  const auto* w = static_cast<const __nv_bfloat16*>(W) +
-                  (size_t)layer * (size_t)N * (size_t)K;
-  return (int)launch_bf16(static_cast<const __nv_bfloat16*>(x), w,
-                          static_cast<float*>(out), M, N, K,
-                          static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,251 @@
+// Hopper (sm_90a) building blocks of a TMA + wgmma matrix product, for the
+// port's tensor-core kernels: host-side tensor-map encoding, the mbarrier
+// ring, the TMA tile load, and the wgmma shared-memory descriptors, fences
+// and m64nNk16 bf16 x bf16 -> f32 instructions.
+//
+// Every tile these pieces describe is a stack of K-major rows of 64 bf16
+// (128 bytes), loaded by TMA with the 128-byte swizzle into shared memory at
+// a 1024-byte boundary: 8 rows make one 1024-byte swizzle atom, which is the
+// layout desc_sw128 describes (leading offset unused, 1024 bytes between
+// 8-row groups). Within a tile, k slice kk of 16 values starts 32 * kk bytes
+// in. Both wgmma operands are read that way (A and B "K-major", no
+// transpose), so D (64 x n) = A (64 x k) * B (n x k)^T: the layout of
+// y = x @ W.T with x (M, K) and W (N, K) both row-major.
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query, so that no -lcuda link is needed.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a row-major bf16 matrix (rows, cols) with a row stride of ld
+// elements, in boxes of box_rows rows x 64 columns (128-byte swizzle). TMA
+// fills the part of a box outside the matrix with zeros. The base must be
+// 16-byte aligned and ld % 8 == 0 (16-byte row strides). False on failure.
+inline bool map_bf16_rows(CUtensorMap* map, const void* base, uint64_t rows,
+                          uint64_t cols, uint64_t ld, uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// Device: shared memory, mbarriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The block's dynamic shared memory from its first 1024-byte boundary (ask
+// for 1024 bytes more than the tiles need).
+__device__ __forceinline__ uint8_t* smem_1k() {
+  extern __shared__ uint8_t dyn_smem[];
+  const uint32_t a = smem_u32(dyn_smem);
+  return dyn_smem + ((1024u - (a & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// After every mbar_init of the block, before any thread uses the barriers.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the barrier's phase of the given parity has completed. A fresh
+// barrier is in phase 0, so waiting on parity 1 returns at once: a ring's
+// producer waits on (round & 1) ^ 1 for its free slots, its consumers on
+// round & 1 for the full ones.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One thread: TMA-load the box at (column c0, row c1) of `map` into `dst`,
+// completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// The named barrier `id` (1..15) over `threads` threads of the block.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: wgmma
+// ---------------------------------------------------------------------------
+
+// The descriptor of a K-major, 128-byte-swizzled tile at p (see the top).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 8, f32, 4 registers a thread) += A (64 x 16) * B (8 x 16)^T,
+// both operands bf16 in shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t a,
+    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// D (64 x 16, f32, 8 registers a thread) += A (64 x 16) * B (16 x 16)^T,
+// both operands bf16 in shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t a,
+    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// D (64 x 128, f32, 64 registers a thread) += A (64 x 16) * B (128 x 16)^T,
+// both operands bf16 in shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+// The instruction of width n (8, 16 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t a,
+                                             uint64_t b) {
+  if constexpr (N == 8) {
+    wgmma_m64n8k16(d, a, b);
+  } else if constexpr (N == 16) {
+    wgmma_m64n16k16(d, a, b);
+  } else {
+    static_assert(N == 128, "wgmma width: 8, 16 or 128");
+    wgmma_m64n128k16(d, a, b);
+  }
+}
+
+}  // namespace hopper

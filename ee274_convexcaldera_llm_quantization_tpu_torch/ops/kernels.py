@@ -24,6 +24,7 @@ from the kernel only in the order of its f32 sums.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -955,6 +956,57 @@ def bf16_matmul_stacked_plain(x: torch.Tensor, W: torch.Tensor,
     return _bf16(x) @ W[layer].float().T
 
 
+# The CUDA kernel's tiles (csrc/bf16_gemm.cu): k steps of 64 values; split-K
+# tiles of 64 weight rows (a ring of 4 stages, several CTAs an SM) at M <= 16,
+# 128 x 128 output tiles (6 stages, one CTA an SM) above. A split walks at
+# least 8 steps, two 4-stage rings: a shorter walk does not pay for writing
+# and summing its partial tile (R 128 x 4096 at M 8 took 0.0113 ms in 64
+# splits of one step, 0.0058 in 8 of eight on an H100 80GB HBM3 at 700 W;
+# scripts/torch_bf16_stacked_times.py --sweep).
+_BF16_BK = 64
+_BF16_MIN_SPLIT_STEPS = 8
+_BF16_SPLIT_MAX_M = 16
+
+
+def _bf16_stacked_plan(M: int, N: int, K: int, sms: int = 132,
+                       split_steps: Optional[int] = None) -> dict:
+    """How ``csrc/bf16_gemm.cu`` runs ``(M, K) @ (N, K).T``: ``path``
+    "splitk" at M <= 16 (swap-AB: 64 weight rows per CTA, the M activation
+    rows as wgmma's ``cols`` = 8 or 16 columns) or "tiled" above (128 x 128
+    output tiles); either walks K in ``splits`` CTAs of ``split_steps``
+    64-value steps each, the last possibly shorter, and ``workspace`` f32
+    hold their partial tiles when ``splits`` > 1. ``grid`` is the launch's
+    (x, y) or (x, y, z). The split count is the least that brings the grid
+    to ``sms`` CTAs (splitk: several fit an SM) or the most that keeps it
+    within one CTA per SM (tiled), but no split except the last walks fewer
+    than 8 steps, so a K of under 16 steps is not split. ``split_steps``
+    overrides the steps per split (for tuning)."""
+    k_steps = -(-K // _BF16_BK)
+    if M <= _BF16_SPLIT_MAX_M:
+        tiles, rows, cols = -(-N // 64), 64, 8 if M <= 8 else 16
+        want = -(-sms // tiles)
+    else:
+        tiles, rows, cols = -(-N // 128) * -(-M // 128), 128, 128
+        want = sms // tiles
+    if split_steps is None:
+        splits = max(1, min(want, k_steps // _BF16_MIN_SPLIT_STEPS))
+        split_steps = -(-k_steps // splits)
+    split_steps = min(split_steps, k_steps)
+    splits = -(-k_steps // split_steps)
+    if M <= _BF16_SPLIT_MAX_M:
+        path, grid = "splitk", (tiles, splits)
+    else:
+        path, grid = "tiled", (-(-N // 128), -(-M // 128), splits)
+    return dict(path=path, rows=rows, cols=cols, splits=splits,
+                split_steps=split_steps, grid=grid,
+                workspace=splits * tiles * rows * cols if splits > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def bf16_matmul_stacked(x: torch.Tensor, W: torch.Tensor,
                         layer: int) -> torch.Tensor:
     """``y = bf16(x) @ W[layer].T`` in f32 with the layer selected by a
@@ -962,8 +1014,8 @@ def bf16_matmul_stacked(x: torch.Tensor, W: torch.Tensor,
 
     ``x`` (M, K) float, cast to bf16; ``W`` (L, N, K) bf16. Returns (M, N)
     f32. CUDA tensors go through ``bf16_stacked_launch`` of
-    ``csrc/grouped_matmul.cu`` (the grouped kernel's bf16 ``mma.sync``
-    tiles, f32 accumulators); CPU tensors through
+    ``csrc/bf16_gemm.cu`` (TMA and bf16 ``wgmma`` with f32 accumulators,
+    on the plan of :func:`_bf16_stacked_plan`); CPU tensors through
     :func:`bf16_matmul_stacked_plain`. Neither package calls it on its
     serving paths; it is the reference's kernel for factor matmuls.
     """
@@ -979,23 +1031,38 @@ def bf16_matmul_stacked(x: torch.Tensor, W: torch.Tensor,
     if x.device.type == "cpu":
         return bf16_matmul_stacked_plain(x, W, layer)
     if K % 8:
-        raise ValueError(f"the CUDA kernel reads 16-byte rows: K % 8 == 0, "
-                         f"got K={K}")
+        raise ValueError(f"the CUDA kernel's TMA needs 16-byte row strides: "
+                         f"K % 8 == 0, got K={K}")
     out = _launch_bf16_stacked(x.to(torch.bfloat16).contiguous(), W, layer)
     bf16_matmul_stacked.launches += 1
     return out
 
 
-def _launch_bf16_stacked(xb, W, layer: int):
-    """Launch ``bf16_stacked_launch`` of ``csrc/grouped_matmul.cu`` on bf16
-    activations against layer ``layer`` of ``W``."""
+def _launch_bf16_stacked(xb, W, layer: int,
+                         split_steps: Optional[int] = None):
+    """Launch ``bf16_stacked_launch`` of ``csrc/bf16_gemm.cu`` on bf16
+    activations against layer ``layer`` of ``W``, on the plan of
+    :func:`_bf16_stacked_plan` (a split-K workspace from ``torch.empty``)."""
     M, K = xb.shape
     N = W.shape[1]
     _check_cuda_operands(xb, W)
+    if xb.data_ptr() % 16 or W.data_ptr() % 16:
+        raise ValueError("the CUDA kernel's TMA needs x and W 16-byte "
+                         "aligned")
+    index = xb.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _bf16_stacked_plan(M, N, K, _sm_count(index), split_steps)
     out = torch.empty((M, N), dtype=torch.float32, device=xb.device)
-    err = _build.library("grouped_matmul").bf16_stacked_launch(
-        xb.data_ptr(), W.data_ptr(), out.data_ptr(), M, N, K, layer,
-        _build.stream_ptr(xb.device))
+    ws = None
+    if plan["workspace"]:
+        ws = torch.empty(plan["workspace"], dtype=torch.float32,
+                         device=xb.device)
+    err = _build.library("bf16_gemm").bf16_stacked_launch(
+        xb.data_ptr(), W.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K, layer,
+        0 if plan["path"] == "splitk" else 1, plan["cols"],
+        plan["split_steps"], plan["splits"], _build.stream_ptr(xb.device))
     _build.check(err, "bf16_stacked")
     return out
 

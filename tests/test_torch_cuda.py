@@ -99,21 +99,86 @@ def test_persistent_kernel_rules(dev):
         K.quantized_matmul_w4a8_stacked_persistent(x, packed, scales, 0, 4)
 
 
-@pytest.mark.parametrize("M", [1, 8, 17, 512])
-@pytest.mark.parametrize("N,Kd", [(128, 4096), (4096, 128), (200, 136)])
-def test_bf16_stacked_kernel_matches_plain(dev, M, N, Kd):
-    # bf16 x bf16 products are exact in f32 on both sides; only the order
-    # of the K f32 sums differs (mma.sync against the CPU's matmul)
-    rng = np.random.default_rng(480 + M + N)
+def _bf16_inputs(seed, M, N, Kd, layers=3):
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
-    W = torch.from_numpy(rng.normal(size=(3, N, Kd)).astype(np.float32)
+    W = torch.from_numpy(rng.normal(size=(layers, N, Kd)).astype(np.float32)
                          ).to(torch.bfloat16)
-    before = K.bf16_matmul_stacked.launches
-    y = K.bf16_matmul_stacked(x.to(dev), W.to(dev), 2).cpu()
-    assert K.bf16_matmul_stacked.launches == before + 1
-    ref = K.bf16_matmul_stacked_plain(x, W, 2)
-    torch.testing.assert_close(y, ref, rtol=1e-5,
+    return x, W
+
+
+def _bf16_close(y, ref):
+    # bf16 x bf16 products are exact in f32 on both sides; only the order
+    # of the K f32 sums differs (wgmma and split-K against the CPU's matmul)
+    torch.testing.assert_close(y.cpu(), ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 65, 512])
+@pytest.mark.parametrize("N,Kd", [(128, 4096), (4096, 128), (4096, 4096),
+                                  (200, 136)])
+def test_bf16_stacked_kernel_matches_plain(dev, M, N, Kd):
+    # both paths (split-K at M <= 16, 128 x 128 tiles above), ragged M, N
+    # and K (TMA's zero fill)
+    x, W = _bf16_inputs(480 + M + N, M, N, Kd)
+    before = K.bf16_matmul_stacked.launches
+    y = K.bf16_matmul_stacked(x.to(dev), W.to(dev), 2)
+    assert K.bf16_matmul_stacked.launches == before + 1
+    _bf16_close(y, K.bf16_matmul_stacked_plain(x, W, 2))
+
+
+@pytest.mark.parametrize("M", [8, 512])
+def test_bf16_stacked_kernel_last_layer(dev, M):
+    # the last of 5 layers: a wrong layer offset reads past the stack or
+    # another layer
+    x, W = _bf16_inputs(490 + M, M, 200, 1088, layers=5)
+    y = K.bf16_matmul_stacked(x.to(dev), W.to(dev), 4)
+    _bf16_close(y, K.bf16_matmul_stacked_plain(x, W, 4))
+
+
+@pytest.mark.parametrize("M,N,Kd", [(8, 128, 4096), (16, 4096, 4096),
+                                    (3, 200, 11008), (64, 4096, 4096),
+                                    (512, 128, 4096), (100, 200, 2056)])
+def test_bf16_stacked_kernel_split_k_is_deterministic(dev, M, N, Kd):
+    # the partial tiles are summed in split order, whichever CTA is last
+    assert K._bf16_stacked_plan(M, N, Kd)["splits"] > 1
+    x, W = _bf16_inputs(500 + M, M, N, Kd, layers=2)
+    xd, Wd = x.to(dev), W.to(dev)
+    ys = [K.bf16_matmul_stacked(xd, Wd, 1) for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    _bf16_close(ys[0], K.bf16_matmul_stacked_plain(x, W, 1))
+
+
+@pytest.mark.parametrize("M", [8, 512])
+def test_bf16_stacked_kernel_in_cuda_graph(dev, M):
+    # tensor maps are kernel parameters: a captured launch replays them
+    x, W = _bf16_inputs(510 + M, M, 128, 4096, layers=2)
+    xb, Wd = x.to(dev).to(torch.bfloat16), W.to(dev)
+    eager = K._launch_bf16_stacked(xb, Wd, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K._launch_bf16_stacked(xb, Wd, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K._launch_bf16_stacked(xb, Wd, 1)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_bf16_stacked_kernel_rules(dev):
+    W = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
+    buf = torch.zeros(8 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    x = buf[1:].view(8, 64)  # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        K.bf16_matmul_stacked(x, W, 0)
+    with pytest.raises(ValueError, match="K % 8"):
+        K.bf16_matmul_stacked(torch.zeros((8, 60), device=dev),
+                              torch.zeros((2, 64, 60), dtype=torch.bfloat16,
+                                          device=dev), 0)
 
 
 @pytest.mark.parametrize("M", [1, 8, 33])

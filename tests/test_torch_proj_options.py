@@ -77,7 +77,9 @@ class TestPersistentKernel:
 
 class TestBf16MatmulStacked:
     @pytest.mark.parametrize("M,N,K", [(1, 128, 256), (8, 256, 128),
-                                       (33, 96, 64)])
+                                       (33, 96, 64), (16, 64, 256),
+                                       (17, 64, 256), (65, 32, 128),
+                                       (8, 48, 136), (17, 40, 136)])
     def test_matches_pallas_interpret(self, M, N, K):
         rng = np.random.default_rng(320 + M)
         x = rng.normal(size=(M, K)).astype(np.float32)
@@ -101,6 +103,41 @@ class TestBf16MatmulStacked:
         with pytest.raises(IndexError, match="out of range"):
             TK.bf16_matmul_stacked(x, torch.zeros((1, 8, 64),
                                                   dtype=torch.bfloat16), 1)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 128, 512])
+@pytest.mark.parametrize("N,K", [(128, 4096), (4096, 128), (4096, 4096),
+                                 (200, 136), (4096, 11008), (128, 11008)])
+def test_bf16_stacked_plan(M, N, K):
+    # the CUDA kernel's launch plan (csrc/bf16_gemm.cu), on a 132-SM card
+    plan = TK._bf16_stacked_plan(M, N, K, sms=132)
+    k_steps = -(-K // 64)
+    splits, step = plan["splits"], plan["split_steps"]
+    if M <= 16:
+        assert plan["path"] == "splitk"
+        assert M <= plan["cols"] == (8 if M <= 8 else 16)
+        tiles = -(-N // 64)
+        assert plan["grid"] == (tiles, splits)
+        # the grid reaches the card's 132 SMs wherever K allows splits of
+        # at least 8 steps (several of these CTAs fit an SM)
+        if k_steps // 8 >= -(-132 // tiles):
+            assert tiles * splits >= 132
+    else:
+        assert plan["path"] == "tiled" and plan["cols"] == 128
+        tiles = -(-N // 128) * -(-M // 128)
+        assert plan["grid"] == (-(-N // 128), -(-M // 128), splits)
+        # one 192 KB CTA per SM: split only while the grid fits one wave
+        assert splits == 1 or tiles * splits <= 132
+    # every split is non-empty and together they cover the K steps exactly
+    spans = [(i * step, min((i + 1) * step, k_steps)) for i in range(splits)]
+    assert all(b > a for a, b in spans) and spans[-1][1] == k_steps
+    # no split but the last walks fewer than two 4-stage rings of steps, so
+    # a K of under 16 steps (the L shape's 2) is not split
+    assert splits == 1 or step >= 8
+    if k_steps < 16:
+        assert splits == 1
+    assert plan["workspace"] == (
+        splits * tiles * plan["rows"] * plan["cols"] if splits > 1 else 0)
 
 
 class _Count:
