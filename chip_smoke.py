@@ -19,9 +19,12 @@ caught):
    (bytes over 3.35 TB/s, or operations over 1979 TOP/s int8 or 67 TFLOP/s
    f32, the larger): the W4A8 matmul at decode's M = 8 and prefill's M =
    512 and 2048; flash prefill at S = 512, 2048, a ragged 300 and a GQA
-   shape, beside one SDPA call; the all-batch decode kernel, staged and
-   inline, over a 4096-token cache at ragged positions; the inline and
-   staged row decode kernels and the int8 head at the bench shape; the
+   shape, beside one SDPA call (bound: its 3xTF32 operations at 495
+   TFLOP/s; two launches bit-equal), and on sharp logits (q, k x 3) within
+   1.25x the plain version's error against a float64 attention; the
+   all-batch decode kernel, staged and inline, over a 4096-token cache at
+   ragged positions; the inline and staged row decode kernels and the int8
+   head at the bench shape; the
    grouped bf16 matmul (bound: 989 TFLOP/s bf16 or bytes; beside one bf16
    torch.matmul on its weights dequantized beforehand) and the flat W4A8
    matmul at Llama-2-7B's three projection shapes, M = 8 and 512; the paged
@@ -142,6 +145,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12        # H100 SXM dense int8 tensor-core peak
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 tensor-core peak
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 
 
@@ -771,7 +775,8 @@ def _phase_kernels_prefill(torch, dev, gen, record):
     torch.cuda.empty_cache()
 
     # flash prefill: Llama-2-7B heads at S = 512 and 2048, a ragged S, and
-    # Llama-3-8B's GQA (8 kv heads, 4 query heads each)
+    # Llama-3-8B's GQA (8 kv heads, 4 query heads each); two launches give
+    # the same bits
     fp = record["flash_prefill"]
     for name, S, KVH, G, main in [("7b", 512, 32, 1, False),
                                   ("7b", 2048, 32, 1, True),
@@ -788,6 +793,9 @@ def _phase_kernels_prefill(torch, dev, gen, record):
         if not torch.allclose(out, ref, rtol=2e-5, atol=2e-6):
             raise AssertionError(f"flash_prefill {name} S={S} disagrees "
                                  "with plain")
+        if not torch.equal(out, AT.flash_prefill(q, k, v)):
+            raise AssertionError(f"flash_prefill {name} S={S}: two "
+                                 "launches differ")
         ms = _time_ms(torch, lambda i: AT.flash_prefill(q, k, v), 10)
         plain_ms = _time_ms(torch, lambda i: AT.flash_prefill_plain(q, k, v),
                             2, reps=3)
@@ -802,20 +810,78 @@ def _phase_kernels_prefill(torch, dev, gen, record):
         lib_ms = _time_ms(torch, lambda i: torch.nn.functional.
                           scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True), 10)
-        nbytes = 4 * (2 * S * H * D + 2 * S * KVH * D)
-        bound, by = _bound_ms(nbytes, 4 * H * D * S * (S + 1) / 2,
-                              F32_OPS_PER_S)
+        bound, by, fma_bound = _prefill_bounds(S, H, KVH, D)
         print(f"flash_prefill {name} S={S} H={H} KVH={KVH} D={D}: max diff "
               f"{err:.3e} (bound rtol 2e-5, atol 2e-6) kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max diff "
-              f"{lib_err:.3e}), bound {bound:.4f} ms ({by}; "
-              f"{bound / ms:.1%} of bound)", flush=True)
+              f"{lib_err:.3e}), bound {bound:.4f} ms ({by}, 3xTF32; "
+              f"{bound / ms:.1%} of bound; f32-FMA bound {fma_bound:.4f} ms)",
+              flush=True)
         fp["max_abs_err"] = max(fp["max_abs_err"] or 0.0, err)
         if main:
             fp.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                       library_ms=lib_ms)
         del q, k, v, qt, kt, vt
+    # sharp logits (q and k times 3, logits up to ~40), where the rtol/atol
+    # gate measures summation order: the kernel's max-abs error against a
+    # float64 attention within 1.25x the plain f32 version's
+    for name, S, KVH, G in [("7b sharp", 512, 32, 1),
+                            ("7b sharp", 2048, 32, 1),
+                            ("llama3-8b GQA sharp", 2048, 8, 4)]:
+        D, H = 128, KVH * G
+        q = 3 * torch.randn((1, S, H, D), generator=gen, device=dev)
+        k = 3 * torch.randn((1, S, KVH, D), generator=gen, device=dev)
+        v = torch.randn((1, S, KVH, D), generator=gen, device=dev)
+        err, plain_err = _prefill_sharp_errors(torch, AT, q, k, v)
+        print(f"flash_prefill {name} S={S} H={H} KVH={KVH}: max diff "
+              f"against float64 {err:.3e}, plain f32 {plain_err:.3e} "
+              f"(bound 1.25x: {1.25 * plain_err:.3e})", flush=True)
+        if err > 1.25 * plain_err:
+            raise AssertionError(f"flash_prefill {name} S={S}: {err:.3e} "
+                                 f"from float64, over 1.25x the plain "
+                                 f"version's {plain_err:.3e}")
+        del q, k, v
     torch.cuda.empty_cache()
+
+
+def _prefill_bounds(S, H, KVH, D):
+    """(bound ms, what binds, f32-FMA bound ms) of one causal prefill
+    attention: q, k, v and out once each against the 3xTF32 route's
+    operations (three tf32 products for each of the 4 H D S (S + 1) / 2
+    causal ones, at the TF32 peak); beside it the same operations as f32
+    FMAs outside the tensor cores."""
+    nbytes = 4 * (2 * S * H * D + 2 * S * KVH * D)
+    ops = 4 * H * D * S * (S + 1) / 2
+    bound, by = _bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
+    return bound, by, _bound_ms(nbytes, ops, F32_OPS_PER_S)[0]
+
+
+def _prefill_truth_f64(torch, q, k, v, scale, chunk=4):
+    """Causal softmax attention of q (B, S, H, D) and k/v (B, S, KVH, D)
+    in float64, with the f32 ``scale`` the kernels multiply by; ``chunk``
+    heads at a time, so that S 4096 fits."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty((B, S, H, D), dtype=torch.float64, device=q.device)
+    for h0 in range(0, H, chunk):
+        kv = [h // G for h in range(h0, min(h0 + chunk, H))]
+        logits = torch.einsum("bshd,bthd->bhst", q[:, :, h0:h0 + chunk]
+                              .double(), k[:, :, kv].double()) * scale
+        logits.masked_fill_(~mask, float("-inf"))
+        out[:, :, h0:h0 + chunk] = torch.einsum(
+            "bhst,bthd->bshd", torch.softmax(logits, dim=-1),
+            v[:, :, kv].double())
+    return out
+
+
+def _prefill_sharp_errors(torch, AT, q, k, v):
+    """(the kernel's, the plain f32 version's) max-abs error against
+    :func:`_prefill_truth_f64` on the same inputs."""
+    truth = _prefill_truth_f64(torch, q, k, v, AT._scale_f32(q.shape[3]))
+    err = float((AT.flash_prefill(q, k, v).double() - truth).abs().max())
+    plain = AT.flash_prefill_plain(q, k, v)
+    return err, float((plain.double() - truth).abs().max())
 
 
 def _phase_kernels_decode(torch, dev, gen, record):

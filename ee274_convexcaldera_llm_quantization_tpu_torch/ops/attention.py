@@ -711,7 +711,10 @@ def flash_prefill(q, k, v) -> torch.Tensor:
         raise ValueError(f"the CUDA prefill kernel takes D <= 128 with "
                          f"D % 4 == 0 and at most 64 query heads per kv "
                          f"head; got D={D}, G={H // KVH}")
+    # contiguous f32 at 16-byte aligned bases: the kernel reads them by TMA
     qf, kf, vf = (t.float().contiguous() for t in (q, k, v))
+    qf, kf, vf = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (qf, kf, vf))
     for t in (kf, vf):
         if t.device != q.device:
             raise ValueError("attention operands must be on one device")

@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks of a TMA + wgmma matrix product, for the
 // port's tensor-core kernels: host-side tensor-map encoding, the mbarrier
 // ring, the TMA tile load, and the wgmma shared-memory descriptors, fences
-// and m64nNk16 bf16 x bf16 -> f32 instructions.
+// and m64nNk16 bf16 x bf16 -> f32 instructions. For f32 operands on the
+// tensor cores (3xTF32): a map of 4-d f32 tensors in 128-byte swizzled boxes
+// of 32-value rows, its 4-d TMA load and element offsets, the tf32 split,
+// the m64nNk8 tf32 instructions and the async-proxy fence.
 //
 // Every tile these pieces describe is a stack of K-major rows of 64 bf16
 // (128 bytes), loaded by TMA with the 128-byte swizzle into shared memory at
@@ -64,6 +67,27 @@ inline bool map_bf16_rows(CUtensorMap* map, const void* base, uint64_t rows,
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a row-major f32 tensor of 4 dims, dims[0] innermost (dense),
+// ld[i] the element stride of dims[i + 1], in boxes of 32 x box[0] x box[1]
+// x box[2] values (128-byte swizzle: one box row is 32 f32). TMA fills the
+// part of a box outside the tensor with zeros, and still counts its bytes.
+// The base must be 16-byte aligned and each ld a multiple of 4. False on
+// failure.
+inline bool map_f32_4d(CUtensorMap* map, const void* base,
+                       const uint64_t (&dims)[4], const uint64_t (&ld)[3],
+                       const uint32_t (&box)[3]) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t gdims[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t strides[3] = {ld[0] * 4, ld[1] * 4, ld[2] * 4};
+  const cuuint32_t gbox[4] = {32, box[0], box[1], box[2]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+             gdims, strides, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -138,6 +162,26 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// One thread: TMA-load the box at (c0, c1, c2, c3) of a 4-d `map` into
+// `dst`, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The offset, in f32 values, of (row, col) in a tile of 32-value rows that
+// TMA stored with the 128-byte swizzle at a 1024-byte boundary: the 16-byte
+// chunk col / 4 of a row sits at chunk (col / 4) ^ (row % 8).
+__device__ __forceinline__ int sw128_f32(int row, int col) {
+  return row * 32 + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
 }
 
 // The named barrier `id` (1..15) over `threads` threads of the block.
@@ -246,6 +290,150 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t a,
     static_assert(N == 128, "wgmma width: 8, 16 or 128");
     wgmma_m64n128k16(d, a, b);
   }
+}
+
+// wgmma in tf32 (m64nNk8: 8 f32 values, 32 bytes, per k slice, so the
+// k-slice offsets and descriptors are those of the bf16 k16 slices above).
+
+// D (64 x 32, f32, 16 registers a thread) (+)= A (64 x 8) * B (32 x 8)^T, both
+// tf32 in shared memory, K-major, 128-byte swizzle; D is overwritten when
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16],
+    uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 32, f32, 16 registers a thread) (+)= A (64 x 8) * B (32 x 8)^T, A
+// tf32 in registers (lane 4 g + t of warp w holds rows 16 w + g, + 8 at
+// columns t, then t + 4), B tf32 in shared memory, K-major, 128-byte
+// swizzle; D is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// D (64 x 64, f32, 32 registers a thread) (+)= A (64 x 8) * B (64 x 8)^T, A
+// tf32 in registers (lane 4 g + t of warp w holds rows 16 w + g, + 8 at
+// columns t, then t + 4), B tf32 in shared memory, K-major, 128-byte
+// swizzle; D is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// D (64 x 128, f32, 64 registers a thread) (+)= A (64 x 8) * B (128 x 8)^T, A
+// tf32 in registers (lane 4 g + t of warp w holds rows 16 w + g, + 8 at
+// columns t, then t + 4), B tf32 in shared memory, K-major, 128-byte
+// swizzle; D is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+    const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// The A-in-registers instruction of width n (32, 64 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_m64k8_tf32_rs(float (&d)[N / 2],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b,
+                                                    int accumulate) {
+  if constexpr (N == 32) {
+    wgmma_m64n32k8_tf32_rs(d, a, b, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k8_tf32_rs(d, a, b, accumulate);
+  } else {
+    static_assert(N == 128, "wgmma width: 32, 64 or 128");
+    wgmma_m64n128k8_tf32_rs(d, a, b, accumulate);
+  }
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: tf32 (3xTF32 products of f32 operands)
+// ---------------------------------------------------------------------------
+
+// x rounded to tf32 (10-bit mantissa, to nearest, ties away from zero), as
+// f32 bits with the low 13 bits clear: cvt.rna.tf32.f32, taken as two
+// integer operations on the bits (half of the dropped 13 bits added to the
+// magnitude, then cleared). On an H100 the two gave the same bits, and the
+// integer form ran faster.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + O(2^-22 |x|): big = tf32_rna(x), small = tf32_rna(x -
+// big) (the difference is exact in f32). A product a * b is then taken as
+// a.big b.small + a.small b.big + a.big b.big: three tf32 products, each
+// exact; the dropped a.small b.small is O(2^-22 |a b|). The tensor cores
+// round their f32 sums toward zero, so a long chain of products on one
+// accumulator drifts toward zero: keep chains short, on fresh accumulators
+// added to the running sum in f32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
 }  // namespace hopper

@@ -410,6 +410,70 @@ def test_prefill_kernel_matches_plain(dev, B, S, KVH, G, D):
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-6)
 
 
+@pytest.mark.parametrize("B,S,KVH,G,D", [
+    (1, 77, 2, 1, 100), (2, 130, 1, 5, 36), (1, 70, 1, 64, 8),
+    (1, 33, 3, 2, 4)])
+def test_prefill_kernel_edge_shapes(dev, B, S, KVH, G, D):
+    # D not a multiple of 8 or 32 (zero-filled in shared memory), G that
+    # does not divide a CTA's 128 rows, G = 64, and operands at 4-byte
+    # aligned addresses (the wrapper copies them for TMA)
+    rng = np.random.default_rng(930 + S + G + D)
+    shapes = ((B, S, KVH * G, D), (B, S, KVH, D), (B, S, KVH, D))
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in shapes)
+    ref = AT.flash_prefill_plain(q, k, v)
+    moved = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t.reshape(-1).to(dev)
+        moved.append(buf[1:].view(t.shape))
+    assert all(t.data_ptr() % 16 for t in moved)
+    out = AT.flash_prefill(*moved).cpu()
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-6)
+
+
+def _attention_f64(q, k, v):
+    # causal softmax attention in float64, with the f32 scale the kernels
+    # multiply by, 8 heads at a time
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty((B, S, H, D), dtype=torch.float64, device=q.device)
+    for h0 in range(0, H, 8):
+        kv = [h // G for h in range(h0, min(h0 + 8, H))]
+        logits = torch.einsum("bshd,bthd->bhst", q[:, :, h0:h0 + 8].double(),
+                              k[:, :, kv].double()) * AT._scale_f32(D)
+        logits.masked_fill_(~mask, float("-inf"))
+        out[:, :, h0:h0 + 8] = torch.einsum(
+            "bhst,bthd->bshd", torch.softmax(logits, dim=-1),
+            v[:, :, kv].double())
+    return out
+
+
+@pytest.mark.parametrize("S,KVH,G", [(512, 32, 1), (2048, 32, 1),
+                                     (2048, 8, 4)])
+def test_prefill_kernel_sharp_logits_against_f64(dev, S, KVH, G):
+    # q and k times 3 (logits up to ~40), where the rtol/atol gate measures
+    # summation order (logits rounded exactly from float64 fail it): the
+    # kernel's max-abs error against a float64 attention within 1.25x the
+    # plain f32 version's; two launches give the same bits
+    rng = np.random.default_rng(950 + S + G)
+    D = 128
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(dev) for shape in ((1, S, KVH * G, D), (1, S, KVH, D),
+                                      (1, S, KVH, D)))
+    q, k = 3 * q, 3 * k
+    truth = _attention_f64(q, k, v)
+    out = AT.flash_prefill(q, k, v)
+    assert torch.equal(out, AT.flash_prefill(q, k, v))
+    err = float((out.double() - truth).abs().max())
+    plain_err = float((AT.flash_prefill_plain(q, k, v).double()
+                       - truth).abs().max())
+    print(f"sharp S={S} KVH={KVH} G={G}: kernel {err:.3e}, plain "
+          f"{plain_err:.3e} against float64")
+    assert err <= 1.25 * plain_err, (err, plain_err)
+
+
 def test_engine_on_card_counts_launches(dev):
     # a tiny engine on the card at max_seq_len 1024: flash prefill per
     # layer and the all-batch decode kernel per layer, exact counts
