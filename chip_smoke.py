@@ -26,7 +26,9 @@ caught):
    ragged positions; the inline and staged row decode kernels and the int8
    head at the bench shape; the
    grouped bf16 matmul (bound: 989 TFLOP/s bf16 or bytes; beside one bf16
-   torch.matmul on its weights dequantized beforehand) and the flat W4A8
+   torch.matmul on its weights dequantized beforehand; its plan printed and
+   a second launch equal bit for bit, also at M 16 and 17 and on a plane of
+   160 bytes) and the flat W4A8
    matmul at Llama-2-7B's three projection shapes, M = 8 and 512; the paged
    decode kernel at Llama-2-7B's heads, batch 8, over a randomly permuted
    page table of about 2048 tokens per row at ragged positions, pages of 16
@@ -64,7 +66,10 @@ caught):
    checked for its exact launches, and the first prefill against the plain
    versions on the card; prints the prefill ms per bucket, the median
    decode tick, tokens/s and wall time.
-6. The unfused path, Llama-2-7B, 32 layers (``phase_unfused``): (a) the
+6. The unfused path, Llama-2-7B, 32 layers (``phase_unfused``): first (e)
+   the grouped path at 2 layers, the same weights on the card and the CPU:
+   a 300-token prefill and a batch-8 decode step from the CPU's cache,
+   logits within 5e-3 rel-Frobenius; (a) the
    grouped ``stacked.decode_step_batched`` at batch 8, context 256, 32
    steps (224 grouped launches each); (d) ``evaluate_perplexity`` on one
    1024-token window; (b) ``ServingEngine`` on w4a8 params (224 flat W4A8
@@ -626,11 +631,47 @@ def _phase_kernels_long_blocks(torch, dev, gen):
 def _phase_kernels_packed(torch, dev, gen, record):
     """The grouped bf16 matmul and the flat W4A8 matmul at Llama-2-7B's
     three projection shapes (q/k/v/o 4096 x 4096, gate/up 11008 x 4096,
-    down 4096 x 11008; 4-bit), at decode's M = 8 and prefill's M = 512.
-    The record takes M = 8, the mean time per launch over one layer's seven
-    launches (the unfused path's decode)."""
+    down 4096 x 11008; 4-bit), at decode's M = 8 and prefill's M = 512,
+    after the grouped kernel's edges (M 16 and 17 at 4096 x 4096, a plane of
+    160 bytes at M 8 and 40). Every grouped case prints its plan and is
+    held to its plain version and to a second launch, bit for bit; the
+    timed ones print cuBLAS's time beside the kernel's. The record takes
+    M = 8, the mean time per launch over one layer's seven launches (the
+    unfused path's decode)."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         kernels as K)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the grouped kernel's edges: both sides of the M 16 / 17 cut at 4096^2
+    # and a plane of 160 bytes (32 past a multiple of the kernel's 64-byte
+    # step, so TMA zero-fills x past the end of each plane), each against
+    # the plain version and a second launch, bit for bit
+    for M, N, Kd in ((16, 4096, 4096), (17, 4096, 4096), (8, 200, 320),
+                     (40, 200, 320)):
+        G = K.resolve_group(4, Kd, None)
+        packed = torch.randint(0, 256, (N, Kd // 2), generator=gen,
+                               dtype=torch.uint8, device=dev)
+        sg = torch.rand((N, Kd // G), generator=gen, device=dev) * 0.01
+        x = torch.randn((M, Kd), generator=gen, device=dev)
+        y = K.quantized_matmul(x, packed, sg, 4)
+        y2 = K.quantized_matmul(x, packed, sg, 4)
+        ref = K.quantized_matmul_plain(x, packed, sg, 4)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 1e-5 * float(ref.abs().max())
+        plan = K._grouped_plan(M, N, Kd, 4, sms)
+        print(f"quantized_matmul edge M={M} N={N} K={Kd} 4-bit G={G}: max "
+              f"diff {err:.3e} (bound rtol 1e-5, atol {tol:.3e}), two "
+              f"launches {'equal' if torch.equal(y, y2) else 'DIFFER'}; "
+              f"plan {plan['path']} {plan['rows']} x {plan['cols']}, grid "
+              f"{plan['grid']}, {plan['split_steps']} steps a split",
+              flush=True)
+        if not (torch.allclose(y, ref, rtol=1e-5, atol=tol)
+                and torch.equal(y, y2)):
+            raise AssertionError(f"quantized_matmul edge M={M} N={N} "
+                                 f"K={Kd} disagrees with plain or itself")
+        record["quantized_matmul"]["max_abs_err"] = max(
+            record["quantized_matmul"]["max_abs_err"] or 0.0, err)
 
     shapes = [("q/k/v/o", 4096, 4096, 4), ("gate/up", 11008, 4096, 2),
               ("down", 4096, 11008, 1)]
@@ -651,15 +692,19 @@ def _phase_kernels_packed(torch, dev, gen, record):
             iters = 50 if M == 8 else 10
 
             # grouped: f32 sums in another order than the plain version's
-            # cuBLAS f32 matmul of the same bf16 values
+            # cuBLAS f32 matmul of the same bf16 values; a second launch
+            # gives the same bits (split-K partials summed in split order)
             y = K.quantized_matmul(x, packed[1], sg[1], 4)
+            y2 = K.quantized_matmul(x, packed[1], sg[1], 4)
             ref = K.quantized_matmul_plain(x, packed[1], sg[1], 4)
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
             tol = 1e-5 * float(ref.abs().max())
-            if not torch.allclose(y, ref, rtol=1e-5, atol=tol):
+            if not (torch.allclose(y, ref, rtol=1e-5, atol=tol)
+                    and torch.equal(y, y2)):
                 raise AssertionError(f"quantized_matmul {name} M={M} "
-                                     "disagrees with plain")
+                                     "disagrees with plain or itself")
+            plan = K._grouped_plan(M, N, Kd, 4, sms)
             xb = x.to(torch.bfloat16)
             ms = _time_ms(torch, lambda i: K._launch_grouped(
                 xb, packed[i % Lk], sg[i % Lk], 4, G), iters)
@@ -678,11 +723,14 @@ def _phase_kernels_packed(torch, dev, gen, record):
             ops = 2 * M * N * Kd
             bound, by = _bound_ms(nbytes, ops, BF16_OPS_PER_S)
             print(f"quantized_matmul {name} M={M} N={N} K={Kd} 4-bit G={G}: "
-                  f"max diff {err:.3e} (bound rtol 1e-5, atol {tol:.3e}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 "
-                  f"torch.matmul {lib_ms:.4f} ms (max diff {lib_err:.3e}), "
-                  f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
-                  flush=True)
+                  f"max diff {err:.3e} (bound rtol 1e-5, atol {tol:.3e}), "
+                  f"two launches equal; plan {plan['path']} {plan['rows']} x "
+                  f"{plan['cols']}, grid {plan['grid']}, "
+                  f"{plan['split_steps']} steps a split; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bf16 torch.matmul {lib_ms:.4f} "
+                  f"ms (max diff {lib_err:.3e}; kernel / cuBLAS "
+                  f"{ms / lib_ms:.2f}), bound {bound:.4f} ms ({by}; "
+                  f"{bound / ms:.1%} of bound)", flush=True)
             rec = record["quantized_matmul"]
             rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
             for j, v in enumerate((ms, plain_ms, nbytes, ops, lib_ms)):
@@ -723,7 +771,8 @@ def _phase_kernels_packed(torch, dev, gen, record):
                                   else INT8_OPS_PER_S)
             print(f"{name} M={M}: one layer's 7 launches, mean per launch "
                   f"{mean[0]:.4f} ms (plain {mean[1]:.4f}, bound {bound:.4f}"
-                  f" {by}" + (f", bf16 torch.matmul {mean[4]:.4f}"
+                  f" {by}" + (f", bf16 torch.matmul {mean[4]:.4f}, kernel / "
+                              f"cuBLAS {mean[0] / mean[4]:.2f}"
                               if name == "quantized_matmul" else "")
                   + ")", flush=True)
             if M == 8:
@@ -2877,6 +2926,59 @@ def _views(params, config):
         params.final_norm, params.lm_head)
 
 
+def _grouped_width(torch, dev):
+    """The grouped path at Llama-2-7B width, 2 layers, the same weights
+    (seed 0, 4-bit, rank 128) on the card and on the CPU: a seeded
+    300-token prompt prefilled (the grouped kernel at M = 300), then one
+    batch-8 decode step at position 300 from copies of the CPU's cache (M
+    = 8). Each card result against the CPU's, logits rel-Frobenius within
+    phase 6 (a)'s bound and the same argmax."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        llama, stacked)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+
+    config = dataclasses.replace(LLAMA2_7B, num_layers=2)
+    t0 = time.perf_counter()
+    cpu_params = bench_params.build_compressed_llama_params(
+        config, num_bits=4, rank=128, seed=0, mode="grouped", device="cpu")
+    card_params = _map_tensors(cpu_params, lambda t: t.to(dev))
+    n, B, T = 300, 8, 512
+    gen = torch.Generator().manual_seed(11)
+    prompt = torch.randint(0, config.vocab_size, (1, n), generator=gen)
+    logits, caches = {}, {}
+    for where, params in (("cpu", cpu_params), ("card", card_params)):
+        d = "cpu" if where == "cpu" else dev
+        cache = llama.KVCache.create(config, 1, T, device=d)
+        logits[where], caches[where] = stacked.prefill(
+            params, prompt.to(d), cache, config)
+    e_pre = _rel(torch, logits["card"], logits["cpu"])
+    # a batch-8 cache whose rows all hold the CPU's prefilled prompt
+    one = caches["cpu"]
+    batch = llama.KVCache.create(config, B, T, device="cpu")
+    batch.k[:] = one.k[:, :1]
+    batch.v[:] = one.v[:, :1]
+    tok = torch.randint(0, config.vocab_size, (B,), generator=gen)
+    pos = torch.full((B,), n, dtype=torch.int32)
+    step = {}
+    for where, params in (("cpu", cpu_params), ("card", card_params)):
+        d = "cpu" if where == "cpu" else dev
+        step[where], _ = stacked.decode_step_batched(
+            params, tok.to(d), pos.to(d), _copy_cache(batch, d), config)
+    e_dec = _rel(torch, step["card"], step["cpu"])
+    print(f"unfused (e) grouped path, Llama-2-7B width, 2 layers: card vs "
+          f"CPU logits rel-Frobenius, {n}-token prefill {e_pre:.3e}, batch-"
+          f"{B} decode step at position {n} from the CPU's cache "
+          f"{e_dec:.3e} (bound {KERN_REL:g}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if not (e_pre <= KERN_REL and e_dec <= KERN_REL
+            and _same_argmax(torch, logits["card"], logits["cpu"])
+            and _same_argmax(torch, step["card"], step["cpu"])):
+        raise AssertionError("unfused (e): the grouped path on the card "
+                             "disagrees with the CPU")
+
+
 def phase_unfused(torch, dev, record):
     """The unfused compressed-model path, Llama-2-7B, 32 layers, synthetic
     weights (seed 0, 4-bit, rank 128):
@@ -2895,7 +2997,9 @@ def phase_unfused(torch, dev, record):
     versions;
     (c) ``FastServingEngine`` on the same stacked w4a8 params, unfused:
     the same requests on a bf16 cache (greedy completions equal to (b)'s),
-    then on an int8 cache (reported)."""
+    then on an int8 cache (reported);
+    (e), run first: :func:`_grouped_width`, the grouped path at 2 layers,
+    card against CPU."""
     from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
     from ee274_convexcaldera_llm_quantization_tpu_torch.evalm import (
         perplexity)
@@ -2913,6 +3017,7 @@ def phase_unfused(torch, dev, record):
     config = LLAMA2_7B
     L = config.num_layers
     t_phase = time.perf_counter()
+    _grouped_width(torch, dev)
     counters = (K.quantized_matmul, K.quantized_matmul_w4a8,
                 K.quantized_matmul_w4a8_stacked, K.int8_matmul)
     names = ("quantized_matmul", "quantized_matmul_w4a8", "w4a8_stacked",

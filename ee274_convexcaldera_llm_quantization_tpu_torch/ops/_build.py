@@ -53,8 +53,11 @@ ENTRIES = {
         "w4a8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "grouped_matmul": {
-        # x (bf16), packed, scales, out, M, N, K, bits, group, stream
-        "grouped_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x (bf16), packed, scales, out, split-K workspace, split-K counters,
+        # M, N, K, bits, group, path, cols, split_steps, splits, stream
+        "grouped_matmul_launch": [_P] * 6 + [_I] * 9 + [_P],
+        # stream, unsigned long long* (the capture id, 0 when none)
+        "grouped_capture_id": [_P, _P],
     },
     "bf16_gemm": {
         # x (bf16), W (bf16, layer-stacked), out, split-K workspace, M, N, K,

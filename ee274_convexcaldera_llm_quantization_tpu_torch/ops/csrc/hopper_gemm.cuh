@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of a TMA + wgmma matrix product, for the
 // port's tensor-core kernels: host-side tensor-map encoding, the mbarrier
 // ring, the TMA tile load, and the wgmma shared-memory descriptors, fences
-// and m64nNk16 bf16 x bf16 -> f32 instructions. For f32 operands on the
-// tensor cores (3xTF32): a map of 4-d f32 tensors in 128-byte swizzled boxes
+// and m64nNk16 bf16 x bf16 -> f32 instructions. For packed codes: a map of
+// uint8 rows in 64-byte swizzled boxes and its offsets (sw64_u8), a 3-d map
+// of a bf16 matrix cut into planes, and its 3-d TMA load. For f32 operands
+// on the tensor cores (3xTF32): a map of 4-d f32 tensors in 128-byte swizzled boxes
 // of 32-value rows, its 4-d TMA load and element offsets, the tf32 split,
 // the m64nNk8 tf32 instructions and the async-proxy fence.
 //
@@ -92,6 +94,45 @@ inline bool map_f32_4d(CUtensorMap* map, const void* base,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The map of a row-major uint8 matrix (rows, cols) with a row stride of ld
+// bytes, in boxes of box_rows rows x 64 bytes with the 64-byte swizzle (the
+// 16-byte chunk c of row r lands at chunk c ^ ((r / 2) % 4): sw64_u8). TMA
+// fills the part of a box outside the matrix with zeros. The base must be
+// 16-byte aligned and ld % 16 == 0. False on failure.
+inline bool map_u8_rows(CUtensorMap* map, const void* base, uint64_t rows,
+                        uint64_t cols, uint64_t ld, uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a row-major bf16 matrix (rows, planes * P) viewed as (rows,
+// planes, P): plane p of row m is columns p P .. p P + P - 1. Boxes of
+// box_rows rows x 1 plane x 64 values (128-byte swizzle, the layout
+// desc_sw128 describes). TMA fills the part of a box past the end of a plane
+// (or past the last row) with zeros, so a box never reads the next plane's
+// values. The base must be 16-byte aligned and P % 8 == 0. False on failure.
+inline bool map_bf16_planes(CUtensorMap* map, const void* base, uint64_t rows,
+                            uint64_t planes, uint64_t P, uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {P, planes, rows};
+  const cuuint64_t strides[2] = {P * 2, planes * P * 2};
+  const cuuint32_t box[3] = {64, 1, box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------------------
 // Device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
@@ -164,6 +205,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One thread: TMA-load the box at (c0, c1, c2) of a 3-d `map` into `dst`,
+// completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One thread: TMA-load the box at (c0, c1, c2, c3) of a 4-d `map` into
 // `dst`, completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -182,6 +236,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // chunk col / 4 of a row sits at chunk (col / 4) ^ (row % 8).
 __device__ __forceinline__ int sw128_f32(int row, int col) {
   return row * 32 + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
+}
+
+// The byte offset of (row, col) in a tile of 64-byte rows that TMA stored
+// with the 64-byte swizzle at a 512-byte boundary: the 16-byte chunk col / 16
+// of a row sits at chunk (col / 16) ^ ((row / 2) % 4).
+__device__ __forceinline__ int sw64_u8(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
 }
 
 // The named barrier `id` (1..15) over `threads` threads of the block.
@@ -289,6 +350,110 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t a,
   } else {
     static_assert(N == 128, "wgmma width: 8, 16 or 128");
     wgmma_m64n128k16(d, a, b);
+  }
+}
+
+// bf16 wgmma with A from registers: lane 4 g + t of warp w holds rows
+// 16 w + g and 16 w + g + 8 of the 64 x 16 A slice, two bf16 a register (the
+// lower column in the low half): a[0] (row 16 w + g, columns 2 t, 2 t + 1),
+// a[1] (row + 8, the same columns), a[2] (row 16 w + g, columns 2 t + 8,
+// 2 t + 9), a[3] (row + 8, those columns). B bf16 in shared memory, K-major,
+// 128-byte swizzle. ptxas serializes a product whose register inputs are
+// written while another product is in flight (warning C7513), so write
+// every A register of a batch before its first product.
+
+// D (64 x 8, f32, 4 registers a thread) += A (64 x 16, registers) *
+// B (8 x 16)^T.
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
+    const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 16, f32, 8 registers a thread) += A (64 x 16, registers) *
+// B (16 x 16)^T.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64, f32, 32 registers a thread) += A (64 x 16, registers) *
+// B (64 x 16)^T.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, f32, 64 registers a thread) += A (64 x 16, registers) *
+// B (128 x 16)^T.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+    const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The A-in-registers bf16 instruction of width n (8, 16, 64 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  if constexpr (N == 8) {
+    wgmma_m64n8k16_rs(d, a, b);
+  } else if constexpr (N == 16) {
+    wgmma_m64n16k16_rs(d, a, b);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k16_rs(d, a, b);
+  } else {
+    static_assert(N == 128, "wgmma width: 8, 16, 64 or 128");
+    wgmma_m64n128k16_rs(d, a, b);
   }
 }
 

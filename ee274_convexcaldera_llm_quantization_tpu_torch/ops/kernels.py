@@ -24,6 +24,7 @@ from the kernel only in the order of its f32 sums.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -217,8 +218,10 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
 
     ``x`` (M, K) float; ``packed`` (N, K/f) uint8 row-global planes;
     ``scales`` (N, K/G) f32 with ``G`` from :func:`resolve_group`. Returns
-    (M, N) f32. CUDA tensors go through ``csrc/grouped_matmul.cu``; CPU
-    tensors through :func:`quantized_matmul_plain`.
+    (M, N) f32. CUDA tensors go through ``csrc/grouped_matmul.cu`` (TMA and
+    bf16 ``wgmma``, dequantizing in front of the tensor cores, on the plan of
+    :func:`_grouped_plan`); CPU tensors through
+    :func:`quantized_matmul_plain`.
     """
     if packed.dtype != torch.uint8:
         raise TypeError(f"packed must be uint8, got {packed.dtype}")
@@ -234,8 +237,8 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
         return quantized_matmul_plain(x, packed, scales, num_bits, G)
     if num_bits not in (2, 4, 8) or P % 32 or G % 16:
         raise ValueError(f"the CUDA kernel takes 2/4/8-bit codes with "
-                         f"K/f % 32 == 0 and G % 16 == 0 (32 packed bytes "
-                         f"of a row per step, one scale per 16 bytes), got "
+                         f"K/f % 32 == 0 and G % 16 == 0 (TMA rows of packed "
+                         f"bytes, one scale per 16 bytes), got "
                          f"{num_bits}-bit K={K} G={G}")
     out = _launch_grouped(x.to(torch.bfloat16).contiguous(), packed,
                           scales.float().contiguous(), num_bits, G)
@@ -243,15 +246,105 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def _launch_grouped(xb, packed, scales, num_bits: int, G: int):
-    """Launch ``csrc/grouped_matmul.cu`` on bf16 activations."""
+# The CUDA kernel's tiles (csrc/grouped_matmul.cu): steps of 64 packed bytes
+# of a weight row (64 k of each plane); at M <= 16, 64 weight rows and 8 or 16
+# activation rows a CTA (several CTAs an SM); above, 128 weight rows and 64
+# or 128 activation rows (one CTA an SM). A split walks at least
+# _GROUPED_MIN_SPLIT_STEPS steps unless K has fewer.
+_GROUPED_BK = 64
+_GROUPED_MIN_SPLIT_STEPS = 4
+_GROUPED_SPLIT_MAX_M = 16
+# M <= 16 splits K until the grid holds about three CTAs per SM: at M 8 on an
+# H100 80GB HBM3 (700 W), 4096 x 4096 took 0.0113 ms at 512 CTAs and 0.0207
+# at 64; 11008 x 4096 0.0209 at 516 and 0.0290 at 172; 4096 x 11008 0.0241
+# at 512 and 0.0656 at 64 (scripts/torch_grouped_times.py --sweep)
+_GROUPED_SPLITK_WAVES = 3
+
+
+def _grouped_plan(M: int, N: int, K: int, bits: int, sms: int = 132,
+                  split_steps: Optional[int] = None) -> dict:
+    """How ``csrc/grouped_matmul.cu`` runs ``(M, K) @ W.T`` with ``W`` (N, K)
+    packed at ``bits``: ``path`` "splitk" at M <= 16 (64 weight rows and the
+    M activation rows as wgmma's ``cols`` = 8 or 16 columns a CTA) or
+    "tiled" above (128 weight rows and ``cols`` = 64 or 128 activation rows
+    a CTA); either walks the ``K / f`` packed bytes of a row in ``splits``
+    CTAs of ``split_steps`` 64-byte steps each, the last possibly shorter,
+    and ``workspace`` f32 hold their partial tiles (one arrival counter for
+    each of the ``tiles``) when ``splits`` > 1. ``grid`` is the launch's (N
+    tiles, M tiles, splits). The split count is the least that brings the
+    grid to three CTAs per SM (splitk: several fit an SM) or the most that
+    keeps it within one CTA per SM (tiled), but no split except the last
+    walks fewer than 4 steps. ``split_steps`` overrides the steps per split
+    (for tuning)."""
+    k_steps = -(-(K // (8 // bits)) // _GROUPED_BK)
+    if M <= _GROUPED_SPLIT_MAX_M:
+        path, rows, cols = "splitk", 64, 8 if M <= 8 else 16
+    else:
+        path, rows, cols = "tiled", 128, 64 if M <= 64 else 128
+    grid_nm = (-(-N // rows), -(-M // cols))
+    tiles = grid_nm[0] * grid_nm[1]
+    want = (-(-_GROUPED_SPLITK_WAVES * sms // tiles) if path == "splitk"
+            else sms // tiles)
+    if split_steps is None:
+        splits = max(1, min(want, k_steps // _GROUPED_MIN_SPLIT_STEPS))
+        split_steps = -(-k_steps // splits)
+    split_steps = max(1, min(split_steps, k_steps))
+    splits = -(-k_steps // split_steps)
+    return dict(path=path, rows=rows, cols=cols, tiles=tiles, splits=splits,
+                split_steps=split_steps, grid=grid_nm + (splits,),
+                workspace=splits * tiles * rows * cols if splits > 1 else 0)
+
+
+# Zeroed split-K arrival counters per (device, stream): a launch's last CTA
+# of each tile sets its counter back to 0, so launches in stream order share
+# them, and launches on two streams never do. Counters made while a stream
+# is captured belong to that capture's graph (the zeroing is a node of it),
+# so each capture gets its own.
+_SPLIT_COUNTERS: dict = {}
+
+
+def _split_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    stream = _build.stream_ptr(device)
+    capture = ctypes.c_ulonglong(0)
+    _build.check(_build.library("grouped_matmul").grouped_capture_id(
+        stream, ctypes.byref(capture)), "grouped_capture_id")
+    key = (device.index, stream)
+    held = _SPLIT_COUNTERS.get(key)
+    if held is None or held[0] != capture.value or held[1].numel() < tiles:
+        held = (capture.value, torch.zeros(max(tiles, 1024),
+                                           dtype=torch.int32, device=device))
+        _SPLIT_COUNTERS[key] = held
+    return held[1]
+
+
+def _launch_grouped(xb, packed, scales, num_bits: int, G: int,
+                    split_steps: Optional[int] = None):
+    """Launch ``grouped_matmul_launch`` of ``csrc/grouped_matmul.cu`` on bf16
+    activations, on the plan of :func:`_grouped_plan` (a split-K workspace
+    from ``torch.empty``, counters from :func:`_split_counters`)."""
     M, K = xb.shape
     N = packed.shape[0]
     _check_cuda_operands(xb, packed, scales)
+    # TMA reads x and the packed bytes from 16-byte aligned bases: a layer of
+    # a stacked slab is read in place, a view off that alignment is copied
+    xb, packed = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (xb, packed))
+    index = xb.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _grouped_plan(M, N, K, num_bits, _sm_count(index), split_steps)
     out = torch.empty((M, N), dtype=torch.float32, device=xb.device)
+    ws = counters = None
+    if plan["splits"] > 1:
+        ws = torch.empty(plan["workspace"], dtype=torch.float32,
+                         device=xb.device)
+        counters = _split_counters(xb.device, plan["tiles"])
     err = _build.library("grouped_matmul").grouped_matmul_launch(
         xb.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        M, N, K, num_bits, G, _build.stream_ptr(xb.device))
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), M, N, K,
+        num_bits, G, 0 if plan["path"] == "splitk" else 1, plan["cols"],
+        plan["split_steps"], plan["splits"], _build.stream_ptr(xb.device))
     _build.check(err, "grouped_matmul")
     return out
 

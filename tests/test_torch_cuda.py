@@ -498,41 +498,56 @@ def test_engine_on_card_counts_launches(dev):
 
 
 def _grouped_close(y, ref):
-    # bf16 x bf16 products are exact in f32 on both sides (mma.sync against
+    # bf16 x bf16 products are exact in f32 on both sides (wgmma against
     # cuBLAS in f32 on the same bf16 values); only the order of the K f32
-    # sums differs
+    # sums differs (split-K included)
     torch.testing.assert_close(y.cpu(), ref.cpu(), rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
 
 
-def _grouped_inputs(rng, M, N, K, bits, G):
+def _grouped_inputs(rng, M, N, K, bits, G, layers=None):
     f = 8 // bits
+    lead = () if layers is None else (layers,)
     x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
     packed = torch.from_numpy(rng.integers(
-        0, 255 if bits == 8 else 256, size=(N, K // f), dtype=np.uint8))
+        0, 255 if bits == 8 else 256, size=lead + (N, K // f),
+        dtype=np.uint8))
     scales = torch.from_numpy(
-        rng.uniform(0.001, 0.02, size=(N, K // G)).astype(np.float32))
+        rng.uniform(0.001, 0.02, size=lead + (N, K // G)).astype(np.float32))
     return x, packed, scales
 
 
-@pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("M", [1, 8, 17, 40, 100])
-def test_grouped_kernel_matches_plain(dev, bits, M):
-    # N = 200 leaves a ragged 64-column tile; M > 16 takes 64-row tiles
-    rng = np.random.default_rng(1000 + 10 * bits + M)
-    x, packed, scales = _grouped_inputs(rng, M, 200, 512, bits,
-                                        _resolve(bits, 512))
+# (N, K, bits) where the packing allows (K / f % 32 == 0); K 320 at 4 bits
+# is a plane of 160 bytes, 32 past a multiple of the kernel's 64-byte step
+_GROUPED_SHAPES = [(N, Kd, bits) for N, Kd in ((200, 512), (4096, 4096),
+                                               (200, 320))
+                   for bits in (2, 4, 8) if (Kd * bits // 8) % 32 == 0]
+
+
+@pytest.mark.parametrize("N,Kd,bits", _GROUPED_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 65, 512])
+def test_grouped_kernel_matches_plain(dev, N, Kd, bits, M):
+    # both paths (split-K swap-AB at M <= 16, 128 x 128 tiles above), N not
+    # a multiple of either tile, the ragged end of a plane (TMA's zero fill
+    # of x covers codes that read as -maxq)
+    rng = np.random.default_rng(1000 + 10 * bits + M + N + Kd)
+    x, packed, scales = _grouped_inputs(rng, M, N, Kd, bits,
+                                        _resolve(bits, Kd))
+    x, packed, scales = x.to(dev), packed.to(dev), scales.to(dev)
     ref = K.quantized_matmul_plain(x, packed, scales, bits)
     before = K.quantized_matmul.launches
-    y = K.quantized_matmul(x.to(dev), packed.to(dev), scales.to(dev), bits)
+    y = K.quantized_matmul(x, packed, scales, bits)
     assert K.quantized_matmul.launches == before + 1
     _grouped_close(y, ref)
 
 
 @pytest.mark.parametrize("bits,G", [(2, 16), (4, 32), (8, 48)])
-def test_grouped_kernel_explicit_group(dev, bits, G):
-    rng = np.random.default_rng(1100 + bits)
-    x, packed, scales = _grouped_inputs(rng, 5, 64, 768, bits, G)
+@pytest.mark.parametrize("M", [5, 40])
+def test_grouped_kernel_explicit_group(dev, bits, G, M):
+    # groups of 16, 32 and 48 values: a scale a 16-byte run, G 48 crossing
+    # the 64-byte steps
+    rng = np.random.default_rng(1100 + bits + M)
+    x, packed, scales = _grouped_inputs(rng, M, 64, 768, bits, G)
     ref = K.quantized_matmul_plain(x, packed, scales, bits, G)
     _grouped_close(K.quantized_matmul(x.to(dev), packed.to(dev),
                                        scales.to(dev), bits, G), ref)
@@ -544,6 +559,102 @@ def test_grouped_kernel_input_rules(dev):
         K.quantized_matmul(x, torch.zeros(4, 24, dtype=torch.uint8,
                                            device=dev),
                             torch.ones(4, 6, device=dev), 4)
+
+
+@pytest.mark.parametrize("M,N,Kd", [(8, 4096, 4096), (3, 200, 11008),
+                                    (16, 4096, 4096), (17, 4096, 4096),
+                                    (100, 200, 2048)])
+def test_grouped_kernel_split_k_is_deterministic(dev, M, N, Kd):
+    # the partial tiles are summed in split order, whichever CTA is last
+    assert K._grouped_plan(M, N, Kd, 4)["splits"] > 1
+    rng = np.random.default_rng(1150 + M)
+    x, packed, scales = _grouped_inputs(rng, M, N, Kd, 4, _resolve(4, Kd))
+    args = (x.to(dev), packed.to(dev), scales.to(dev), 4)
+    ys = [K.quantized_matmul(*args) for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    _grouped_close(ys[0], K.quantized_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("M", [8, 17, 512])
+def test_grouped_kernel_in_cuda_graph(dev, M):
+    # tensor maps are kernel parameters and the split-K counters of a
+    # capture belong to its graph: replays give the eager bits
+    rng = np.random.default_rng(1160 + M)
+    x, packed, scales = _grouped_inputs(rng, M, 4096, 4096, 4, 512)
+    xb = x.to(dev).to(torch.bfloat16)
+    packed, scales = packed.to(dev), scales.to(dev)
+    eager = K._launch_grouped(xb, packed, scales, 4, 512)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K._launch_grouped(xb, packed, scales, 4, 512)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [K._launch_grouped(xb, packed, scales, 4, 512)
+                for _ in range(2)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, eager) for out in outs)
+    # an eager launch on the capture's stream after the capture
+    with torch.cuda.stream(side):
+        again = K._launch_grouped(xb, packed, scales, 4, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager)
+
+
+@pytest.mark.parametrize("M", [8, 512])
+def test_grouped_kernel_last_layer(dev, M):
+    # the last of 5 layers of a stacked slab, read in place: a wrong base
+    # reads past the slab or another layer
+    rng = np.random.default_rng(1170 + M)
+    x, packed, scales = _grouped_inputs(rng, M, 200, 1088, 4,
+                                        _resolve(4, 1088), layers=5)
+    pd, sd = packed.to(dev), scales.to(dev)
+    y = K.quantized_matmul(x.to(dev), pd[4], sd[4], 4)
+    _grouped_close(y, K.quantized_matmul_plain(x, packed[4], scales[4], 4))
+
+
+@pytest.mark.parametrize("M", [8, 40])
+def test_grouped_kernel_unaligned_x(dev, M):
+    # a bf16 x 2 bytes past a 16-byte boundary is copied for TMA, not
+    # refused
+    rng = np.random.default_rng(1180 + M)
+    x, packed, scales = _grouped_inputs(rng, M, 200, 512, 4, 128)
+    buf = torch.zeros(M * 512 + 1, dtype=torch.bfloat16, device=dev)
+    xv = buf[1:].view(M, 512)
+    xv.copy_(x.to(dev))
+    assert xv.data_ptr() % 16
+    y = K.quantized_matmul(xv, packed.to(dev), scales.to(dev), 4, 128)
+    _grouped_close(y, K.quantized_matmul_plain(xv.float().cpu(), packed,
+                                               scales, 4, 128))
+
+
+def test_grouped_kernel_two_streams(dev):
+    # split-K launches on two streams at once: each stream has its own
+    # arrival counters, so neither sees the other's arrivals
+    rng = np.random.default_rng(1190)
+    cases = []
+    for M in (8, 17):
+        x, packed, scales = _grouped_inputs(rng, M, 4096, 4096, 4, 512)
+        args = (x.to(dev).to(torch.bfloat16), packed.to(dev),
+                scales.to(dev), 4, 512)
+        assert K._grouped_plan(M, 4096, 4096, 4)["splits"] > 1
+        cases.append((args, K.quantized_matmul_plain(x, packed, scales, 4)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(K._launch_grouped(*cases[k][0]))
+    torch.cuda.synchronize()
+    for k, (_, ref) in enumerate(cases):
+        for y in outs[k]:
+            _grouped_close(y, ref)
+        assert all(torch.equal(outs[k][0], y) for y in outs[k][1:])
 
 
 @pytest.mark.slow

@@ -130,6 +130,72 @@ class TestQuantizedMatmul:
                                 torch.ones(8, 2), 4, 24)
 
 
+_PLAN_SHAPES = [(N, K, bits) for N, K in ((4096, 4096), (11008, 4096),
+                                         (4096, 11008), (200, 512),
+                                         (200, 320), (64, 768), (96, 256))
+                for bits in (2, 4, 8) if (K * bits // 8) % 32 == 0]
+
+
+@pytest.mark.parametrize("N,K,bits", _PLAN_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 65, 512, 1024])
+def test_grouped_plan(M, N, K, bits):
+    # the CUDA kernel's launch plan (csrc/grouped_matmul.cu), on a 132-SM card
+    plan = TK._grouped_plan(M, N, K, bits, sms=132)
+    k_steps = -(-(K * bits // 8) // 64)  # 64-byte steps of a packed row
+    splits, step = plan["splits"], plan["split_steps"]
+    # the cut falls between M 16 and 17: swap-AB tiles of 64 weight rows and
+    # 8 or 16 activation rows, then 128 weight rows and 64 or 128
+    if M <= 16:
+        assert plan["path"] == "splitk" and plan["rows"] == 64
+        assert M <= plan["cols"] == (8 if M <= 8 else 16)
+    else:
+        assert plan["path"] == "tiled" and plan["rows"] == 128
+        assert plan["cols"] == (64 if M <= 64 else 128)
+    grid_n = -(-N // plan["rows"])
+    grid_m = -(-M // plan["cols"])
+    assert plan["tiles"] == grid_n * grid_m
+    assert plan["grid"] == (grid_n, grid_m, splits)
+    if M <= 16:
+        # the grid reaches the card's 132 SMs wherever K allows splits of at
+        # least 4 steps (several of these CTAs fit an SM)
+        if k_steps // 4 >= -(-132 // plan["tiles"]):
+            assert plan["tiles"] * splits >= 132
+    else:
+        # one CTA per SM: split only while the grid fits one wave
+        assert splits == 1 or plan["tiles"] * splits <= 132
+    # every split is non-empty and together they cover the K steps exactly
+    spans = [(i * step, min((i + 1) * step, k_steps)) for i in range(splits)]
+    assert all(b > a for a, b in spans) and spans[-1][1] == k_steps
+    # no split but the last walks fewer than 4 steps
+    assert splits == 1 or step >= 4
+    if k_steps < 8:
+        assert splits == 1
+    assert plan["workspace"] == (
+        splits * plan["tiles"] * plan["rows"] * plan["cols"]
+        if splits > 1 else 0)
+
+
+@pytest.mark.parametrize("M,N,K,grid,step", [
+    (8, 4096, 4096, (64, 1, 7), 5), (8, 11008, 4096, (172, 1, 3), 11),
+    (8, 4096, 11008, (64, 1, 7), 13), (512, 4096, 4096, (32, 4, 1), 32),
+    (512, 11008, 4096, (86, 4, 1), 32), (512, 4096, 11008, (32, 4, 1), 86),
+    (1024, 4096, 11008, (32, 8, 1), 86), (17, 4096, 4096, (32, 1, 4), 8)])
+def test_grouped_plan_7b_shapes(M, N, K, grid, step):
+    # Llama-2-7B's projections at 4 bits: decode's M 8 splits K to about
+    # three CTAs per SM; prefill's M 512 and 1024 fill the card with tiles
+    plan = TK._grouped_plan(M, N, K, 4, sms=132)
+    assert (plan["grid"], plan["split_steps"]) == (grid, step)
+    assert plan["path"] == ("splitk" if M <= 16 else "tiled")
+
+
+def test_grouped_plan_split_override():
+    # split_steps (for tuning) is clamped to K's steps and sets the splits
+    assert TK._grouped_plan(8, 4096, 4096, 4, 132, 4)["grid"] == (64, 1, 8)
+    plan = TK._grouped_plan(8, 4096, 4096, 4, 132, 100)
+    assert (plan["splits"], plan["split_steps"], plan["workspace"]) == (
+        1, 32, 0)
+
+
 class TestW4A8Flat:
     @pytest.mark.parametrize("bits", [2, 4, 8])
     @pytest.mark.parametrize("M", [1, 33])
