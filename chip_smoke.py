@@ -17,8 +17,13 @@ caught):
    CUDA graph, timed with CUDA events, weights and caches rotated so they
    come from device memory), the plain version's time and the bound time
    (bytes over 3.35 TB/s, or operations over 1979 TOP/s int8 or 67 TFLOP/s
-   f32, the larger): the W4A8 matmul at decode's M = 8 and prefill's M =
-   512 and 2048; flash prefill at S = 512, 2048, a ragged 300 and a GQA
+   f32, the larger): the W4A8 matmul at decode's M = 8 (the rowdot
+   kernel) and, at prefill's M = 512 and 2048, its int8 wgmma tile path on
+   the four Llama-2-7B projections, each bit-equal to the plain version and
+   to a rowdot launch, beside one torch._int_mm on the codes unpacked to
+   int8 beforehand plus the rescale (the yardstick of every int8 kernel
+   here, where _int_mm takes the M; the head also at M 32 where it refuses
+   M 8); flash prefill at S = 512, 2048, a ragged 300 and a GQA
    shape, beside one SDPA call (bound: its 3xTF32 operations at 495
    TFLOP/s; two launches bit-equal), and on sharp logits (q, k x 3) within
    1.25x the plain version's error against a float64 attention; the
@@ -222,6 +227,12 @@ def _time_ms(torch, fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def _mean_or_none(values):
+    """The mean, or None if any value is None."""
+    return (None if any(v is None for v in values)
+            else statistics.fmean(values))
+
+
 def _map_tensors(obj, fn):
     """Apply ``fn`` to every tensor of a params tree of dataclasses."""
     import torch
@@ -243,6 +254,11 @@ def phase_kernels(torch, dev, record):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     M = 8
+    # the yardstick of the int8 kernels at decode's M, where _int_mm takes it
+    refusal = _int_mm_refusal(torch, dev, M, 4096, 4096)
+    if refusal is not None:
+        print(f"torch._int_mm refuses M={M}: {refusal}; the int8 kernels' "
+              f"library_ms stays null at M {M}", flush=True)
     # --- W4A8 stacked matmul: the four Llama-2-7B projections and 2-bit
     w4 = record["w4a8_stacked"]
     main_times = []
@@ -270,23 +286,30 @@ def phase_kernels(torch, dev, record):
             xq, sx, packed, scales, i % Lk, bits), 50)
         plain_ms = _time_ms(torch, lambda i: K.quantized_matmul_w4a8_stacked_plain(
             x, packed, scales, i % Lk, bits), 3, reps=3)
+        lib_ms = None
+        if main and refusal is None:
+            lib_ms = _int_mm_ms(
+                torch, xq, _unpacked_int8(torch, K, packed, bits),
+                [scales[i].reshape(1, -1) for i in range(Lk)], sx, 50)
         nbytes = M * Kd + M * 4 + layer_bytes + N * 4 + M * N * 4
         bound, by = _bound_ms(nbytes, 2 * M * N * Kd)
         print(f"w4a8_stacked {name} M={M} N={N} K={Kd} {bits}-bit: max diff "
               f"{err:.3e} (bound rtol 1e-6, atol {tol:.3e}) kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+              f"{_ms_txt(lib_ms, ms)}, bound {bound:.4f} ms "
               f"({bound / ms:.1%} of bound)", flush=True)
         if not ok:
             raise AssertionError(f"w4a8_stacked {name} disagrees with plain")
         w4["max_abs_err"] = max(w4["max_abs_err"] or 0.0, err)
         if main:
-            main_times.append((ms, plain_ms, nbytes, 2 * M * N * Kd))
+            main_times.append((ms, plain_ms, nbytes, 2 * M * N * Kd, lib_ms))
         del packed
     torch.cuda.empty_cache()
     # one launch per projection per layer: the mean is the time per launch
     mean = [statistics.fmean(t[j] for t in main_times) for j in range(4)]
     bound, by = _bound_ms(mean[2], mean[3])
-    w4.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by)
+    w4.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by,
+              library_ms=_mean_or_none([t[4] for t in main_times]))
 
     # --- staged flash-decode attention
     fa = record["flash_decode_q8_staged"]
@@ -364,14 +387,27 @@ def phase_kernels(torch, dev, record):
                         reps=3)
     bound, by = _bound_ms(M * Kd + M * 4 + N * Kd + N * 4 + M * N * 4,
                           2 * M * N * Kd)
+    srow = s.reshape(1, -1)
+    lib_ms = (None if refusal is not None else
+              _int_mm_ms(torch, xq, [w8], [srow], sx, 50))
     print(f"int8_matmul lm_head M={M} N={N} K={Kd}: max diff {err:.3e} "
           f"(bound rtol 1e-6, atol {tol:.3e}) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of "
-          f"bound)", flush=True)
+          f"{plain_ms:.4f} ms, torch._int_mm {_ms_txt(lib_ms, ms)}, bound "
+          f"{bound:.4f} ms ({bound / ms:.1%} of bound)", flush=True)
     if not torch.allclose(y, ref, rtol=1e-6, atol=tol):
         raise AssertionError("int8_matmul disagrees with plain")
     i8.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-              bound_by=by)
+              bound_by=by, library_ms=lib_ms)
+    if refusal is not None:
+        # the smallest M that _int_mm takes, kernel and yardstick side by side
+        M32 = 32
+        x32 = torch.randn((M32, Kd), generator=gen, device=dev)
+        xq32, sx32 = K.quantize_activations_int8(x32)
+        ms32 = _time_ms(torch, lambda i: K._launch_int8_matmul(
+            xq32, sx32, w8, s), 50)
+        lib32 = _int_mm_ms(torch, xq32, [w8], [srow], sx32, 50)
+        print(f"int8_matmul lm_head M={M32}: kernel {ms32:.4f} ms, "
+              f"torch._int_mm {_ms_txt(lib32, ms32)}", flush=True)
     del w8
     _phase_kernels_prefill(torch, dev, gen, record)
     _phase_kernels_decode(torch, dev, gen, record)
@@ -445,11 +481,17 @@ def _phase_kernels_proj(torch, dev, gen, record):
             nbytes = M * Kd + M * 4 + layer_bytes + N * 4 + M * N * 4
             ops = 2 * M * N * Kd
             bound, by = _bound_ms(nbytes, ops)
+            lib_ms = None
+            if _int_mm_refusal(torch, dev, M, Kd, N) is None:
+                lib_ms = _int_mm_ms(
+                    torch, xq, _unpacked_int8(torch, K, packed, bits),
+                    [scales[i].reshape(1, -1) for i in range(Lk)], sx, iters)
             line += (f"; persistent {ms:.4f} ms, kernel 1 {ms1:.4f} ms "
-                     f"({ms / ms1:.2f}x), plain {plain_ms:.4f} ms, bound "
+                     f"({ms / ms1:.2f}x), plain {plain_ms:.4f} ms, "
+                     f"torch._int_mm {_ms_txt(lib_ms, ms)}, bound "
                      f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)")
             if M == 8:
-                main.append((ms, plain_ms, nbytes, ops, ms1))
+                main.append((ms, plain_ms, nbytes, ops, ms1, lib_ms))
         print(line, flush=True)
         del packed
     torch.cuda.empty_cache()
@@ -457,7 +499,8 @@ def _phase_kernels_proj(torch, dev, gen, record):
     bound, by = _bound_ms(mean[2], mean[3])
     print(f"w4a8 persistent M=8: mean of o and down {mean[0]:.4f} ms, "
           f"kernel 1 {mean[4]:.4f} ms, bound {bound:.4f} ms", flush=True)
-    rec.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by)
+    rec.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by,
+               library_ms=_mean_or_none([t[5] for t in main]))
 
     rec = record["bf16_matmul_stacked"]
     K.bf16_matmul_stacked.launches = 0
@@ -751,75 +794,143 @@ def _phase_kernels_packed(torch, dev, gen, record):
             plain_ms = _time_ms(
                 torch, lambda i: K.quantized_matmul_w4a8_plain(
                     x, packed[i % Lk], sw[i % Lk], 4), 2, reps=3)
+            lib_ms = None
+            if _int_mm_refusal(torch, dev, M, Kd, N) is None:
+                lib_ms = _int_mm_ms(
+                    torch, xq, _unpacked_int8(torch, K, packed, 4),
+                    [sw[i].reshape(1, -1) for i in range(Lk)], sx, iters)
             nbytes = M * Kd + M * 4 + N * P + N * 4 + M * N * 4
             bound, by = _bound_ms(nbytes, ops)
             print(f"quantized_matmul_w4a8 {name} M={M} N={N} K={Kd} 4-bit: "
                   f"max diff {err:.3e} (bound rtol 1e-6, atol {tol:.3e}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch._int_mm {_ms_txt(lib_ms, ms)}, bound "
                   f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
                   flush=True)
             rec = record["quantized_matmul_w4a8"]
             rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
-            for j, v in enumerate((ms, plain_ms, nbytes, ops, 0.0)):
+            for j, v in enumerate((ms, plain_ms, nbytes, ops)):
                 sums["quantized_matmul_w4a8"][j] += count * v
+            # None poisons the library sum: _int_mm refused a shape
+            lib_sum = sums["quantized_matmul_w4a8"][4]
+            sums["quantized_matmul_w4a8"][4] = (
+                None if lib_ms is None or lib_sum is None
+                else lib_sum + count * lib_ms)
             del packed, sg, sw
         torch.cuda.empty_cache()
         for name, tot in sums.items():
-            mean = [t / 7 for t in tot]
+            mean = [None if t is None else t / 7 for t in tot]
             bound, by = _bound_ms(mean[2], mean[3], BF16_OPS_PER_S
                                   if name == "quantized_matmul"
                                   else INT8_OPS_PER_S)
+            lib = ("bf16 torch.matmul" if name == "quantized_matmul"
+                   else "torch._int_mm")
             print(f"{name} M={M}: one layer's 7 launches, mean per launch "
                   f"{mean[0]:.4f} ms (plain {mean[1]:.4f}, bound {bound:.4f}"
-                  f" {by}" + (f", bf16 torch.matmul {mean[4]:.4f}, kernel / "
-                              f"cuBLAS {mean[0] / mean[4]:.2f}"
-                              if name == "quantized_matmul" else "")
-                  + ")", flush=True)
+                  f" {by}, {lib} {_ms_txt(mean[4], mean[0])})", flush=True)
             if M == 8:
                 record[name].update(
                     ms=mean[0], plain_ms=mean[1], bound_ms=bound,
-                    bound_by=by,
-                    library_ms=mean[4] if name == "quantized_matmul"
-                    else None)
+                    bound_by=by, library_ms=mean[4])
+
+
+def _int_mm_call(torch, xq, w8, srow, sx):
+    """The int8 kernels' yardstick: one ``torch._int_mm`` (cuBLASLt int8
+    with i32 sums) against int8 weights (the W4A8 codes unpacked to ``u -
+    maxq`` beforehand, untimed), then the kernels' rescale ``(acc * s_n) *
+    sx_m``."""
+    return (torch._int_mm(xq, w8.t()).float() * srow) * sx
+
+
+def _int_mm_ms(torch, xq, w8s, srows, sx, iters):
+    """Device ms of :func:`_int_mm_call` over the rotated layers ``w8s``."""
+    return _time_ms(torch, lambda i: _int_mm_call(
+        torch, xq, w8s[i % len(w8s)], srows[i % len(w8s)], sx), iters)
+
+
+def _int_mm_refusal(torch, dev, M, Kd, N):
+    """None if ``torch._int_mm`` takes an (M, K) x (K, N) product on the
+    card (it has taken only M > 16 there), else the first line of its
+    error."""
+    try:
+        torch._int_mm(torch.zeros((M, Kd), dtype=torch.int8, device=dev),
+                      torch.zeros((N, Kd), dtype=torch.int8, device=dev).t())
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return str(exc).splitlines()[0]
+    return None
+
+
+def _ms_txt(lib_ms, ms):
+    """A yardstick's ms and the kernel's ratio to it, or "refused"."""
+    if lib_ms is None:
+        return "refused"
+    return f"{lib_ms:.4f} ms (kernel / it {ms / lib_ms:.2f})"
+
+
+def _unpacked_int8(torch, K, packed, bits):
+    """Layer by layer, the int8 weights ``u - maxq`` of packed codes."""
+    maxq = 2 ** (bits - 1) - 1
+    return [(K.unpack_codes(p, bits).to(torch.int16) - maxq).to(torch.int8)
+            for p in packed]
 
 
 def _phase_kernels_prefill(torch, dev, gen, record):
-    """The W4A8 kernel at prefill's M, and the flash prefill kernel."""
+    """The W4A8 kernel at prefill's M (its tile path), and the flash prefill
+    kernel."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         attention as AT, kernels as K)
 
-    # W4A8 at M = S (the prefill's rows): 32-row M tiles, each re-reading
-    # the weights, so the bound is the int8 operations
+    # W4A8 at M = S (the prefill's rows), the four Llama-2-7B projections
+    # at 4 bits on the tile path (int8 wgmma): bit-equal to the plain
+    # version and to a launch of the rowdot kernel (the decode design, forced
+    # here); beside one torch._int_mm on the codes unpacked to int8. The
+    # packed weights rotate over enough layers to come from device memory.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for M in (512, 2048):
-        for name, N, Kd in [("qkv", 12288, 4096), ("gate_up", 22016, 4096)]:
-            packed = torch.randint(0, 256, (2, N, Kd // 2), generator=gen,
+        for name, N, Kd in [("qkv", 12288, 4096), ("o", 4096, 4096),
+                            ("gate_up", 22016, 4096),
+                            ("down", 4096, 11008)]:
+            Lk = max(2, math.ceil(200e6 / (N * Kd // 2)))
+            packed = torch.randint(0, 256, (Lk, N, Kd // 2), generator=gen,
                                    dtype=torch.uint8, device=dev)
-            scales = torch.rand((2, N, 1), generator=gen, device=dev) * 0.01
+            scales = torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01
             x = torch.randn((M, Kd), generator=gen, device=dev)
             y = K.quantized_matmul_w4a8_stacked(x, packed, scales, 1, 4)
             ref = K.quantized_matmul_w4a8_stacked_plain(x, packed, scales, 1,
                                                         4)
-            torch.cuda.synchronize()
-            err = float((y - ref).abs().max())
-            tol = 1e-6 * float(ref.abs().max())
-            if not torch.allclose(y, ref, rtol=1e-6, atol=tol):
-                raise AssertionError(f"w4a8_stacked {name} M={M} disagrees "
-                                     "with plain")
             xq, sx = K.quantize_activations_int8(x)
+            row = K._launch_w4a8_stacked(xq, sx, packed, scales, 1, 4,
+                                         path="rowdot")
+            torch.cuda.synchronize()
+            plan = K._w4a8_plan(M, N, Kd, 4, sms)
+            if not (plan["path"] == "tile" and torch.equal(y, ref)
+                    and torch.equal(y, row)):
+                raise AssertionError(f"w4a8_stacked {name} M={M}: the tile "
+                                     "path is not bit-equal to the plain "
+                                     "version and the rowdot launch")
             ms = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
-                xq, sx, packed, scales, i % 2, 4), 10)
+                xq, sx, packed, scales, i % Lk, 4), 10)
             plain_ms = _time_ms(
                 torch, lambda i: K.quantized_matmul_w4a8_stacked_plain(
-                    x, packed, scales, i % 2, 4), 2, reps=3)
+                    x, packed, scales, i % Lk, 4), 2, reps=3)
+            w8 = _unpacked_int8(torch, K, packed, 4)
+            srows = [scales[i].reshape(1, -1) for i in range(Lk)]
+            lib_ms = _int_mm_ms(torch, xq, w8, srows, sx, 10)
+            lib_eq = torch.equal(_int_mm_call(torch, xq, w8[1], srows[1], sx),
+                                 ref)
+            del w8
             nbytes = M * Kd + M * 4 + N * Kd // 2 + N * 4 + M * N * 4
             bound, by = _bound_ms(nbytes, 2 * M * N * Kd)
             print(f"w4a8_stacked prefill {name} M={M} N={N} K={Kd} 4-bit: "
-                  f"max diff {err:.3e} (bound rtol 1e-6, atol {tol:.3e}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"tiles of {plan['rows']} x {plan['cols']}, "
+                  f"{plan['tiles']} on {plan['grid'][0]} persistent CTAs; "
+                  f"bit-equal to the plain version and to "
+                  f"the rowdot launch; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, torch._int_mm {_ms_txt(lib_ms, ms)} "
+                  f"({'equal' if lib_eq else 'not equal'} to plain), bound "
                   f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
                   flush=True)
-            record["w4a8_stacked"]["max_abs_err"] = max(
-                record["w4a8_stacked"]["max_abs_err"], err)
             del packed
     torch.cuda.empty_cache()
 
@@ -3285,12 +3396,15 @@ def main() -> int:
     # library_ms: one SDPA call for flash_prefill (f32, causal); for
     # quantized_matmul, one bf16 torch.matmul on its weights dequantized
     # beforehand; for bf16_matmul_stacked, one bf16 torch.matmul on its
-    # operands. No single PyTorch call computes the other functions
-    # (packed offset-binary codes rescaled per row of int8 activations, with
-    # or without the int8 low-rank factors and the MLP's requantization;
-    # attention over an int8 cache with per-token scales, or over an int8
-    # pool through a page table, and int8 probabilities in dots="i8"; a whole
-    # decode step of those in one launch), so theirs is null.
+    # operands; for the W4A8 kernels (grid, flat and persistent launches) and
+    # int8_matmul, one torch._int_mm on int8 weights (the W4A8 codes unpacked
+    # to u - maxq beforehand) plus the rescale, where _int_mm takes the
+    # record's M (null where it refuses it). No single PyTorch call computes
+    # the other functions (the int8 low-rank factors and the MLP's
+    # requantization fused in; attention over an int8 cache with per-token
+    # scales, or over an int8 pool through a page table, and int8
+    # probabilities in dots="i8"; a whole decode step of those in one
+    # launch), so theirs is null.
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"],
                     **{k: r[k] for k in measured},

@@ -51,6 +51,9 @@ ENTRIES = {
                                            _I, _I, _P],
         # xq, sx, packed, scales, out, M, N, K, bits, stream
         "w4a8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # xq, sx, packed, scales, out, M, N, K, bits, layer, rows (64 or
+        # 128), persistent CTAs, stream: the int8 wgmma tile path
+        "w4a8_tile_launch": [_P] * 5 + [_I] * 7 + [_P],
     },
     "grouped_matmul": {
         # x (bf16), packed, scales, out, split-K workspace, split-K counters,

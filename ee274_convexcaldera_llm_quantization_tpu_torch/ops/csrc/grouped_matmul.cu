@@ -66,8 +66,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 #include "hopper_gemm.cuh"
 
 namespace {
@@ -353,24 +351,6 @@ grouped_kernel(const __grid_constant__ CUtensorMap tw,
       }
   }
   store(acc);
-}
-
-// Raises a kernel's dynamic shared memory limit once per device, where it
-// needs more than the default 48 KB.
-template <auto Kernel>
-cudaError_t allow_smem(int bytes) {
-  static std::atomic<unsigned long long> done{0};
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
 }
 
 struct Args {

@@ -1,12 +1,17 @@
 // Hopper (sm_90a) building blocks of a TMA + wgmma matrix product, for the
-// port's tensor-core kernels: host-side tensor-map encoding, the mbarrier
+// port's tensor-core kernels: host-side tensor-map encoding and the raise of
+// a kernel's shared memory limit, the mbarrier
 // ring, the TMA tile load, and the wgmma shared-memory descriptors, fences
 // and m64nNk16 bf16 x bf16 -> f32 instructions. For packed codes: a map of
 // uint8 rows in 64-byte swizzled boxes and its offsets (sw64_u8), a 3-d map
 // of a bf16 matrix cut into planes, and its 3-d TMA load. For f32 operands
 // on the tensor cores (3xTF32): a map of 4-d f32 tensors in 128-byte swizzled boxes
 // of 32-value rows, its 4-d TMA load and element offsets, the tf32 split,
-// the m64nNk8 tf32 instructions and the async-proxy fence.
+// the m64nNk8 tf32 instructions and the async-proxy fence. For int8
+// products: a map of uint8 rows in 128-byte swizzled boxes, a 3-d map of an
+// int8 matrix cut into planes, and the m64n144k32 s8 x u8 -> s32
+// instruction (a 128-byte swizzled row of an 8-bit tile is 128 k, and k32
+// slice kk starts 32 kk bytes in, as a bf16 k16 slice does).
 //
 // Every tile these pieces describe is a stack of K-major rows of 64 bf16
 // (128 bytes), loaded by TMA with the 128-byte swizzle into shared memory at
@@ -18,6 +23,7 @@
 // y = x @ W.T with x (M, K) and W (N, K) both row-major.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -113,6 +119,44 @@ inline bool map_u8_rows(CUtensorMap* map, const void* base, uint64_t rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The map of a row-major uint8 matrix (rows, cols) with a row stride of ld
+// bytes, in boxes of box_rows rows x 128 bytes with the 128-byte swizzle
+// (the layout desc_sw128 describes, one byte a value). TMA fills the part of
+// a box outside the matrix with zeros. The base must be 16-byte aligned and
+// ld % 16 == 0. False on failure.
+inline bool map_u8_rows128(CUtensorMap* map, const void* base, uint64_t rows,
+                           uint64_t cols, uint64_t ld, uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld};
+  const cuuint32_t box[2] = {128, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a row-major int8 matrix (rows, planes * P) viewed as (rows,
+// planes, P), the int8 counterpart of map_bf16_planes: boxes of box_rows
+// rows x 1 plane x 128 bytes (128-byte swizzle), zero-filled past the end of
+// a plane or past the last row. The base must be 16-byte aligned and
+// P % 16 == 0. False on failure.
+inline bool map_i8_planes(CUtensorMap* map, const void* base, uint64_t rows,
+                          uint64_t planes, uint64_t P, uint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {P, planes, rows};
+  const cuuint64_t strides[2] = {P, planes * P};
+  const cuuint32_t box[3] = {128, 1, box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The map of a row-major bf16 matrix (rows, planes * P) viewed as (rows,
 // planes, P): plane p of row m is columns p P .. p P + P - 1. Boxes of
 // box_rows rows x 1 plane x 64 values (128-byte swizzle, the layout
@@ -131,6 +175,30 @@ inline bool map_bf16_planes(CUtensorMap* map, const void* base, uint64_t rows,
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raises a kernel's dynamic shared memory limit once per device, where it
+// needs more than the default 48 KB. Internal linkage (static): each library
+// that includes this keeps its own record, also beside another build of the
+// same source loaded in the process (a function-local static of a template
+// with external linkage would be one symbol for all of them). Not an unnamed
+// namespace: a source that puts `using namespace hopper` at file scope would
+// then see two, and nvcc's registration of its own unnamed-namespace kernels
+// would no longer compile.
+template <auto Kernel>
+static cudaError_t allow_smem(int bytes) {
+  static std::atomic<unsigned long long> done{0};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -279,6 +347,45 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for s32 accumulators.
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D (64 x 144, s32, 72 registers a thread) += A (64 x 32, s8) *
+// B (144 x 32, u8)^T, both in shared memory, K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_m64n144k32_s8u8(int (&d)[72],
+    uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k32.s32.s8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // D (64 x 8, f32, 4 registers a thread) += A (64 x 16) * B (8 x 16)^T,

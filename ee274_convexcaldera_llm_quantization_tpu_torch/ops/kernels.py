@@ -410,8 +410,10 @@ def quantized_matmul_w4a8_stacked(
 
     ``x`` (M, K) float, quantized to int8 per row (or with ``act_scale``);
     ``packed`` (L, N, K/f) uint8; ``row_scales`` (L, N, 1) f32. Returns
-    (M, N) f32. CUDA tensors go through ``csrc/w4a8_stacked.cu``; CPU
-    tensors through :func:`quantized_matmul_w4a8_stacked_plain`.
+    (M, N) f32. CUDA tensors go through ``csrc/w4a8_stacked.cu`` on the
+    plan of :func:`_w4a8_plan` (the ``rowdot`` kernel at decode M, the int8
+    ``wgmma`` tile kernel above it; the same bits); CPU tensors through
+    :func:`quantized_matmul_w4a8_stacked_plain`.
     """
     _check_w4a8_stacked(x, packed, row_scales, layer, num_bits)
     if x.device.type == "cpu":
@@ -424,21 +426,107 @@ def quantized_matmul_w4a8_stacked(
     return out
 
 
+# The CUDA kernel's two designs (csrc/w4a8_stacked.cu): at M <= 8 (decode)
+# the rowdot kernel (rowdot.cuh: one warp walks weight rows with __dp4a, 8- or
+# 32-row M tiles, every weight byte read once per M tile); above, the tile
+# kernel (TMA, an unpacker warpgroup, int8 wgmma m64n144k32, persistent
+# CTAs): tiles of 128 weight rows and 64 or 128 activation rows, 128 packed
+# bytes of a weight row a step. The tile kernel's i32 sums hold while
+# K <= 2^31 / (127 * 255).
+# On an H100 80GB HBM3 (700 W, scripts/torch_w4a8_times.py --sweep) the tile
+# kernel beat rowdot at every M from 9 (qkv at M 9: 0.0188 against 0.1614
+# ms; at M 8 too, 0.0184 against 0.0323, but decode keeps its kernel), and
+# 64-row tiles beat 128 exactly where they were no more than the larger of
+# the SM count and the 128-row tiles (o at M 256: 128 tiles, 0.0165 against
+# 0.0207 ms; qkv at M 96: 192, 0.0305 against 0.0217).
+_W4A8_ROWDOT_MAX_M = 8
+_W4A8_TILE_BK = 128
+_W4A8_TILE_BN = 128
+_W4A8_TILE_MAX_K = (2 ** 31 - 1) // (127 * 255)
+
+
+def _w4a8_plan(M: int, N: int, K: int, bits: int, sms: int = 132,
+               path: Optional[str] = None,
+               rows: Optional[int] = None) -> dict:
+    """How ``csrc/w4a8_stacked.cu`` runs ``(M, K) @ W.T`` with ``W`` (N, K)
+    packed at ``bits``: ``path`` "rowdot" at M <= 8 (``rows`` = 8 or 32
+    activation rows and ``cols`` = 32 or 8 weight rows a CTA) or "tile"
+    above (``tiles`` = (M tiles, N tiles) of ``rows`` = 64 or 128
+    activation rows and ``cols`` = 128 weight rows, each walking the ``K /
+    f`` packed bytes of a row in ``steps`` steps of 128 that feed ``f``
+    planes; ``straddle``: the last step's boxes reach past the end of a
+    plane, where TMA fills zeros). The tile takes 64 rows while its count
+    is no larger than the larger of ``sms`` and the 128-row count, else
+    128. ``grid`` is the launch's: for the tile path one persistent CTA a
+    tile, at most one an SM. ``path`` and ``rows`` override the choice (for
+    tuning and for comparing the two designs). Raises where the tile
+    kernel's i32 sums could overflow (K over 66311)."""
+    f = 8 // bits
+    P = K // f
+    if path is None:
+        path = "rowdot" if M <= _W4A8_ROWDOT_MAX_M else "tile"
+    if path == "rowdot":
+        rows = 8 if M <= 8 else 32
+        cols = 32 if rows == 8 else 8
+        return dict(path=path, rows=rows, cols=cols,
+                    grid=(-(-N // cols), -(-M // rows)))
+    if path != "tile":
+        raise ValueError(f"unknown W4A8 path {path!r}")
+    if K > _W4A8_TILE_MAX_K:
+        raise ValueError(f"the W4A8 tile kernel's i32 sums hold K <= "
+                         f"{_W4A8_TILE_MAX_K} (127 x 255 per product), got "
+                         f"K={K}")
+    n_tiles = -(-N // _W4A8_TILE_BN)
+    if rows is None:
+        tiles_64, tiles_128 = -(-M // 64) * n_tiles, -(-M // 128) * n_tiles
+        rows = 64 if tiles_64 <= max(sms, tiles_128) else 128
+    if rows not in (64, 128):
+        raise ValueError(f"the W4A8 tile kernel takes 64 or 128 activation "
+                         f"rows a CTA, got {rows}")
+    steps = -(-P // _W4A8_TILE_BK)
+    tiles = (-(-M // rows), n_tiles)
+    return dict(path=path, rows=rows, cols=_W4A8_TILE_BN, steps=steps,
+                straddle=P % _W4A8_TILE_BK != 0, tiles=tiles,
+                grid=(min(tiles[0] * tiles[1], sms),))
+
+
 def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
-                         num_bits: int, persistent: bool = False):
+                         num_bits: int, persistent: bool = False,
+                         path: Optional[str] = None,
+                         rows: Optional[int] = None):
     """Launch ``csrc/w4a8_stacked.cu`` on quantized activations against
-    layer ``layer`` of a stacked (L, N, K/f) tensor (on the persistent grid
-    when ``persistent``), or on a flat (N, K/f) tensor when ``layer`` is
-    None (the flat entry point)."""
+    layer ``layer`` of a stacked (L, N, K/f) tensor, or a flat (N, K/f)
+    tensor when ``layer`` is None (the flat entry point), on the plan of
+    :func:`_w4a8_plan` (``path`` and ``rows`` passed on to it); on the
+    persistent grid (rowdot.cuh) when ``persistent``. A failed launch
+    raises: neither design stands in for the other."""
     M, K = xq.shape
     N = packed.shape[-2]
     sx = sx.contiguous()
     _check_cuda_operands(xq, sx, packed, scales)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     lib = _build.library("w4a8_stacked")
+    stream = _build.stream_ptr(xq.device)
+    index = xq.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = None if persistent else _w4a8_plan(M, N, K, num_bits,
+                                              _sm_count(index), path, rows)
+    if plan is not None and plan["path"] == "tile":
+        # TMA reads x and the layer's bytes from 16-byte aligned bases: a
+        # layer of a stacked slab is read in place, a view off that
+        # alignment is copied
+        xq, packed = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (xq, packed))
+        err = lib.w4a8_tile_launch(
+            xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), out.data_ptr(), M, N, K, num_bits,
+            0 if layer is None else layer, plan["rows"], plan["grid"][0],
+            stream)
+        _build.check(err, "w4a8_tile")
+        return out
     args = (xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
             scales.data_ptr(), out.data_ptr(), M, N, K, num_bits)
-    stream = _build.stream_ptr(xq.device)
     if layer is None:
         err = lib.w4a8_launch(*args, stream)
     elif persistent:
@@ -953,8 +1041,9 @@ def quantized_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
     """W4A8 matmul against a flat packed weight: ``x`` (M, K) float,
     quantized to int8 per row; ``packed`` (N, K/f) uint8; ``row_scales``
     (N, 1) f32. Returns (M, N) f32. CUDA tensors go through the flat entry
-    of ``csrc/w4a8_stacked.cu`` (the stacked kernel's device code); CPU
-    tensors through :func:`quantized_matmul_w4a8_plain`.
+    of ``csrc/w4a8_stacked.cu`` (the stacked kernel's device code, on the
+    plan of :func:`_w4a8_plan`); CPU tensors through
+    :func:`quantized_matmul_w4a8_plain`.
     """
     if packed.dtype != torch.uint8:
         raise TypeError(f"packed must be uint8, got {packed.dtype}")

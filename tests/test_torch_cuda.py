@@ -690,6 +690,130 @@ def test_w4a8_flat_kernel_matches_plain(dev, bits, M):
     _close(y, ref)
 
 
+def _tile_inputs(rng, M, N, Kd, bits, layers=3):
+    f = 8 // bits
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
+    packed = torch.from_numpy(
+        rng.integers(0, 256, size=(layers, N, Kd // f), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(layers, N, 1)).astype(np.float32))
+    return x, packed, scales
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("N", [200, 4104])
+@pytest.mark.parametrize("M", [17, 33, 64, 100, 128, 512, 1000])
+def test_w4a8_tile_equals_rowdot_and_plain(dev, M, N, bits):
+    # the exact i32 sums and one epilogue order: the tile path (M above the
+    # threshold; N not a multiple of its 128 weight rows; 8-bit codes up to
+    # 255) equals the rowdot launch and the plain version bit for bit
+    rng = np.random.default_rng(1500 + M + N + bits)
+    x, packed, scales = _tile_inputs(rng, M, N, 1024, bits)
+    assert K._w4a8_plan(M, N, 1024, bits)["path"] == "tile"
+    xd, pd, sd = x.to(dev), packed.to(dev), scales.to(dev)
+    before = K.quantized_matmul_w4a8_stacked.launches
+    y = K.quantized_matmul_w4a8_stacked(xd, pd, sd, 2, bits)
+    assert K.quantized_matmul_w4a8_stacked.launches == before + 1
+    xq, sx = K.quantize_activations_int8(xd)
+    row = K._launch_w4a8_stacked(xq, sx, pd, sd, 2, bits, path="rowdot")
+    assert torch.equal(y, row)
+    # the plain version on the card: the same int8 activations (the CPU
+    # rounds x / scale in another way now and then)
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked_plain(
+        xd, pd, sd, 2, bits))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [17, 128])
+def test_w4a8_tile_flat_entry(dev, M, bits):
+    rng = np.random.default_rng(1550 + M + bits)
+    x, packed, scales = _tile_inputs(rng, M, 200, 2048, bits, layers=1)
+    args = (x.to(dev), packed[0].to(dev), scales[0].to(dev), bits)
+    assert torch.equal(K.quantized_matmul_w4a8(*args),
+                       K.quantized_matmul_w4a8_plain(*args))
+
+
+@pytest.mark.parametrize("bits,M", [(2, 64), (2, 512), (4, 512)])
+def test_w4a8_tile_down_proj(dev, bits, M):
+    # K 11008: at 2 bits the planes are 2752 bytes, so the last 128-byte
+    # step straddles each plane's end (TMA's zero fill)
+    rng = np.random.default_rng(1560 + M + bits)
+    x, packed, scales = _tile_inputs(rng, M, 4096, 11008, bits, layers=2)
+    plan = K._w4a8_plan(M, 4096, 11008, bits)
+    assert plan["straddle"] == (bits == 2)
+    xd, pd, sd = x.to(dev), packed.to(dev), scales.to(dev)
+    y = K.quantized_matmul_w4a8_stacked(xd, pd, sd, 1, bits)
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked_plain(
+        xd, pd, sd, 1, bits))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_w4a8_tile_repeats_bit_for_bit(dev, rows):
+    rng = np.random.default_rng(1570 + rows)
+    x, packed, scales = _tile_inputs(rng, 300, 4104, 4096, 4)
+    xq, sx = K.quantize_activations_int8(x.to(dev))
+    args = (xq, sx, packed.to(dev), scales.to(dev), 2, 4)
+    ys = [K._launch_w4a8_stacked(*args, path="tile", rows=rows)
+          for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    assert torch.equal(ys[0], K._launch_w4a8_stacked(*args, path="rowdot"))
+
+
+def test_w4a8_tile_two_streams(dev):
+    # launches on two streams at once share nothing but their inputs
+    rng = np.random.default_rng(1580)
+    cases = []
+    for M in (40, 512):
+        x, packed, scales = _tile_inputs(rng, M, 4096, 4096, 4, layers=2)
+        xd, pd, sd = x.to(dev), packed.to(dev), scales.to(dev)
+        xq, sx = K.quantize_activations_int8(xd)
+        cases.append(((xq, sx, pd, sd, 1, 4),
+                      K.quantized_matmul_w4a8_stacked_plain(xd, pd, sd, 1,
+                                                            4)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(K._launch_w4a8_stacked(*cases[k][0]))
+    torch.cuda.synchronize()
+    for k, (_, ref) in enumerate(cases):
+        assert all(torch.equal(y, ref) for y in outs[k])
+
+
+@pytest.mark.parametrize("M", [17, 512])
+def test_w4a8_tile_in_cuda_graph(dev, M):
+    # the tensor maps are kernel parameters: replays give the eager bits
+    rng = np.random.default_rng(1590 + M)
+    x, packed, scales = _tile_inputs(rng, M, 4096, 4096, 4, layers=2)
+    xq, sx = K.quantize_activations_int8(x.to(dev))
+    args = (xq, sx, packed.to(dev), scales.to(dev), 1, 4)
+    eager = K._launch_w4a8_stacked(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K._launch_w4a8_stacked(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [K._launch_w4a8_stacked(*args) for _ in range(2)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, eager) for out in outs)
+
+
+def test_w4a8_tile_rules(dev):
+    # K past the i32 bound raises at prefill M; it never runs rowdot instead
+    x = torch.zeros((32, 66560), device=dev)
+    packed = torch.zeros((1, 8, 66560 // 2), dtype=torch.uint8, device=dev)
+    scales = torch.ones((1, 8, 1), device=dev)
+    with pytest.raises(ValueError, match="i32"):
+        K.quantized_matmul_w4a8_stacked(x, packed, scales, 0, 4)
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("N,Kd", [(4096, 4096), (11008, 4096), (4096, 11008)])
 def test_w4a8_flat_kernel_7b_shapes(dev, N, Kd):
