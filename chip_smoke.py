@@ -39,8 +39,9 @@ caught):
    page table of about 2048 tokens per row at ragged positions, pages of 16
    and 256 tokens, beside the staged kernel over the same context; the
    fused-factor kernels at Llama-2-7B's shapes, rank 128, batch 8: the
-   L-fused kernel on the four projections (qkv and gate/up also at M =
-   512), the LR-fused kernel on qkv and gate/up, the whole-MLP kernel and
+   L-fused kernel on the four projections at M = 8, 512 and 2048 (l_kernel
+   at 8, the int8 wgmma tile path with its L epilogue above), the LR-fused
+   kernel on qkv and gate/up at M = 8 and 512, the whole-MLP kernel and
    the attention + o_proj kernel (staged and inline; the flipped int8 codes
    of their inner requantization counted against the plain version's); the
    decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
@@ -102,7 +103,9 @@ caught):
    inline: each step against the "xla" step and the plain versions from the
    same cache, exact launches, ms/step and the device time of one step as a
    CUDA graph; (d) ``FastServingEngine(mlp_kernel=True)`` on "l", 8
-   requests.
+   requests, prefill ms per bucket; (e) the "l" prefill of a 2048-token
+   prompt (4L L-fused tile launches, L flash prefill, the head) against the
+   plain versions and the "xla" prefill, with its ms.
 9. The persistent projection launch and bf16 dots, Llama-2-7B, 32 layers,
    on phase 4's params (``phase_proj_dots``, run before phase 8): batch 8,
    a cache of eight 128-token prompts, from position 128: (a)
@@ -1217,8 +1220,9 @@ def _ops_int8_units(i8=0.0, bf16=0.0, f32=0.0):
 def _phase_kernels_lowrank(torch, dev, gen, record):
     """The four fused-factor kernels against their plain versions at
     Llama-2-7B's shapes, batch M = 8, rank 128, 4-bit: the L-fused kernel
-    on qkv, o, gate/up and down (qkv and gate/up also at prefill's M =
-    512); the LR-fused kernel on qkv and gate/up; the whole-MLP kernel; the
+    on qkv, o, gate/up and down, also at prefill's M = 512 and 2048 (its
+    tile path), each with its bound; the LR-fused kernel on qkv and gate/up,
+    also at M = 512 (timed there, its decode design); the whole-MLP kernel; the
     fused attention + o_proj kernel over a 256-token cache at position 128,
     staged and inline. Weights rotate over enough layers to come from device
     memory. The integer sums are exact on both sides; the factor dots sum
@@ -1229,18 +1233,20 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
         attention as AT, kernels as K)
 
     rank, M = 128, 8
-    # --- A: the L-fused kernel, the four projections of a layer
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # --- A: the L-fused kernel, the four projections of a layer, at decode's
+    # M (l_kernel) and at prefill's M = 512 and 2048 (the int8 wgmma tile
+    # path with the L epilogue on bf16 wgmma)
     la = record["quantized_matmul_w4a8_l_stacked"]
     main = []
-    for name, splits, Kd, Ms in [
-            ("qkv", (4096,) * 3, 4096, (8, 512)),
-            ("o_proj", (4096,), 4096, (8,)),
-            ("gate_up", (11008,) * 2, 4096, (8, 512)),
-            ("down_proj", (4096,), 11008, (8,))]:
+    for name, splits, Kd in [("qkv", (4096,) * 3, 4096),
+                             ("o_proj", (4096,), 4096),
+                             ("gate_up", (11008,) * 2, 4096),
+                             ("down_proj", (4096,), 11008)]:
         N, n_proj = sum(splits), len(splits)
         Lk = max(2, math.ceil(200e6 / (N * Kd // 2 + N * rank)))
         w = _lowrank_weights(torch, dev, gen, Lk, N, Kd, n_proj)
-        for m in Ms:
+        for m in (8, 512, 2048):
             x = torch.randn((m, Kd), generator=gen, device=dev)
             xr = K.thin_xr(x, w["R"][1], w["Rs"][1])
             args = (w["packed"], w["scales"], 1, xr, w["L"], w["Ls"], 4, rank,
@@ -1252,6 +1258,7 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
             tol = 1e-5 * float(ref.abs().max())
             ok = torch.allclose(y, ref, rtol=1e-5, atol=tol)
             xq, sx = K.quantize_activations_int8(x)
+            plan = K._w4a8_l_plan(m, N, Kd, 4, rank, splits, sms)
             ms = _time_ms(torch, lambda i: K._launch_l(
                 xq, sx, w["packed"], w["scales"], i % Lk, xr, w["L"],
                 w["Ls"], 4, rank, splits), 50 if m == 8 else 10)
@@ -1263,8 +1270,11 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
                       + m * n_proj * rank * 4 + N * rank + N * 4 + m * N * 4)
             ops = _ops_int8_units(i8=2 * m * N * Kd, bf16=2 * m * N * rank)
             bound, by = _bound_ms(nbytes, ops)
+            how = ("l_kernel" if plan["path"] == "rowdot" else
+                   f"tile path, tiles of {plan['rows']} x {plan['cols']}, "
+                   f"{plan['tiles']} on {plan['grid'][0]} persistent CTAs")
             print(f"w4a8_l_stacked {name} M={m} N={N} K={Kd} rank {rank} "
-                  f"4-bit: max diff {err:.3e} (bound rtol 1e-5, atol "
+                  f"4-bit ({how}): max diff {err:.3e} (bound rtol 1e-5, atol "
                   f"{tol:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
                   flush=True)
@@ -1281,15 +1291,18 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
     la.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by)
 
     # --- B: the LR-fused kernel on qkv and gate/up (o and down keep kernel
-    # 1 and the torch factor dots on factor path "lr")
+    # 1 and the torch factor dots on factor path "lr"), at decode's M and at
+    # prefill's M = 512 (still the decode design there)
     lr = record["quantized_matmul_w4a8_lr_stacked"]
     main = []
-    for name, splits in [("qkv", (4096,) * 3), ("gate_up", (11008,) * 2)]:
+    for name, splits, m in [(n, sp, m) for n, sp in (
+            ("qkv", (4096,) * 3), ("gate_up", (11008,) * 2))
+            for m in (8, 512)]:
         N, n_proj, Kd = sum(splits), len(splits), 4096
         nR = n_proj * rank
         Lk = max(2, math.ceil(200e6 / (N * Kd // 2 + N * rank + nR * Kd)))
         w = _lowrank_weights(torch, dev, gen, Lk, N, Kd, n_proj)
-        x = torch.randn((M, Kd), generator=gen, device=dev)
+        x = torch.randn((m, Kd), generator=gen, device=dev)
         args = (w["packed"], w["scales"], 1, w["R"], w["Rs"], w["L"],
                 w["Ls"], 4, rank, splits)
         # the output against the plain version on the kernel's own xr (an
@@ -1313,17 +1326,17 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
             x, *args))
         ms = _time_ms(torch, lambda i: K._launch_lr(
             x, xq, sx, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"],
-            w["L"], w["Ls"], 4, rank, splits), 50)
+            w["L"], w["Ls"], 4, rank, splits), 50 if m == 8 else 5)
         plain_ms = _time_ms(
             torch, lambda i: K.quantized_matmul_w4a8_lr_stacked_plain(
                 x, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"], w["L"],
                 w["Ls"], 4, rank, splits), 2, reps=3)
-        nbytes = (M * Kd * 5 + M * 4 + N * Kd // 2 + N * 4 + nR * Kd
-                  + nR * 4 + N * rank + N * 4 + M * N * 4)
-        ops = _ops_int8_units(i8=2 * M * N * Kd,
-                              bf16=2 * M * nR * Kd + 2 * M * N * rank)
+        nbytes = (m * Kd * 5 + m * 4 + N * Kd // 2 + N * 4 + nR * Kd
+                  + nR * 4 + N * rank + N * 4 + m * N * 4)
+        ops = _ops_int8_units(i8=2 * m * N * Kd,
+                              bf16=2 * m * nR * Kd + 2 * m * N * rank)
         bound, by = _bound_ms(nbytes, ops)
-        print(f"w4a8_lr_stacked {name} M={M} N={N} K={Kd} rank {rank} "
+        print(f"w4a8_lr_stacked {name} M={m} N={N} K={Kd} rank {rank} "
               f"4-bit: max diff {err:.3e} on its own xr (bound rtol 1e-5, "
               f"atol {tol:.3e}; xr within rtol 1e-5), {e_plain:.3e} "
               f"rel-Frobenius against the plain version's own xr; kernel "
@@ -1334,7 +1347,8 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
             raise AssertionError(f"w4a8_lr_stacked {name} disagrees with "
                                  "plain")
         lr["max_abs_err"] = max(lr["max_abs_err"] or 0.0, err)
-        main.append((ms, plain_ms, nbytes, ops))
+        if m == M:
+            main.append((ms, plain_ms, nbytes, ops))
         del w
     torch.cuda.empty_cache()
     mean = [statistics.fmean(t[j] for t in main) for j in range(4)]
@@ -2634,7 +2648,8 @@ def phase_options(torch, dev, record):
     max_slots=8, mlp_kernel=True, max_seq_len=512)`` on "l": 8 seeded
     requests of 16-256 prompt tokens, 16 new tokens each, every prefill and
     tick with its exact launches, the first prefill and tick against the
-    plain versions."""
+    plain versions, prefill ms per bucket. (e) :func:`_prefill_2048`: the
+    "l" prefill of a 2048-token prompt."""
     from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
     from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
         fused, llama)
@@ -2764,7 +2779,7 @@ def phase_options(torch, dev, record):
     torch.cuda.empty_cache()
 
     # (d) the engine on "l" with the whole-MLP kernel
-    params = sets["l"]
+    params, xla = sets["l"], sets["xla"]
     del sets
     counters = (K.quantized_matmul_w4a8_l_stacked,
                 K.quantized_matmul_w4a8_mlp_stacked,
@@ -2820,8 +2835,73 @@ def phase_options(torch, dev, record):
           f"{watch.counted}); decode tick median "
           f"{statistics.median(watch.tick_ms):.2f} ms; {ntok} tokens in "
           f"{wall:.2f} s: {ntok / wall:.1f} tokens/s", flush=True)
-    del engine, params
+    for bucket, ms in sorted(watch.prefill_ms.items()):
+        print(f"  options (d) prefill bucket {bucket}: {len(ms)} x, median "
+              f"{statistics.median(ms):.1f} ms "
+              f"({', '.join(f'{m:.1f}' for m in ms)})", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    _prefill_2048(torch, dev, config, params, xla)
+    del params, xla
     print(f"options phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _prefill_2048(torch, dev, config, params, xla):
+    """Phase 8 (e): factor path "l" prefills one seeded 2048-token prompt
+    (``prefill_into_slot_fused``, flash prefill): each projection on the
+    L-fused kernel's tile path (4L launches), L flash prefill launches and
+    the int8 head, exactly; the logits held to the same prefill through the
+    plain versions on the card and to the "xla" prefill of the prompt
+    (``KERN_REL`` and argmax); host ms of two runs each, to a synchronize."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+
+    S, L = 2048, config.num_layers
+    gen = torch.Generator().manual_seed(14)
+    tokens = torch.randint(0, config.vocab_size, (1, S), generator=gen).to(dev)
+    counters = (K.quantized_matmul_w4a8_l_stacked, AT.flash_prefill,
+                K.int8_matmul, K.quantized_matmul_w4a8_stacked)
+    names = ("l", "flash_prefill", "int8_matmul", "w4a8_stacked")
+    out, ms = {}, {}
+    for fk, p, expected in (("l", params, (4 * L, L, 1, 0)),
+                            ("xla", xla, (0, L, 1, 4 * L))):
+        cache = llama.HeadMajorQuantKVCache.create(config, 1, S, device=dev)
+        ms[fk] = []
+        for _ in range(2):
+            before = [c.launches for c in counters]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = fused.prefill_into_slot_fused(p, tokens, 0, cache,
+                                                      config, flash=True)
+            torch.cuda.synchronize()
+            ms[fk].append(1e3 * (time.perf_counter() - t0))
+            delta = tuple(c.launches - b for c, b in zip(counters, before))
+            if delta != expected:
+                raise AssertionError(f"options (e) {fk!r} prefill: launches "
+                                     f"{dict(zip(names, delta))}, expected "
+                                     f"{dict(zip(names, expected))}")
+        out[fk] = logits
+        del cache
+    cache = llama.HeadMajorQuantKVCache.create(config, 1, S, device=dev)
+    with _PlainKernels():
+        plain, _ = fused.prefill_into_slot_fused(params, tokens, 0, cache,
+                                                 config, flash=True)
+    del cache
+    e_p = _rel(torch, out["l"][None], plain[None])
+    e_x = _rel(torch, out["l"][None], out["xla"][None])
+    print(f"options (e) 'l' prefill of {S} tokens (flash): exact launches "
+          f"{dict(zip(names, (4 * L, L, 1, 0)))}; {ms['l'][0]:.1f}, "
+          f"{ms['l'][1]:.1f} ms (the 'xla' prefill {ms['xla'][0]:.1f}, "
+          f"{ms['xla'][1]:.1f} ms); logits against the plain versions "
+          f"{e_p:.3e}, against the 'xla' prefill {e_x:.3e} (rel-Frobenius, "
+          f"bound {KERN_REL:g})", flush=True)
+    if not (e_p <= KERN_REL and e_x <= KERN_REL
+            and _same_argmax(torch, out["l"][None], plain[None])
+            and _same_argmax(torch, out["l"][None], out["xla"][None])):
+        raise AssertionError("options (e): the 'l' prefill disagrees with "
+                             "the plain versions or the 'xla' prefill")
 
 
 def phase_mega(torch, dev, record, params, cache, tok0, pos0):

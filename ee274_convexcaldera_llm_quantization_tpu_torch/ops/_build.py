@@ -96,6 +96,10 @@ ENTRIES = {
         # xq, sx, packed, scales, xr, L_cat, L_scale, out, M, N, K, bits,
         # layer, rank, n_proj, b1, b2, b3, stream
         "w4a8_l_stacked_launch": [_P] * 8 + [_I] * 10 + [_P],
+        # the same arguments (xr and the layer's L as padded bf16), then
+        # rows (64 or 128), persistent CTAs: the int8 wgmma tile path with
+        # the L epilogue
+        "w4a8_l_tile_launch": [_P] * 8 + [_I] * 12 + [_P],
         # x, xq, sx, packed, scales, R, R_scale, L_cat, L_scale, xr scratch,
         # out, M, N, K, bits, layer, rank, n_proj, b1, b2, b3, stream
         "w4a8_lr_stacked_launch": [_P] * 11 + [_I] * 10 + [_P],

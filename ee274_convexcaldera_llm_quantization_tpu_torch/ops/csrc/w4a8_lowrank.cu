@@ -39,6 +39,7 @@
 // fixed order, and the absmax partials are reduced by every CTA in the
 // same order (max does not depend on it).
 #include "lowrank.cuh"
+#include "w4a8_tile.cuh"
 
 namespace {
 
@@ -359,6 +360,41 @@ extern "C" int w4a8_l_stacked_launch(const void* xq, const void* sx,
   else
     err = dispatch_l<8, rowdot::kOffset8>(x, s, w, ws, fl, y, M, N, K, st);
   return (int)err;
+}
+
+// The same function at prefill M on the int8 wgmma tile path of
+// w4a8_tile.cuh with its L epilogue on bf16 wgmma (w4a8_stacked.cu's tile
+// kernel plus the L half): `rows` (64 or 128) activation rows and 128 weight
+// rows a tile, walked by `ctas` persistent CTAs. xq, sx, packed, scales,
+// L_scale, out and the sizes as w4a8_l_stacked_launch; the factor operands
+// as the tile kernel reads them: xr_b = bf16(xr) as (M, n_proj, rank8) and
+// L_b = the layer's L codes as bf16 (N, rank8), rank8 = rank rounded up to
+// a multiple of 8 (zeros past the rank). K % (16 f) == 0 and K <= 2^31 /
+// (127 * 255); xq, the layer's packed bytes, xr_b and L_b 16-byte aligned.
+// Its integer half equals w4a8_l_stacked_launch's bit for bit; its factor
+// sums run in another f32 order.
+extern "C" int w4a8_l_tile_launch(const void* xq, const void* sx,
+                                  const void* packed, const void* scales,
+                                  const void* xr_b, const void* L_b,
+                                  const void* L_scale, void* out, int M,
+                                  int N, int K, int bits, int layer, int rank,
+                                  int n_proj, int b1, int b2, int b3,
+                                  int rows, int ctas, void* stream) {
+  if (!valid_bits(bits) || layer < 0 || rank < 1 || n_proj < 1 ||
+      n_proj > 4)
+    return (int)cudaErrorInvalidValue;
+  const int f = 8 / bits;
+  const int bs[3] = {b1, b2, b3};
+  const Splits sp = make_splits(N, n_proj, bs);
+  const tile::LSrc lf{xr_b, L_b,
+                      static_cast<const float*>(L_scale) + (size_t)layer * N,
+                      rank, (rank + 7) / 8 * 8, n_proj, sp.b1, sp.b2, sp.b3};
+  return (int)tile::launch_bits<true>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
+      static_cast<const uint8_t*>(packed) + (size_t)layer * N * (K / f),
+      static_cast<const float*>(scales) + (size_t)layer * N,
+      static_cast<float*>(out), M, N, K, bits, rows, ctas, lf,
+      static_cast<cudaStream_t>(stream));
 }
 
 // x (M, K) f32 (rounded to bf16 for xr), xq / sx its int8 codes and scales;

@@ -737,7 +737,9 @@ def quantized_matmul_w4a8_l_stacked(
     R_scale[l]``; ``L_cat`` (L, N, rank) int8 N-concatenated factor codes,
     ``L_scale_cat`` (L, N, 1) f32. Returns (M, N) f32, global scales and
     biases left to the caller. CUDA tensors go through
-    ``csrc/w4a8_lowrank.cu``; CPU tensors through
+    ``csrc/w4a8_lowrank.cu`` on the plan of :func:`_w4a8_l_plan` (the
+    ``rowdot``-based ``l_kernel`` at decode M, the int8 ``wgmma`` tile
+    kernel with its L epilogue above it); CPU tensors through
     :func:`quantized_matmul_w4a8_l_stacked_plain`.
     """
     if x.device.type == "cpu":
@@ -758,15 +760,80 @@ def quantized_matmul_w4a8_l_stacked(
     return out
 
 
+# The L-fused kernel's two designs (csrc/w4a8_lowrank.cu), on _w4a8_plan's
+# threshold and tiles: at M <= 8 (decode) l_kernel (lowrank.cuh::lr_tile on
+# rowdot.cuh's __dp4a walk, 8- or 32-row M tiles); above, w4a8_tile.cuh's
+# int8 wgmma tile kernel with the L epilogue on bf16 wgmma, one extra
+# sub-step of its ring per (projection a tile touches, 64 ranks).
+_L_TILE_RANKS = 64
+# the consumers hold a projection window's sub-steps at once: at most the
+# ring's depth (csrc/w4a8_tile.cuh::Shape), by tile height
+_L_TILE_MAX_CHUNKS = {64: 3, 128: 5}
+
+
+def _w4a8_l_plan(M: int, N: int, K: int, bits: int, rank: int, splits,
+                 sms: int = 132, path: Optional[str] = None,
+                 rows: Optional[int] = None) -> dict:
+    """How ``csrc/w4a8_lowrank.cu`` runs the L-fused matmul: :func:`_w4a8_plan`
+    (``path`` "rowdot", the ``rowdot``-based ``l_kernel``, at M <= 8,
+    "tile" above; ``path`` and ``rows`` override it), and for the tile
+    path the L epilogue's walk: ``chunks``, sub-steps of 64 ranks (four
+    wgmma k16 slices) per projection window; ``rank_pad``, the rank padded
+    with zeros to whole sub-steps (a slice skipped under a branch would
+    serialize every wgmma of the kernel); ``windows``, the (first, last)
+    projection of each 128-row weight tile (a tile straddles projections
+    where the splits are not multiples of 128); ``l_steps``, each weight
+    tile's L sub-steps. A window's sub-steps
+    must fit the ring at once: a rank over 192 takes 128-row tiles, and one
+    over 320 raises (as does an override that does not fit)."""
+    plan = _w4a8_plan(M, N, K, bits, sms, path, rows)
+    if plan["path"] != "tile":
+        return plan
+    chunks = -(-rank // _L_TILE_RANKS)
+    if chunks > _L_TILE_MAX_CHUNKS[plan["rows"]]:
+        if rows is not None or chunks > _L_TILE_MAX_CHUNKS[128]:
+            raise ValueError(
+                f"the L tile path holds at most "
+                f"{_L_TILE_RANKS * _L_TILE_MAX_CHUNKS[plan['rows']]} ranks at "
+                f"{plan['rows']} rows a tile (and "
+                f"{_L_TILE_RANKS * _L_TILE_MAX_CHUNKS[128]} at 128), got "
+                f"rank {rank}")
+        plan = _w4a8_plan(M, N, K, bits, sms, "tile", 128)
+    ends = _split_bounds(splits, N)
+
+    def proj(n):
+        return sum(n >= b for b in ends)
+
+    windows = tuple((proj(n0), proj(min(n0 + _W4A8_TILE_BN, N) - 1))
+                    for n0 in range(0, N, _W4A8_TILE_BN))
+    plan.update(rank_pad=_L_TILE_RANKS * chunks, chunks=chunks,
+                windows=windows,
+                l_steps=tuple((p1 - p0 + 1) * chunks for p0, p1 in windows))
+    return plan
+
+
 def _launch_l(xq, sx, packed, scales, layer: int, xr, L_cat, L_scale,
-              num_bits: int, rank: int, splits):
-    """Launch ``w4a8_l_stacked_launch`` on quantized activations."""
+              num_bits: int, rank: int, splits, path: Optional[str] = None,
+              rows: Optional[int] = None):
+    """Launch the L-fused kernel on quantized activations, on the plan of
+    :func:`_w4a8_l_plan` (``path`` and ``rows`` passed on to it):
+    ``w4a8_l_stacked_launch`` (decode) or ``w4a8_l_tile_launch``. A failed
+    launch raises: neither design stands in for the other."""
     M, K = xq.shape
     N = packed.shape[1]
     sx = sx.contiguous()
     if L_cat.dtype != torch.int8:
         raise TypeError(f"L_cat must be int8, got {L_cat.dtype}")
     _check_cuda_operands(xq, sx, packed, scales, xr, L_cat, L_scale)
+    index = xq.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _w4a8_l_plan(M, N, K, num_bits, rank, splits, _sm_count(index),
+                        path, rows)
+    if plan["path"] == "tile":
+        xr_b, L_b = _l_tile_operands(xr, L_cat[layer], rank, len(splits))
+        return _launch_l_tile(xq, sx, packed, scales, layer, xr_b, L_b,
+                              L_scale, num_bits, rank, splits, plan)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     err = _build.library("w4a8_lowrank").w4a8_l_stacked_launch(
         xq.data_ptr(), sx.data_ptr(), packed.data_ptr(), scales.data_ptr(),
@@ -774,6 +841,42 @@ def _launch_l(xq, sx, packed, scales, layer: int, xr, L_cat, L_scale,
         M, N, K, num_bits, layer, rank, len(splits),
         *_split_bounds(splits, N), _build.stream_ptr(xq.device))
     _build.check(err, "w4a8_l_stacked")
+    return out
+
+
+def _l_tile_operands(xr, L_l, rank: int, n_proj: int):
+    """The tile kernel's factor operands, as its TMA boxes read them:
+    ``bf16(xr)`` as (M, n_proj, rank8), rounded as the plain version rounds
+    it, and one layer's L codes ``L_l`` (N, rank) widened to bf16 (exact),
+    (N, rank8); rank8 is the rank rounded up to a multiple of 8 (16-byte
+    rows), zeros past the rank."""
+    xr_b = xr.to(torch.bfloat16).view(xr.shape[0], n_proj, rank)
+    L_b = L_l.to(torch.bfloat16)
+    pad = -rank % 8
+    if pad:
+        xr_b, L_b = (torch.nn.functional.pad(t, (0, pad))
+                     for t in (xr_b, L_b))
+    return xr_b, L_b
+
+
+def _launch_l_tile(xq, sx, packed, scales, layer: int, xr_b, L_b, L_scale,
+                   num_bits: int, rank: int, splits, plan):
+    """Launch ``w4a8_l_tile_launch`` on the operands of
+    :func:`_l_tile_operands` with the tile plan of :func:`_w4a8_l_plan`."""
+    M, K = xq.shape
+    N = packed.shape[1]
+    # TMA reads x and the layer's bytes from 16-byte aligned bases: a view
+    # off that is copied
+    xq, packed = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (xq, packed))
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    err = _build.library("w4a8_lowrank").w4a8_l_tile_launch(
+        xq.data_ptr(), sx.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        xr_b.data_ptr(), L_b.data_ptr(), L_scale.data_ptr(), out.data_ptr(),
+        M, N, K, num_bits, layer, rank, len(splits),
+        *_split_bounds(splits, N), plan["rows"], plan["grid"][0],
+        _build.stream_ptr(xq.device))
+    _build.check(err, "w4a8_l_tile")
     return out
 
 

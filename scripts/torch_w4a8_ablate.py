@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the W4A8 tile path's time goes: device times of ablated copies of
-``csrc/w4a8_stacked.cu`` beside the kernel itself, on one card.
+its kernel (``csrc/w4a8_tile.cuh``) beside the kernel itself, on one card.
 
-    python3 scripts/torch_w4a8_ablate.py
+    python3 scripts/torch_w4a8_ablate.py [--l]
 
-Each copy removes one part of the tile kernel by a text edit of the source
+Each copy removes one part of the tile kernel by a text edit of the header
 (the script checks that every edited passage is still there and stops if
-one is not), is built with the port's nvcc flags, and is timed through the
-port's own launch path (``ops/kernels.py::_launch_w4a8_stacked``, the plan
-of ``_w4a8_plan``) at Llama-2-7B's projection shapes, 4-bit, M 512 and
-2048, packed weights rotated through device memory as in
-``scripts/torch_w4a8_times.py``. Only ``kernel`` computes the function; the
-others give wrong results and are timings only:
+one is not), is built with the port's nvcc flags beside a copy of the
+source that includes it, and is timed through the port's own launch path at
+Llama-2-7B's projection shapes, 4-bit, M 512 and 2048, packed weights
+rotated through device memory as in ``scripts/torch_w4a8_times.py``. Only
+``kernel`` computes the function; the others give wrong results and are
+timings only.
+
+Without ``--l``, the plain W4A8 kernel (rows 3 and 2: ``csrc/w4a8_stacked.cu``
+through ``ops/kernels.py::_launch_w4a8_stacked`` on the plan of
+``_w4a8_plan``):
 
 - ``kernel``: the kernel as it is (checked against the plain version);
 - ``n128``: the products on ``wgmma m64n128k32`` (no rows of ones, so no
@@ -25,14 +29,27 @@ others give wrong results and are timings only:
 - ``no_epilogue``: the consumers go on to their next tile after its
   products, storing nothing.
 
+With ``--l``, the L-fused kernel's tile path (row 6: ``csrc/w4a8_lowrank.cu``
+through ``ops/kernels.py::_launch_l_tile``, rank 128, on factor operands
+made beforehand), beside the plain W4A8 kernel's tile path on the same
+weights (``row3``):
+
+- ``kernel``: the kernel as it is (checked against the plain version);
+- ``no_l_products``: the L sub-steps fill and are waited for, but the
+  consumers run no bf16 ``wgmma`` on them;
+- ``no_l_substeps``: no L sub-steps at all (the L epilogue's structure
+  remains: ``setmaxnreg``, the outputs held in registers, Ls staged).
+
 Prints one JSON line per copy and round (two rounds, copies in turn) and a
 last line ``{"card", "rounds": [...]}``.
 """
 
+import argparse
 import ctypes
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -104,13 +121,37 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8u8(int (&d)[64],
 }
 """
 ANCHOR = "namespace tile {\n"
+L_MMA = """#pragma unroll
+            for (int kk = 0; kk < kLK / 16; ++kk)
+              wgmma_m64n64k16(
+                  a, desc_sw128(st + wg * 64 * kBK + 32 * kk),
+                  desc_sw128(st + S::kXT + h * 64 * kBK + 32 * kk));
+"""
+NO_L_MMA = "            a[0] += st[threadIdx.x];\n"
+L_FILL = "        const int nl = l_windows(lf, n0, N, &p0) * chunks;\n"
+L_PASSES = "      const int nw = l_windows(lf, n0, N, &p0);\n"
 
 
-def _variants(src):
-    for piece in (UNPACK, X_BOX, MMA, EPILOGUE, ANCHOR):
+def _check(src, pieces):
+    for piece in pieces:
         if piece not in src:
             raise SystemExit(f"the kernel source changed: {piece[:40]!r} "
                              f"not found")
+
+
+def _l_variants(src):
+    _check(src, (L_MMA, L_FILL, L_PASSES))
+    return {
+        "kernel": src,
+        "no_l_products": src.replace(L_MMA, NO_L_MMA),
+        "no_l_substeps": src.replace(L_FILL, L_FILL.replace(
+            "l_windows", "0 * l_windows")).replace(L_PASSES, L_PASSES.replace(
+                "l_windows", "0 * l_windows")),
+    }
+
+
+def _variants(src):
+    _check(src, (UNPACK, X_BOX, MMA, EPILOGUE, ANCHOR))
     i = src.index(EPILOGUE)
     no_epilogue = src[:i] + SKIP_EPILOGUE + src[i:]
     return {
@@ -125,73 +166,127 @@ def _variants(src):
     }
 
 
+def _build_copies(_build, source, variants, out):
+    """Build ``source`` (a ``csrc`` file name) once per edited header, each
+    beside its own copy of the source; returns {name: library path}."""
+    procs, libs = {}, {}
+    for name, text in variants.items():
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "w4a8_tile.cuh").write_text(text)
+        shutil.copy(_build.CSRC / source, d / source)
+        libs[name] = d / f"lib{name}.so"
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(libs[name]), str(d / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{err}")
+    return libs
+
+
+def _load(_build, lib_name, path):
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _build.ENTRIES[lib_name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _build._libs[lib_name] = lib
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--l", action="store_true",
+                    help="ablate the L-fused kernel's tile path")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         _build, kernels as K)
-    variants = _variants((_build.CSRC / "w4a8_stacked.cu").read_text())
-    out = _build.BUILD_DIR / "ablate_w4a8"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in variants.items():
-        (out / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    logs = {}
-    for name, proc in procs.items():
-        log, err = proc.communicate()
-        logs[name] = log + err
-        if proc.returncode:
-            print(f"{name}: nvcc failed\n{err}", file=sys.stderr)
-            return 1
+    header = (_build.CSRC / "w4a8_tile.cuh").read_text()
+    if args.l:
+        source, lib_name = "w4a8_lowrank.cu", "w4a8_lowrank"
+        variants = _l_variants(header)
+        _build.library("w4a8_stacked")  # row 3 beside it
+    else:
+        source, lib_name = "w4a8_stacked.cu", "w4a8_stacked"
+        variants = _variants(header)
+    libs = _build_copies(_build, source, variants,
+                         _build.BUILD_DIR / f"ablate_{lib_name}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rank = 128
     cases = {}
-    for nm, N, Kd, M in (("qkv", 12288, 4096, 512), ("o", 4096, 4096, 512),
-                         ("down", 4096, 11008, 512),
-                         ("qkv", 12288, 4096, 2048),
-                         ("gate/up", 22016, 4096, 2048)):
-        P = Kd // 2
+    for nm, splits, Kd, M in (("qkv", (4096,) * 3, 4096, 512),
+                              ("o", (4096,), 4096, 512),
+                              ("down", (4096,), 11008, 512),
+                              ("qkv", (4096,) * 3, 4096, 2048),
+                              ("gate/up", (11008,) * 2, 4096, 2048)):
+        N, P = sum(splits), Kd // 2
         Lk = max(2, math.ceil(200e6 / (N * P)))
-        packed = torch.randint(0, 256, (Lk, N, P), generator=gen,
-                               dtype=torch.uint8, device=dev)
-        sc = torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01
+        w = dict(packed=torch.randint(0, 256, (Lk, N, P), generator=gen,
+                                      dtype=torch.uint8, device=dev),
+                 sc=torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01)
         x = torch.randn((M, Kd), generator=gen, device=dev)
         xq, sx = K.quantize_activations_int8(x)
-        ref = K.quantized_matmul_w4a8_stacked_plain(x, packed, sc, 0, 4)
-        cases[f"{nm} M={M}"] = (xq, sx, packed, sc, Lk, ref)
+        if args.l:
+            xr = torch.randn((M, len(splits) * rank), generator=gen,
+                             device=dev) * 0.5
+            w["L"] = torch.randint(-127, 128, (Lk, N, rank), generator=gen,
+                                   dtype=torch.int8, device=dev)
+            w["Ls"] = torch.rand((Lk, N, 1), generator=gen, device=dev) * 1e-3
+            w["ops"] = [K._l_tile_operands(xr, w["L"][i], rank, len(splits))
+                        for i in range(Lk)]
+            w["plan"] = K._w4a8_l_plan(M, N, Kd, 4, rank, splits, sms)
+            w["ref"] = K.quantized_matmul_w4a8_l_stacked_plain(
+                x, w["packed"], w["sc"], 0, xr, w["L"], w["Ls"], 4, rank,
+                splits)
+            w["launch"] = (lambda i, w=w, xq=xq, sx=sx, splits=splits, Lk=Lk:
+                           K._launch_l_tile(xq, sx, w["packed"], w["sc"],
+                                            i % Lk, *w["ops"][i % Lk],
+                                            w["Ls"], 4, rank, splits,
+                                            w["plan"]))
+            w["row3"] = (lambda i, w=w, xq=xq, sx=sx, Lk=Lk:
+                         K._launch_w4a8_stacked(xq, sx, w["packed"], w["sc"],
+                                                i % Lk, 4))
+        else:
+            w["ref"] = K.quantized_matmul_w4a8_stacked_plain(
+                x, w["packed"], w["sc"], 0, 4)
+            w["launch"] = (lambda i, w=w, xq=xq, sx=sx, Lk=Lk:
+                           K._launch_w4a8_stacked(xq, sx, w["packed"],
+                                                  w["sc"], i % Lk, 4))
+        cases[f"{nm} M={M}"] = w
     rounds = []
     for rnd in range(2):
+        if args.l:
+            ms = {key: _time_ms(torch, w["row3"], 10)
+                  for key, w in cases.items()}
+            rounds.append(dict(round=rnd, copy="row3", ms=ms))
+            print(json.dumps(rounds[-1]), flush=True)
         for name in variants:
-            lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-            for fn, argtypes in _build.ENTRIES["w4a8_stacked"].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _build._libs["w4a8_stacked"] = lib
+            _load(_build, lib_name, libs[name])
             ms = {}
-            for key, (xq, sx, packed, sc, Lk, ref) in cases.items():
+            for key, w in cases.items():
                 if name == "kernel":
-                    y = K._launch_w4a8_stacked(xq, sx, packed, sc, 0, 4)
-                    if not torch.equal(y, ref):
+                    y, ref = w["launch"](0), w["ref"]
+                    tol = 1e-5 * float(ref.abs().max())
+                    ok = (torch.allclose(y, ref, rtol=1e-5, atol=tol)
+                          if args.l else torch.equal(y, ref))
+                    if not ok:
                         print(f"kernel {key} disagrees with the plain "
                               f"version", file=sys.stderr)
                         return 1
                 try:
-                    ms[key] = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
-                        xq, sx, packed, sc, i % Lk, 4), 10)
+                    ms[key] = _time_ms(torch, w["launch"], 10)
                 except RuntimeError as exc:
                     # a copy that does not launch is reported, not timed
                     ms[key] = None
-                    print(f"{name} {key}: {exc}; ptxas: " + "; ".join(
-                        line.strip() for line in logs[name].splitlines()
-                        if "tile_kernel" in line or "registers" in line
-                        or "stack" in line)[:2000], flush=True)
+                    print(f"{name} {key}: {exc}", flush=True)
             rounds.append(dict(round=rnd, copy=name, ms=ms))
             print(json.dumps(rounds[-1]), flush=True)
     print(json.dumps({"card": _card_line(), "rounds": rounds}))

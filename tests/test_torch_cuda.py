@@ -991,6 +991,91 @@ def test_l_kernel_matches_plain(dev, splits, rank, M, bits):
                                atol=1e-5 * float(ref.abs().max()))
 
 
+def _l_tile_case(dev, seed, splits, rank, M, bits, Kd=256):
+    g = _lowrank_group(np.random.default_rng(seed), 2, splits, Kd, rank,
+                       bits, M)
+    d = {k: t.to(dev) for k, t in g.items()}
+    d["xr"] = K.thin_xr(d["x"], d["R"][1], d["Rs"][1])
+    xq, sx = K.quantize_activations_int8(d["x"])
+    return d, (xq, sx, d["packed"], d["scales"], 1, d["xr"], d["L"],
+               d["Ls"], bits, rank, splits)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [9, 33, 100, 1000])
+@pytest.mark.parametrize("splits,rank", _SPLITS + [((200,), 300)])
+def test_l_tile_matches_plain(dev, splits, rank, M, bits):
+    # above the decode threshold the tile path (int8 wgmma, the L epilogue
+    # on bf16 wgmma; tiles that straddle three projections, rank 24 in one
+    # 64-rank sub-step, rank 300 in five with one value a load) against the
+    # plain version on the card: exact integer sums, the factor dots in
+    # another f32 order
+    d, largs = _l_tile_case(dev, 1700 + M + bits, splits, rank, M, bits)
+    assert K._w4a8_l_plan(M, sum(splits), 256, bits, rank,
+                          splits)["path"] == "tile"
+    args = (d["packed"], d["scales"], 1, d["xr"], d["L"], d["Ls"], bits, rank,
+            splits)
+    before = K.quantized_matmul_w4a8_l_stacked.launches
+    y = K.quantized_matmul_w4a8_l_stacked(d["x"], *args)
+    assert K.quantized_matmul_w4a8_l_stacked.launches == before + 1
+    ref = K.quantized_matmul_w4a8_l_stacked_plain(d["x"], *args)
+    torch.testing.assert_close(y, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(y, K._launch_l(*largs))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_l_tile_against_l_kernel(dev, splits, rank, bits):
+    # the tile launch against a launch of the decode design (l_kernel,
+    # forced) on the same codes: the same integer sums, the factor sums in
+    # another f32 order
+    _, largs = _l_tile_case(dev, 1750 + bits, splits, rank, 100, bits)
+    y = K._launch_l(*largs, path="tile")
+    row = K._launch_l(*largs, path="rowdot")
+    torch.testing.assert_close(y, row, rtol=1e-5,
+                               atol=1e-5 * float(row.abs().max()))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_l_tile_repeats_bit_for_bit(dev, splits, rank, rows):
+    _, largs = _l_tile_case(dev, 1760 + rows, splits, rank, 300, 4, 1024)
+    ys = [K._launch_l(*largs, path="tile", rows=rows) for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_l_tile_zero_factors_equal_w4a8_tile(dev, splits, rank, rows, bits):
+    # with L = 0 the L epilogue adds exact zeros: the output is row 3's
+    # tile path bit for bit, and the decode design's
+    d, largs = _l_tile_case(dev, 1770 + rows + bits, splits, rank, 200, bits,
+                            512)
+    largs = list(largs)
+    largs[6] = torch.zeros_like(d["L"])
+    xq, sx, packed, scales = largs[:4]
+    y = K._launch_l(*largs, path="tile", rows=rows)
+    assert torch.equal(y, K._launch_w4a8_stacked(
+        xq, sx, packed, scales, 1, bits, path="tile", rows=rows))
+    assert torch.equal(y, K._launch_l(*largs, path="rowdot"))
+
+
+def test_l_tile_rules(dev):
+    # K past the tile kernel's i32 bound raises at prefill M; it never runs
+    # the decode design instead
+    Kd, rank = 66560, 16
+    x = torch.zeros((32, Kd), device=dev)
+    packed = torch.zeros((1, 8, Kd // 2), dtype=torch.uint8, device=dev)
+    ones = torch.ones((1, 8, 1), device=dev)
+    L = torch.zeros((1, 8, rank), dtype=torch.int8, device=dev)
+    xr = torch.zeros((32, rank), device=dev)
+    with pytest.raises(ValueError, match="i32"):
+        K.quantized_matmul_w4a8_l_stacked(x, packed, ones, 0, xr, L, ones, 4,
+                                          rank, (8,))
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("M", [1, 8, 33])
 @pytest.mark.parametrize("splits,rank", _SPLITS)

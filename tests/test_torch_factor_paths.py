@@ -57,9 +57,10 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _group(seed, layers, splits, K, rank, bits):
+def _group(seed, layers, splits, K, rank, bits, rows=8):
     """Stacked packed codes (8-bit codes in [0, 254]: ROADMAP R5), row
-    scales, int8 R / L factor codes and their scales, and activations."""
+    scales, int8 R / L factor codes and their scales, and ``rows`` rows of
+    activations."""
     rng = np.random.default_rng(seed)
     f = 8 // bits
     N, nR = sum(splits), len(splits) * rank
@@ -71,7 +72,7 @@ def _group(seed, layers, splits, K, rank, bits):
         Rs=rng.uniform(1e-4, 1e-3, (layers, nR, 1)).astype(np.float32),
         L=rng.integers(-127, 128, (layers, N, rank)).astype(np.int8),
         Ls=rng.uniform(1e-4, 1e-3, (layers, N, 1)).astype(np.float32),
-        x=rng.standard_normal((8, K)).astype(np.float32))
+        x=rng.standard_normal((rows, K)).astype(np.float32))
 
 
 def _xr(g, layer, rows):
@@ -92,11 +93,14 @@ def _close(got, ref, rtol, atol_rel):
 class TestLowRankKernels:
     @pytest.mark.parametrize("bits", [2, 4, 8])
     @pytest.mark.parametrize("splits,rank,rows", [
-        ((512, 256, 256), 128, 8), ((512,), 24, 3)])
+        ((512, 256, 256), 128, 8), ((512,), 24, 3), ((512, 256, 256), 128, 33),
+        ((512,), 24, 130)])
     def test_l_matches_reference(self, splits, rank, rows, bits):
         # tests/test_kernels.py::TestLRStackedFused's shapes: a group of
-        # three lane-aligned projections, and one projection of any rank
-        g = _group(2, 3, splits, 512, rank, bits)
+        # three lane-aligned projections, and one projection of any rank; at
+        # decode rows and above the tile path's threshold (the card's plan;
+        # the CPU runs the plain version at every M)
+        g = _group(2, 3, splits, 512, rank, bits, rows=max(rows, 8))
         xr = _xr(g, 1, rows)
         ref = JK.quantized_matmul_w4a8_l_stacked(
             jnp.asarray(g["x"][:rows]), jnp.asarray(g["packed"]),
