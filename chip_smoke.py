@@ -41,7 +41,10 @@ caught):
    fused-factor kernels at Llama-2-7B's shapes, rank 128, batch 8: the
    L-fused kernel on the four projections at M = 8, 512 and 2048 (l_kernel
    at 8, the int8 wgmma tile path with its L epilogue above), the LR-fused
-   kernel on qkv and gate/up at M = 8 and 512, the whole-MLP kernel and
+   kernel on qkv and gate/up at M = 8, 512 and 2048 (its plan; its
+   tensor-core xr kernel alone, with its bound; the cooperative kernel by
+   override at M 8; xr within rtol 1e-5 of the plain thin dot, the output
+   on the kernel's own xr, a second launch bit-equal), the whole-MLP kernel and
    the attention + o_proj kernel (staged and inline; the flipped int8 codes
    of their inner requantization counted against the plain version's); the
    decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
@@ -103,9 +106,11 @@ caught):
    inline: each step against the "xla" step and the plain versions from the
    same cache, exact launches, ms/step and the device time of one step as a
    CUDA graph; (d) ``FastServingEngine(mlp_kernel=True)`` on "l", 8
-   requests, prefill ms per bucket; (e) the "l" prefill of a 2048-token
-   prompt (4L L-fused tile launches, L flash prefill, the head) against the
-   plain versions and the "xla" prefill, with its ms.
+   requests, prefill ms per bucket; (e) the "l" and "lr" prefills of a
+   2048-token prompt ("l": 4L L-fused tile launches; "lr": 2L LR-fused
+   launches, each the tensor-core xr kernel and the L-fused tile kernel,
+   and 2L W4A8 launches for o and down; each with L flash prefill and the
+   head) against the plain versions and the "xla" prefill, with their ms.
 9. The persistent projection launch and bf16 dots, Llama-2-7B, 32 layers,
    on phase 4's params (``phase_proj_dots``, run before phase 8): batch 8,
    a cache of eight 128-token prompts, from position 128: (a)
@@ -1222,13 +1227,15 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
     Llama-2-7B's shapes, batch M = 8, rank 128, 4-bit: the L-fused kernel
     on qkv, o, gate/up and down, also at prefill's M = 512 and 2048 (its
     tile path), each with its bound; the LR-fused kernel on qkv and gate/up,
-    also at M = 512 (timed there, its decode design); the whole-MLP kernel; the
-    fused attention + o_proj kernel over a 256-token cache at position 128,
-    staged and inline. Weights rotate over enough layers to come from device
-    memory. The integer sums are exact on both sides; the factor dots sum
-    in another f32 order; xr inside the LR kernel can round to the other
-    bf16 neighbour; the two megakernels requantize inside (their flipped
-    int8 codes are counted against the plain version's)."""
+    also at M = 512 and 2048 (the tensor-core xr kernel and the L-fused tile
+    kernel at every M at rank 128; the cooperative kernel, which the plan
+    keeps for a rank over 320 or K over 66311, by override); the whole-MLP
+    kernel; the fused attention + o_proj kernel over a 256-token cache at
+    position 128, staged and inline. Weights rotate over enough layers to
+    come from device memory. The integer sums are exact on both sides; the
+    factor dots sum in another f32 order; xr inside the LR kernel can round
+    to the other bf16 neighbour; the two megakernels requantize inside
+    (their flipped int8 codes are counted against the plain version's)."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         attention as AT, kernels as K)
 
@@ -1292,63 +1299,109 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
 
     # --- B: the LR-fused kernel on qkv and gate/up (o and down keep kernel
     # 1 and the torch factor dots on factor path "lr"), at decode's M and at
-    # prefill's M = 512 (still the decode design there)
+    # prefill's M = 512 and 2048, on the plan's design (K._w4a8_lr_plan: the
+    # tensor-core xr kernel and then the L-fused tile kernel); at M 8 also
+    # the cooperative lr_kernel by override
     lr = record["quantized_matmul_w4a8_lr_stacked"]
     main = []
-    for name, splits, m in [(n, sp, m) for n, sp in (
-            ("qkv", (4096,) * 3), ("gate_up", (11008,) * 2))
-            for m in (8, 512)]:
+    for name, splits in (("qkv", (4096,) * 3), ("gate_up", (11008,) * 2)):
         N, n_proj, Kd = sum(splits), len(splits), 4096
         nR = n_proj * rank
         Lk = max(2, math.ceil(200e6 / (N * Kd // 2 + N * rank + nR * Kd)))
         w = _lowrank_weights(torch, dev, gen, Lk, N, Kd, n_proj)
-        x = torch.randn((m, Kd), generator=gen, device=dev)
-        args = (w["packed"], w["scales"], 1, w["R"], w["Rs"], w["L"],
-                w["Ls"], 4, rank, splits)
-        # the output against the plain version on the kernel's own xr (an
-        # xr element may round to the other bf16 neighbour), and that xr
-        # against the plain thin dot
-        y = K.quantized_matmul_w4a8_lr_stacked(x, *args)
-        xq, sx = K.quantize_activations_int8(x)
-        _, xr = K._launch_lr(x, xq, sx, w["packed"], w["scales"], 1, w["R"],
-                             w["Rs"], w["L"], w["Ls"], 4, rank, splits)
-        ref = K.quantized_matmul_w4a8_l_stacked_plain(
-            x, w["packed"], w["scales"], 1, xr, w["L"], w["Ls"], 4, rank,
-            splits)
-        xr_ref = K.thin_xr(x, w["R"][1], w["Rs"][1])
-        torch.cuda.synchronize()
-        err = float((y - ref).abs().max())
-        tol = 1e-5 * float(ref.abs().max())
-        xr_tol = 1e-5 * float(xr_ref.abs().max())
-        ok = (torch.allclose(y, ref, rtol=1e-5, atol=tol)
-              and torch.allclose(xr, xr_ref, rtol=1e-5, atol=xr_tol))
-        e_plain = _rel(torch, y, K.quantized_matmul_w4a8_lr_stacked_plain(
-            x, *args))
-        ms = _time_ms(torch, lambda i: K._launch_lr(
-            x, xq, sx, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"],
-            w["L"], w["Ls"], 4, rank, splits), 50 if m == 8 else 5)
-        plain_ms = _time_ms(
-            torch, lambda i: K.quantized_matmul_w4a8_lr_stacked_plain(
-                x, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"], w["L"],
-                w["Ls"], 4, rank, splits), 2, reps=3)
-        nbytes = (m * Kd * 5 + m * 4 + N * Kd // 2 + N * 4 + nR * Kd
-                  + nR * 4 + N * rank + N * 4 + m * N * 4)
-        ops = _ops_int8_units(i8=2 * m * N * Kd,
-                              bf16=2 * m * nR * Kd + 2 * m * N * rank)
-        bound, by = _bound_ms(nbytes, ops)
-        print(f"w4a8_lr_stacked {name} M={m} N={N} K={Kd} rank {rank} "
-              f"4-bit: max diff {err:.3e} on its own xr (bound rtol 1e-5, "
-              f"atol {tol:.3e}; xr within rtol 1e-5), {e_plain:.3e} "
-              f"rel-Frobenius against the plain version's own xr; kernel "
-              f"{ms:.4f} ms (cooperative launch), plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-              f"{bound / ms:.1%} of bound)", flush=True)
-        if not ok:
-            raise AssertionError(f"w4a8_lr_stacked {name} disagrees with "
-                                 "plain")
-        lr["max_abs_err"] = max(lr["max_abs_err"] or 0.0, err)
-        if m == M:
-            main.append((ms, plain_ms, nbytes, ops))
+        for m in (8, 512, 2048):
+            x = torch.randn((m, Kd), generator=gen, device=dev)
+            xq, sx = K.quantize_activations_int8(x)
+            plan = K._w4a8_lr_plan(m, N, Kd, 4, rank, splits, sms)
+            paths = [None] + (["coop" if plan["path"] == "tile" else "tile"]
+                              if m == M else [])
+            for path in paths:
+                largs = (x, xq, sx, w["packed"], w["scales"], 1, w["R"],
+                         w["Rs"], w["L"], w["Ls"], 4, rank, splits)
+                design = path or plan["path"]
+                # the output against the plain version on the kernel's own
+                # xr (an xr element may round to the other bf16 neighbour),
+                # that xr against the plain thin dot, a second launch bit
+                # for bit
+                if path is None:
+                    y = K.quantized_matmul_w4a8_lr_stacked(
+                        x, *largs[3:5], 1, *largs[6:])
+                    y1, xr = K._launch_lr(*largs)
+                    same = bool(torch.equal(y, y1))
+                else:
+                    y, xr = K._launch_lr(*largs, path=path)
+                    same = True
+                y2, xr2 = K._launch_lr(*largs, path=path)
+                ref = K.quantized_matmul_w4a8_l_stacked_plain(
+                    x, w["packed"], w["scales"], 1, xr, w["L"], w["Ls"], 4,
+                    rank, splits)
+                xr_ref = K.thin_xr(x, w["R"][1], w["Rs"][1])
+                torch.cuda.synchronize()
+                err = float((y - ref).abs().max())
+                xr_err = float((xr - xr_ref).abs().max())
+                tol = 1e-5 * float(ref.abs().max())
+                xr_tol = 1e-5 * float(xr_ref.abs().max())
+                ok = (same and torch.equal(y, y2) and torch.equal(xr, xr2)
+                      and torch.allclose(y, ref, rtol=1e-5, atol=tol)
+                      and torch.allclose(xr, xr_ref, rtol=1e-5,
+                                         atol=xr_tol))
+                e_plain = _rel(
+                    torch, y, K.quantized_matmul_w4a8_lr_stacked_plain(
+                        x, w["packed"], w["scales"], 1, w["R"], w["Rs"],
+                        w["L"], w["Ls"], 4, rank, splits))
+                ms = _time_ms(torch, lambda i: K._launch_lr(
+                    *largs[:5], i % Lk, *largs[6:], path=path),
+                    50 if m == 8 else 10)
+                plain_ms = _time_ms(
+                    torch, lambda i: K.quantized_matmul_w4a8_lr_stacked_plain(
+                        x, w["packed"], w["scales"], i % Lk, w["R"], w["Rs"],
+                        w["L"], w["Ls"], 4, rank, splits), 2, reps=3)
+                nbytes = (m * Kd * 5 + m * 4 + N * Kd // 2 + N * 4 + nR * Kd
+                          + nR * 4 + N * rank + N * 4 + m * N * 4)
+                ops = _ops_int8_units(i8=2 * m * N * Kd,
+                                      bf16=2 * m * nR * Kd + 2 * m * N * rank)
+                bound, by = _bound_ms(nbytes, ops)
+                if design == "tile":
+                    xp = K._w4a8_lr_plan(m, N, Kd, 4, rank, splits, sms,
+                                         path="tile")
+                    xb = x.to(torch.bfloat16)
+                    xr_ms = _time_ms(torch, lambda i: K._launch_lr_xr(
+                        xb, w["R"][i % Lk], w["Rs"][i % Lk], rank,
+                        xp["xr"]),
+                        50 if m == 8 else 20)
+                    # bf16 x and the int8 codes in, f32 xr out
+                    xr_bound, _ = _bound_ms(
+                        m * Kd * 2 + nR * Kd + nR * 4 + m * nR * 4,
+                        2 * m * nR * Kd, BF16_OPS_PER_S)
+                    x_plan = xp["xr"]
+                    how = (f"tile path: xr kernel, tiles of 128 R rows x "
+                           f"{x_plan['cols']}, grid {x_plan['grid']} "
+                           f"({x_plan['splits']} K splits of "
+                           f"{x_plan['split_steps']} steps), alone "
+                           f"{xr_ms:.4f} ms, bound {xr_bound:.4f} ms "
+                           f"({xr_bound / xr_ms:.1%} of bound); then the L "
+                           f"tile kernel, tiles of {xp['rows']} x "
+                           f"{xp['cols']}, {xp['tiles']} on "
+                           f"{xp['grid'][0]} persistent CTAs")
+                else:
+                    how = "cooperative lr_kernel"
+                if path is not None:
+                    how += ", by override"
+                print(f"w4a8_lr_stacked {name} M={m} N={N} K={Kd} rank "
+                      f"{rank} 4-bit ({how}): "
+                      f"max diff {err:.3e} on its own xr (bound rtol 1e-5, "
+                      f"atol {tol:.3e}), xr max diff {xr_err:.3e} (bound "
+                      f"rtol 1e-5, atol {xr_tol:.3e}), repeat bit-equal; "
+                      f"{e_plain:.3e} rel-Frobenius against the plain "
+                      f"version's own xr; call {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                      f"{bound / ms:.1%} of bound)", flush=True)
+                if not ok:
+                    raise AssertionError(f"w4a8_lr_stacked {name} M={m} "
+                                         f"({design}) disagrees with plain")
+                lr["max_abs_err"] = max(lr["max_abs_err"] or 0.0, err)
+                if m == M and path is None:
+                    main.append((ms, plain_ms, nbytes, ops))
         del w
     torch.cuda.empty_cache()
     mean = [statistics.fmean(t[j] for t in main) for j in range(4)]
@@ -2649,7 +2702,7 @@ def phase_options(torch, dev, record):
     requests of 16-256 prompt tokens, 16 new tokens each, every prefill and
     tick with its exact launches, the first prefill and tick against the
     plain versions, prefill ms per bucket. (e) :func:`_prefill_2048`: the
-    "l" prefill of a 2048-token prompt."""
+    "l" and "lr" prefills of a 2048-token prompt."""
     from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
     from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
         fused, llama)
@@ -2779,7 +2832,7 @@ def phase_options(torch, dev, record):
     torch.cuda.empty_cache()
 
     # (d) the engine on "l" with the whole-MLP kernel
-    params, xla = sets["l"], sets["xla"]
+    params, xla, lr = sets["l"], sets["xla"], sets["lr"]
     del sets
     counters = (K.quantized_matmul_w4a8_l_stacked,
                 K.quantized_matmul_w4a8_mlp_stacked,
@@ -2841,18 +2894,22 @@ def phase_options(torch, dev, record):
               f"({', '.join(f'{m:.1f}' for m in ms)})", flush=True)
     del engine
     torch.cuda.empty_cache()
-    _prefill_2048(torch, dev, config, params, xla)
-    del params, xla
+    _prefill_2048(torch, dev, config, params, xla, lr)
+    del params, xla, lr
     print(f"options phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def _prefill_2048(torch, dev, config, params, xla):
-    """Phase 8 (e): factor path "l" prefills one seeded 2048-token prompt
-    (``prefill_into_slot_fused``, flash prefill): each projection on the
-    L-fused kernel's tile path (4L launches), L flash prefill launches and
-    the int8 head, exactly; the logits held to the same prefill through the
+def _prefill_2048(torch, dev, config, params, xla, lr):
+    """Phase 8 (e): factor paths "l" and "lr" prefill one seeded 2048-token
+    prompt (``prefill_into_slot_fused``, flash prefill): "l" with each
+    projection on the L-fused kernel's tile path (4L launches), "lr" with
+    qkv and gate/up on the LR-fused kernel's tile path (2L launches: the
+    tensor-core xr kernel, then the L-fused tile kernel) and o and down on
+    the W4A8 kernel (2L), each with L flash prefill launches and the int8
+    head, exactly; the logits of each held to the same prefill through the
     plain versions on the card and to the "xla" prefill of the prompt
-    (``KERN_REL`` and argmax); host ms of two runs each, to a synchronize."""
+    (``KERN_REL`` and argmax); host ms of two runs each, to a
+    synchronize."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
         fused, llama)
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
@@ -2861,12 +2918,23 @@ def _prefill_2048(torch, dev, config, params, xla):
     S, L = 2048, config.num_layers
     gen = torch.Generator().manual_seed(14)
     tokens = torch.randint(0, config.vocab_size, (1, S), generator=gen).to(dev)
-    counters = (K.quantized_matmul_w4a8_l_stacked, AT.flash_prefill,
+    counters = (K.quantized_matmul_w4a8_l_stacked,
+                K.quantized_matmul_w4a8_lr_stacked, AT.flash_prefill,
                 K.int8_matmul, K.quantized_matmul_w4a8_stacked)
-    names = ("l", "flash_prefill", "int8_matmul", "w4a8_stacked")
+    names = ("l", "lr", "flash_prefill", "int8_matmul", "w4a8_stacked")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for g in (lr.layers.qkv, lr.layers.gateup):
+        N, Kd = g.packed.shape[1], g.packed.shape[2] * (8 // g.num_bits)
+        plan = K._w4a8_lr_plan(S, N, Kd, g.num_bits, g.ranks[0], g.splits,
+                               sms)
+        if plan["path"] != "tile":
+            raise AssertionError(f"options (e): the LR-fused plan at M {S} "
+                                 f"is {plan['path']!r}, not the tile path")
+    runs = {"l": (params, (4 * L, 0, L, 1, 0)),
+            "lr": (lr, (0, 2 * L, L, 1, 2 * L)),
+            "xla": (xla, (0, 0, L, 1, 4 * L))}
     out, ms = {}, {}
-    for fk, p, expected in (("l", params, (4 * L, L, 1, 0)),
-                            ("xla", xla, (0, L, 1, 4 * L))):
+    for fk, (p, expected) in runs.items():
         cache = llama.HeadMajorQuantKVCache.create(config, 1, S, device=dev)
         ms[fk] = []
         for _ in range(2):
@@ -2884,24 +2952,27 @@ def _prefill_2048(torch, dev, config, params, xla):
                                      f"{dict(zip(names, expected))}")
         out[fk] = logits
         del cache
-    cache = llama.HeadMajorQuantKVCache.create(config, 1, S, device=dev)
-    with _PlainKernels():
-        plain, _ = fused.prefill_into_slot_fused(params, tokens, 0, cache,
-                                                 config, flash=True)
-    del cache
-    e_p = _rel(torch, out["l"][None], plain[None])
-    e_x = _rel(torch, out["l"][None], out["xla"][None])
-    print(f"options (e) 'l' prefill of {S} tokens (flash): exact launches "
-          f"{dict(zip(names, (4 * L, L, 1, 0)))}; {ms['l'][0]:.1f}, "
-          f"{ms['l'][1]:.1f} ms (the 'xla' prefill {ms['xla'][0]:.1f}, "
-          f"{ms['xla'][1]:.1f} ms); logits against the plain versions "
-          f"{e_p:.3e}, against the 'xla' prefill {e_x:.3e} (rel-Frobenius, "
-          f"bound {KERN_REL:g})", flush=True)
-    if not (e_p <= KERN_REL and e_x <= KERN_REL
-            and _same_argmax(torch, out["l"][None], plain[None])
-            and _same_argmax(torch, out["l"][None], out["xla"][None])):
-        raise AssertionError("options (e): the 'l' prefill disagrees with "
-                             "the plain versions or the 'xla' prefill")
+    for fk in ("l", "lr"):
+        cache = llama.HeadMajorQuantKVCache.create(config, 1, S, device=dev)
+        with _PlainKernels():
+            plain, _ = fused.prefill_into_slot_fused(runs[fk][0], tokens, 0,
+                                                     cache, config,
+                                                     flash=True)
+        del cache
+        e_p = _rel(torch, out[fk][None], plain[None])
+        e_x = _rel(torch, out[fk][None], out["xla"][None])
+        print(f"options (e) {fk!r} prefill of {S} tokens (flash): exact "
+              f"launches {dict(zip(names, runs[fk][1]))}; {ms[fk][0]:.1f}, "
+              f"{ms[fk][1]:.1f} ms (the 'xla' prefill {ms['xla'][0]:.1f}, "
+              f"{ms['xla'][1]:.1f} ms); logits against the plain versions "
+              f"{e_p:.3e}, against the 'xla' prefill {e_x:.3e} "
+              f"(rel-Frobenius, bound {KERN_REL:g})", flush=True)
+        if not (e_p <= KERN_REL and e_x <= KERN_REL
+                and _same_argmax(torch, out[fk][None], plain[None])
+                and _same_argmax(torch, out[fk][None], out["xla"][None])):
+            raise AssertionError(f"options (e): the {fk!r} prefill disagrees "
+                                 "with the plain versions or the 'xla' "
+                                 "prefill")
 
 
 def phase_mega(torch, dev, record, params, cache, tok0, pos0):

@@ -103,6 +103,11 @@ ENTRIES = {
         # x, xq, sx, packed, scales, R, R_scale, L_cat, L_scale, xr scratch,
         # out, M, N, K, bits, layer, rank, n_proj, b1, b2, b3, stream
         "w4a8_lr_stacked_launch": [_P] * 11 + [_I] * 10 + [_P],
+        # x (bf16), a layer's R (int8) and R_scale, xr (f32 out), xr (bf16
+        # out, the L tile kernel's layout), split-K workspace, split-K
+        # counters, M, nR, K, rank, cols, split_steps, splits, stream: the
+        # tensor-core xr of the LR-fused tile path
+        "w4a8_lr_xr_launch": [_P] * 7 + [_I] * 7 + [_P],
         # xq, sx, xr_gu, gu packed, scales, L, L scales, global scales, dn
         # packed, scales, R, R scales, L, L scales, scratch m, amax, m8, xrd,
         # out, M, h, im, bits, layer, rank, stream

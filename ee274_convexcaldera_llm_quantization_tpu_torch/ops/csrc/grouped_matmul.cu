@@ -105,24 +105,6 @@ __device__ __forceinline__ uint32_t dequant2(uint32_t c, float s) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Called by the `threads` consumer threads (thread 0 among them) of a split-K
-// CTA once its partial tile is in the workspace: true in the last of the
-// tile's `splits` CTAs to get here, which then reads every partial (and has
-// set the tile's counter back to 0 for the next launch on the stream).
-__device__ __forceinline__ bool last_split(int* counter, int splits,
-                                           int threads, int* flag) {
-  __threadfence();
-  bar_sync(1, threads);
-  if (threadIdx.x == 0) {
-    *flag = atomicAdd(counter, 1) == splits - 1;
-    if (*flag) *counter = 0;
-  }
-  bar_sync(1, threads);
-  const bool last = *flag;
-  if (last) __threadfence();
-  return last;
-}
-
 // ---------------------------------------------------------------------------
 // The kernel: WGS consumer warpgroups of 64 weight rows each, NT activation
 // rows, one producer warp
@@ -327,30 +309,9 @@ grouped_kernel(const __grid_constant__ CUtensorMap tw,
     return;
   }
 
-  float* part = ws + ((size_t)split * tiles + tile) * S::kRows * NT;
-#pragma unroll
-  for (int c = 0; c < NT / 8; ++c)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<float2*>(part + (rl + 8 * i) * NT + 8 * c + 2 * t) =
-          make_float2(acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1]);
-  if (!last_split(counters + tile, splits, 128 * WGS, &last)) return;
-  // the partials summed in split order, whichever CTA came last
-#pragma unroll
-  for (int e = 0; e < kR; ++e) acc[e] = 0.f;
-  for (int sp = 0; sp < splits; ++sp) {
-    const float* p = ws + ((size_t)sp * tiles + tile) * S::kRows * NT;
-#pragma unroll
-    for (int c = 0; c < NT / 8; ++c)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float2 q2 = __ldcg(reinterpret_cast<const float2*>(
-            p + (rl + 8 * i) * NT + 8 * c + 2 * t));
-        acc[4 * c + 2 * i] += q2.x;
-        acc[4 * c + 2 * i + 1] += q2.y;
-      }
-  }
-  store(acc);
+  if (splitk_sum<S::kRows, NT>(acc, ws, counters, tile, tiles, split, splits,
+                               rl, t, 128 * WGS, &last))
+    store(acc);
 }
 
 struct Args {

@@ -318,6 +318,61 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Split-K: called by the `threads` consumer threads (thread 0 among them) of
+// a CTA once its partial tile is in the workspace: true in the last of the
+// tile's `splits` CTAs to get here, which then reads every partial (and has
+// set the tile's counter back to 0 for the next launch on the stream).
+__device__ __forceinline__ bool last_split(int* counter, int splits,
+                                           int threads, int* flag) {
+  __threadfence();
+  bar_sync(1, threads);
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(counter, 1) == splits - 1;
+    if (*flag) *counter = 0;
+  }
+  bar_sync(1, threads);
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// Split-K's epilogue for a swap-AB tile of ROWS x NT f32 held in wgmma's D
+// fragments, transposed: a thread's accumulator e = 4 c + 2 i + j is row
+// rl + 8 i, column 8 c + 2 t + j of the tile (t = lane % 4). Stores v, the
+// CTA's partial, to split `split`'s slot of ws (splits x tiles x ROWS x NT
+// f32), then (last_split over `threads` threads) in the last of the tile's
+// CTAs to arrive sets v to the partials summed in split order and returns
+// true, so the sum does not depend on which CTA came last.
+template <int ROWS, int NT>
+__device__ __forceinline__ bool splitk_sum(float (&v)[NT / 2], float* ws,
+                                           int* counters, int tile, int tiles,
+                                           int split, int splits, int rl,
+                                           int t, int threads, int* flag) {
+  float* part = ws + ((size_t)split * tiles + tile) * ROWS * NT;
+#pragma unroll
+  for (int c = 0; c < NT / 8; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(part + (rl + 8 * i) * NT + 8 * c + 2 * t) =
+          make_float2(v[4 * c + 2 * i], v[4 * c + 2 * i + 1]);
+  if (!last_split(counters + tile, splits, threads, flag)) return false;
+#pragma unroll
+  for (int e = 0; e < NT / 2; ++e) v[e] = 0.f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* p = ws + ((size_t)sp * tiles + tile) * ROWS * NT;
+#pragma unroll
+    for (int c = 0; c < NT / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 q2 = __ldcg(reinterpret_cast<const float2*>(
+            p + (rl + 8 * i) * NT + 8 * c + 2 * t));
+        v[4 * c + 2 * i] = __fadd_rn(v[4 * c + 2 * i], q2.x);
+        v[4 * c + 2 * i + 1] = __fadd_rn(v[4 * c + 2 * i + 1], q2.y);
+      }
+  }
+  return true;
+}
+
 // ---------------------------------------------------------------------------
 // Device: wgmma
 // ---------------------------------------------------------------------------
@@ -486,27 +541,29 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t a,
 // lower column in the low half): a[0] (row 16 w + g, columns 2 t, 2 t + 1),
 // a[1] (row + 8, the same columns), a[2] (row 16 w + g, columns 2 t + 8,
 // 2 t + 9), a[3] (row + 8, those columns). B bf16 in shared memory, K-major,
-// 128-byte swizzle. ptxas serializes a product whose register inputs are
-// written while another product is in flight (warning C7513), so write
-// every A register of a batch before its first product.
+// 128-byte swizzle; D is overwritten when `accumulate` is 0. ptxas
+// serializes a product whose register inputs are written while another
+// product is in flight (warning C7513), so write every A register of a batch
+// before its first product.
 
 // D (64 x 8, f32, 4 registers a thread) += A (64 x 16, registers) *
 // B (8 x 16)^T.
 __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
-    const uint32_t (&a)[4], uint64_t b) {
+    const uint32_t (&a)[4], uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3"
       "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 // D (64 x 16, f32, 8 registers a thread) += A (64 x 16, registers) *
 // B (16 x 16)^T.
 __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
-    const uint32_t (&a)[4], uint64_t b) {
+    const uint32_t (&a)[4], uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
@@ -514,13 +571,14 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 // D (64 x 64, f32, 32 registers a thread) += A (64 x 16, registers) *
 // B (64 x 16)^T.
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-    const uint32_t (&a)[4], uint64_t b) {
+    const uint32_t (&a)[4], uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -535,13 +593,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 // D (64 x 128, f32, 64 registers a thread) += A (64 x 16, registers) *
 // B (128 x 16)^T.
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-    const uint32_t (&a)[4], uint64_t b) {
+    const uint32_t (&a)[4], uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -565,23 +624,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 // The A-in-registers bf16 instruction of width n (8, 16, 64 or 128).
 template <int N>
 __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
                                                 const uint32_t (&a)[4],
-                                                uint64_t b) {
+                                                uint64_t b,
+                                                int accumulate = 1) {
   if constexpr (N == 8) {
-    wgmma_m64n8k16_rs(d, a, b);
+    wgmma_m64n8k16_rs(d, a, b, accumulate);
   } else if constexpr (N == 16) {
-    wgmma_m64n16k16_rs(d, a, b);
+    wgmma_m64n16k16_rs(d, a, b, accumulate);
   } else if constexpr (N == 64) {
-    wgmma_m64n64k16_rs(d, a, b);
+    wgmma_m64n64k16_rs(d, a, b, accumulate);
   } else {
     static_assert(N == 128, "wgmma width: 8, 16, 64 or 128");
-    wgmma_m64n128k16_rs(d, a, b);
+    wgmma_m64n128k16_rs(d, a, b, accumulate);
   }
 }
 

@@ -15,7 +15,10 @@
 //   x once per CTA. So it is a cooperative launch of as many CTAs as fit on
 //   the card at once: phase 1 writes xr (M x n_proj * rank f32) to scratch,
 //   one warp per R row, then a grid-wide barrier, then phase 2 is the l
-//   kernel's tile body in a loop over the output row tiles.
+//   kernel's tile body in a loop over the output row tiles. It runs only
+//   when asked for: the same function as two launches, w4a8_lr_xr_launch
+//   (section D: xr on the tensor cores) and then w4a8_l_tile_launch on its
+//   xr, was faster at every M measured.
 // - w4a8_mlp_stacked_launch: quantized_matmul_w4a8_mlp_stacked
 //   (_qmm_w4a8_mlp_stacked_kernel). down(silu(gate(x)) * up(x)) in one
 //   cooperative launch, three phases split by two grid barriers:
@@ -313,6 +316,234 @@ cudaError_t launch_mlp(MlpArgs a, cudaStream_t st) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// D. xr on the tensor cores (the LR-fused tile path)
+// ---------------------------------------------------------------------------
+//
+// The LR-fused matmul's tile path is two launches: xr_kernel writes xr =
+// (bf16(x) @ R[l].T) * Rs[l] (M x nR f32, nR = n_proj * rank, and its bf16
+// rounding), then w4a8_l_tile_launch (w4a8_tile.cuh with its L epilogue)
+// runs on that bf16 xr.
+// A launch of its own, not a prologue of the tile kernel: that kernel fills
+// 224 KB of shared memory and takes every register setmaxnreg leaves it.
+//
+// xr is a GEMM of M x nR x K: 2 M nR K bf16 operations (6.4 GFLOP for
+// Llama-2-7B's qkv at rank 128 and M 2048, 6.5 us at 989 TFLOP/s) over
+// ~20 MB of bf16 x and int8 R. The design is the grouped kernel's M > 16
+// path (grouped_matmul.cu) on one plane of signed codes: swap-AB, two
+// consumer warpgroups of 64 R rows each (wgmma's A, the codes widened to
+// bf16 straight into registers, exactly: r + 128 under the exponent of
+// 2^23, less 2^23 + 128, is r), and NT (16, 64 or 128) rows of bf16 x (the
+// wrapper's cast, by TMA, 128-byte swizzle) as wgmma's n columns; one
+// producer warp keeps a ring of stages (128 R rows x 64 bytes, 64-byte
+// swizzle, and NT x rows x 64 values) in flight. R's 256 or 384 rows are
+// only two or three tiles, so K is split while the tiles leave SMs idle:
+// each split writes its partial tile to a workspace and the last CTA of a
+// tile sums them in split order (counters the caller keeps zeroed per
+// stream and per graph capture), so launches repeat bit for bit.
+//
+// Measured alternative (H100, scripts/torch_w4a8_lr_times.py --sweep): R
+// widened by the wrapper and both operands read by wgmma from shared
+// memory, one step's products in flight while the next was issued: no
+// faster at M 512 and 2048 (the kernel reads twice R's bytes through L2,
+// which binds it there), slower at M 8, and the call paid a cast of R.
+//
+// Sums: the tensor cores round their f32 sums toward zero, so one chain of
+// the 256 k16 slices of K 4096 would drift toward zero (an estimate, up to
+// ~128 ulps of xr: one ulp a pair of slices; no one-chain build was run).
+// The products chain on one accumulator for a block of kBlock steps (16
+// slices), then the block's sum joins the running sum by a round-to-nearest
+// f32 add, and the next block starts on a fresh accumulator (wgmma's
+// scale-d 0): the truncations are those of short sums, of varying sign.
+namespace xrk {
+
+constexpr int kBK = 64;            // k a step: R bytes, x bf16 values
+constexpr int kRows = 128;         // R rows a CTA
+constexpr int kRaw = kRows * kBK;  // bytes of a stage's R codes
+constexpr int kThreads = 256 + 32;
+constexpr int kStages = 6;
+constexpr int kBlock = 4;          // steps chained on one accumulator
+
+template <int NT>
+struct Shape {
+  static constexpr int kXT = NT * 128;  // bytes of a stage's x tile
+  static constexpr int kStage = kRaw + kXT;
+  static constexpr int kSmem = kStages * kStage + 1024;
+  static_assert(kStage % 1024 == 0, "1 KB aligned tiles");
+};
+
+struct Ring {
+  uint64_t full[kStages];   // TMA bytes landed
+  uint64_t empty[kStages];  // stage read by every consumer warp
+};
+
+// bf16(r_B) and bf16(r_{B+1}) of the signed bytes B, B + 1 of w, given
+// as u = w ^ 0x80808080 (r + 128 a byte), in one register (byte B low).
+template <int B>
+__device__ __forceinline__ uint32_t widen2(uint32_t u) {
+  constexpr float kOff = 8388608.f + 128.f;
+  const float lo = __fsub_rn(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + B)), kOff);
+  const float hi = __fsub_rn(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541 + B)), kOff);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid (ceil(nR / 128), ceil(M / NT), splits): CTA (x, y, z) takes R rows
+// 128 x .., x rows NT y .. and steps z split_steps .. of 64 k. ws: splits x
+// tiles x 128 x NT f32 partials, counters: one int a tile (both unused
+// when splits == 1). Each xr value is stored twice: in f32 to xr (M, nR),
+// and rounded to bf16 to xb_out (M, nR / rank, rank8), the layout of the L
+// tile kernel's A boxes (w4a8_tile.cuh), so no pass of its own casts it.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+xr_kernel(const __grid_constant__ CUtensorMap tr,
+          const __grid_constant__ CUtensorMap tx, const float* __restrict__ Rs,
+          float* __restrict__ xr, __nv_bfloat16* __restrict__ xb_out,
+          float* __restrict__ ws, int* __restrict__ counters, int M, int nR,
+          int K, int rank, int rank8, int split_steps) {
+  using S = Shape<NT>;
+  constexpr int kR = NT / 2;  // accumulators a thread
+  __shared__ Ring ring;
+  __shared__ int last;
+  uint8_t* smem = hopper::smem_1k();
+  const int n0 = blockIdx.x * kRows, m0 = blockIdx.y * NT;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int tiles = gridDim.x * gridDim.y;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int s0 = split * split_steps;
+  const int steps = min(split_steps, (K + kBK - 1) / kBK - s0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&ring.full[s], 1);
+      hopper::mbar_init(&ring.empty[s], 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages;
+        hopper::mbar_wait(&ring.empty[s], ((i / kStages) & 1) ^ 1);
+        uint8_t* st = smem + s * S::kStage;
+        hopper::mbar_expect_tx(&ring.full[s], S::kStage);
+        const int k = (s0 + i) * kBK;
+        hopper::tma_load_2d(st, &tr, &ring.full[s], k, n0);
+        hopper::tma_load_2d(st + kRaw, &tx, &ring.full[s], k, m0);
+      }
+    }
+    return;
+  }
+
+  // lane 4 g + t of warp w: R rows rl and rl + 8 of the CTA's, wgmma's A
+  // fragment rows of its warp
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = 16 * warp + g;
+  float acc[kR], sum[kR];
+#pragma unroll
+  for (int e = 0; e < kR; ++e) acc[e] = sum[e] = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kStages;
+    hopper::mbar_wait(&ring.full[s], (i / kStages) & 1);
+    const uint8_t* st = smem + s * S::kStage;
+    // the A fragments of the step's four k16 slices: bytes c, c + 1, c + 8,
+    // c + 9 of rows rl and rl + 8
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      const uint32_t u0 = __byte_perm(
+          *reinterpret_cast<const uint16_t*>(st + hopper::sw64_u8(rl, c)),
+          *reinterpret_cast<const uint16_t*>(st + hopper::sw64_u8(rl, c + 8)),
+          0x5410) ^ 0x80808080u;
+      const uint32_t u1 = __byte_perm(
+          *reinterpret_cast<const uint16_t*>(st + hopper::sw64_u8(rl + 8, c)),
+          *reinterpret_cast<const uint16_t*>(
+              st + hopper::sw64_u8(rl + 8, c + 8)),
+          0x5410) ^ 0x80808080u;
+      a[kk][0] = widen2<0>(u0);
+      a[kk][1] = widen2<0>(u1);
+      a[kk][2] = widen2<2>(u0);
+      a[kk][3] = widen2<2>(u1);
+    }
+    // every A register written before the first product; a block's first
+    // product starts a fresh accumulator
+    const int fresh = i % kBlock == 0;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64k16_rs<NT>(acc, a[kk],
+                                  hopper::desc_sw128(st + kRaw + 32 * kk),
+                                  !(fresh && kk == 0));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&ring.empty[s]);
+    if (i % kBlock == kBlock - 1 || i == steps - 1) {
+      hopper::fence_regs(acc);
+#pragma unroll
+      for (int e = 0; e < kR; ++e) sum[e] = __fadd_rn(sum[e], acc[e]);
+      hopper::fence_regs(acc);
+    }
+  }
+
+  // accumulator e = 4 c + 2 i + j: R row rl + 8 i, x row 8 c + 2 t + j of
+  // the CTA's (wgmma's D fragment, here transposed)
+  const int ldb = nR / rank * rank8;
+  const auto store = [&](const float (&v)[kR]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = n0 + rl + 8 * i;
+      if (n >= nR) continue;
+      const float rs = Rs[n];
+      const int nb = n / rank * rank8 + n % rank;
+#pragma unroll
+      for (int c = 0; c < NT / 8; ++c)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int m = m0 + 8 * c + 2 * t + j;
+          if (m >= M) continue;
+          const float y = __fmul_rn(v[4 * c + 2 * i + j], rs);
+          xr[(size_t)m * nR + n] = y;
+          xb_out[(size_t)m * ldb + nb] = __float2bfloat16_rn(y);
+        }
+    }
+  };
+  if (splits == 1) {
+    store(sum);
+    return;
+  }
+  if (hopper::splitk_sum<kRows, NT>(sum, ws, counters, tile, tiles, split,
+                                    splits, rl, t, 256, &last))
+    store(sum);
+}
+
+template <int NT>
+cudaError_t launch(const void* xb, const void* R, const float* Rs, float* xr,
+                   __nv_bfloat16* xb_out, float* ws, int* counters, int M,
+                   int nR, int K, int rank, int rank8, int split_steps,
+                   int splits, cudaStream_t st) {
+  using S = Shape<NT>;
+  CUtensorMap tr, tx;
+  if (!hopper::map_u8_rows(&tr, R, nR, K, K, kRows) ||
+      !hopper::map_bf16_rows(&tx, xb, M, K, K, NT))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = hopper::allow_smem<xr_kernel<NT>>(S::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nR + kRows - 1) / kRows, (M + NT - 1) / NT, splits);
+  xr_kernel<NT><<<grid, kThreads, S::kSmem, st>>>(
+      tr, tx, Rs, xr, xb_out, ws, counters, M, nR, K, rank, rank8,
+      split_steps);
+  return cudaGetLastError();
+}
+
+}  // namespace xrk
+
 bool valid_bits(int bits) { return bits == 2 || bits == 4 || bits == 8; }
 
 Splits make_splits(int N, int n_proj, const int* b) {
@@ -444,6 +675,50 @@ extern "C" int w4a8_lr_stacked_launch(const void* x, const void* xq,
     err = LR_LAUNCH(8, rowdot::kOffset8);
 #undef LR_LAUNCH
   return (int)err;
+}
+
+// xr = (bf16(x) @ R.T) * R_scale as f32 (M, nR) on the tensor cores (section
+// D), for w4a8_l_tile_launch: xb (M, K) bf16, R (nR, K) int8 and R_scale
+// (nR) f32, one layer's; xr also rounded to bf16 into xr_b (M, nR / rank,
+// rank8), rank8 = rank rounded up to a multiple of 8 (its columns past the
+// rank are left as they are: the caller zeroes them). `cols` (16, 64 or
+// 128) activation rows and 128 R rows a tile; K is walked in `splits`
+// splits of split_steps 64-k steps, the last possibly shorter and none
+// empty; when splits > 1, ws holds splits x tiles x 128 x cols f32 and
+// counters one zeroed int a tile, left zeroed (launches that may run at
+// once need their own). K % 16 == 0, nR % rank == 0; xb and R 16-byte
+// aligned.
+extern "C" int w4a8_lr_xr_launch(const void* xb, const void* R,
+                                 const void* R_scale, void* xr, void* xr_b,
+                                 void* ws, void* counters, int M, int nR,
+                                 int K, int rank, int cols, int split_steps,
+                                 int splits, void* stream) {
+  const int k_steps = (K + xrk::kBK - 1) / xrk::kBK;
+  if (M < 1 || nR < 1 || K < 16 || K % 16 != 0 || rank < 1 ||
+      nR % rank != 0 || xr_b == nullptr ||
+      reinterpret_cast<uintptr_t>(xb) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(R) % 16 != 0 || split_steps < 1 ||
+      splits < 1 || (splits - 1) * split_steps >= k_steps ||
+      splits * split_steps < k_steps ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const auto* rs = static_cast<const float*>(R_scale);
+  auto* y = static_cast<float*>(xr);
+  auto* yb = static_cast<__nv_bfloat16*>(xr_b);
+  auto* w = static_cast<float*>(ws);
+  auto* c = static_cast<int*>(counters);
+  const int rank8 = (rank + 7) / 8 * 8;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (cols == 16)
+    return (int)xrk::launch<16>(xb, R, rs, y, yb, w, c, M, nR, K, rank,
+                                rank8, split_steps, splits, st);
+  if (cols == 64)
+    return (int)xrk::launch<64>(xb, R, rs, y, yb, w, c, M, nR, K, rank,
+                                rank8, split_steps, splits, st);
+  if (cols == 128)
+    return (int)xrk::launch<128>(xb, R, rs, y, yb, w, c, M, nR, K, rank,
+                                 rank8, split_steps, splits, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // xq (M, h) int8, sx (M) f32, xr_gu (M, 2 * rank) f32; gu_* the layer-stacked

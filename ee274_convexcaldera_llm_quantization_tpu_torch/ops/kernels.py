@@ -249,16 +249,38 @@ def quantized_matmul(x: torch.Tensor, packed: torch.Tensor,
 # The CUDA kernel's tiles (csrc/grouped_matmul.cu): steps of 64 packed bytes
 # of a weight row (64 k of each plane); at M <= 16, 64 weight rows and 8 or 16
 # activation rows a CTA (several CTAs an SM); above, 128 weight rows and 64
-# or 128 activation rows (one CTA an SM). A split walks at least
-# _GROUPED_MIN_SPLIT_STEPS steps unless K has fewer.
+# or 128 activation rows (one CTA an SM). K is split as _split_k says.
 _GROUPED_BK = 64
-_GROUPED_MIN_SPLIT_STEPS = 4
 _GROUPED_SPLIT_MAX_M = 16
 # M <= 16 splits K until the grid holds about three CTAs per SM: at M 8 on an
 # H100 80GB HBM3 (700 W), 4096 x 4096 took 0.0113 ms at 512 CTAs and 0.0207
 # at 64; 11008 x 4096 0.0209 at 516 and 0.0290 at 172; 4096 x 11008 0.0241
 # at 512 and 0.0656 at 64 (scripts/torch_grouped_times.py --sweep)
 _GROUPED_SPLITK_WAVES = 3
+
+
+# A split of a split-K launch walks at least this many steps unless K has fewer
+_MIN_SPLIT_STEPS = 4
+
+
+def _split_k(tiles: int, rows: int, cols: int, k_steps: int, want: int,
+             split_steps: Optional[int] = None) -> dict:
+    """The K split of a split-K launch (``csrc/grouped_matmul.cu``, the xr
+    kernel of ``csrc/w4a8_lowrank.cu``) of ``tiles`` output tiles of
+    ``rows`` x ``cols``, each walking ``k_steps`` steps: ``splits`` CTAs a
+    tile of ``split_steps`` steps each, the last possibly shorter; ``want``
+    splits, but no split except the last walks fewer than
+    ``_MIN_SPLIT_STEPS`` steps; ``split_steps`` overrides the count (for
+    tuning). ``workspace`` f32 hold the partial tiles when ``splits`` > 1,
+    which the last CTA of a tile sums in split order
+    (``hopper_gemm.cuh::splitk_sum``)."""
+    if split_steps is None:
+        splits = max(1, min(want, k_steps // _MIN_SPLIT_STEPS))
+        split_steps = -(-k_steps // splits)
+    split_steps = max(1, min(split_steps, k_steps))
+    splits = -(-k_steps // split_steps)
+    return dict(tiles=tiles, splits=splits, split_steps=split_steps,
+                workspace=splits * tiles * rows * cols if splits > 1 else 0)
 
 
 def _grouped_plan(M: int, N: int, K: int, bits: int, sms: int = 132,
@@ -285,14 +307,9 @@ def _grouped_plan(M: int, N: int, K: int, bits: int, sms: int = 132,
     tiles = grid_nm[0] * grid_nm[1]
     want = (-(-_GROUPED_SPLITK_WAVES * sms // tiles) if path == "splitk"
             else sms // tiles)
-    if split_steps is None:
-        splits = max(1, min(want, k_steps // _GROUPED_MIN_SPLIT_STEPS))
-        split_steps = -(-k_steps // splits)
-    split_steps = max(1, min(split_steps, k_steps))
-    splits = -(-k_steps // split_steps)
-    return dict(path=path, rows=rows, cols=cols, tiles=tiles, splits=splits,
-                split_steps=split_steps, grid=grid_nm + (splits,),
-                workspace=splits * tiles * rows * cols if splits > 1 else 0)
+    plan = _split_k(tiles, rows, cols, k_steps, want, split_steps)
+    return dict(path=path, rows=rows, cols=cols,
+                grid=grid_nm + (plan["splits"],), **plan)
 
 
 # Zeroed split-K arrival counters per (device, stream): a launch's last CTA
@@ -847,16 +864,22 @@ def _launch_l(xq, sx, packed, scales, layer: int, xr, L_cat, L_scale,
 def _l_tile_operands(xr, L_l, rank: int, n_proj: int):
     """The tile kernel's factor operands, as its TMA boxes read them:
     ``bf16(xr)`` as (M, n_proj, rank8), rounded as the plain version rounds
-    it, and one layer's L codes ``L_l`` (N, rank) widened to bf16 (exact),
-    (N, rank8); rank8 is the rank rounded up to a multiple of 8 (16-byte
-    rows), zeros past the rank."""
+    it, and :func:`_l_tile_L` of one layer's L codes ``L_l``; rank8 is the
+    rank rounded up to a multiple of 8 (16-byte rows), zeros past the
+    rank."""
     xr_b = xr.to(torch.bfloat16).view(xr.shape[0], n_proj, rank)
-    L_b = L_l.to(torch.bfloat16)
     pad = -rank % 8
     if pad:
-        xr_b, L_b = (torch.nn.functional.pad(t, (0, pad))
-                     for t in (xr_b, L_b))
-    return xr_b, L_b
+        xr_b = torch.nn.functional.pad(xr_b, (0, pad))
+    return xr_b, _l_tile_L(L_l, rank)
+
+
+def _l_tile_L(L_l, rank: int):
+    """One layer's L codes ``L_l`` (N, rank) widened to bf16 (exact) as
+    (N, rank8) with zeros past the rank: the tile kernel's L operand."""
+    L_b = L_l.to(torch.bfloat16)
+    pad = -rank % 8
+    return torch.nn.functional.pad(L_b, (0, pad)) if pad else L_b
 
 
 def _launch_l_tile(xq, sx, packed, scales, layer: int, xr_b, L_b, L_scale,
@@ -905,11 +928,14 @@ def quantized_matmul_w4a8_lr_stacked(
         layer: int, R: torch.Tensor, R_scale: torch.Tensor,
         L_cat: torch.Tensor, L_scale_cat: torch.Tensor, num_bits: int,
         rank: int, splits) -> torch.Tensor:
-    """W4A8 matmul plus both halves of the low-rank factors in one kernel:
-    :func:`quantized_matmul_w4a8_l_stacked` with ``xr`` computed inside
-    from ``R`` (L, n_proj * rank, K) int8 and ``R_scale`` (L, n_proj *
-    rank, 1) f32. Returns (M, N) f32. CUDA tensors go through the
-    cooperative kernel of ``csrc/w4a8_lowrank.cu``; CPU tensors through
+    """W4A8 matmul plus both halves of the low-rank factors:
+    :func:`quantized_matmul_w4a8_l_stacked` with ``xr`` computed by the
+    kernels from ``R`` (L, n_proj * rank, K) int8 and ``R_scale`` (L,
+    n_proj * rank, 1) f32. Returns (M, N) f32. CUDA tensors go through
+    ``csrc/w4a8_lowrank.cu`` on the plan of :func:`_w4a8_lr_plan` (the
+    tensor-core ``xr`` kernel, then the L-fused tile kernel on that ``xr``;
+    the cooperative ``lr_kernel`` for a rank or K the tile kernel cannot
+    hold); CPU tensors through
     :func:`quantized_matmul_w4a8_lr_stacked_plain`.
     """
     if x.device.type == "cpu":
@@ -940,17 +966,145 @@ def quantized_matmul_w4a8_lr_stacked(
     return out
 
 
+# The LR-fused matmul's two designs (csrc/w4a8_lowrank.cu): the cooperative
+# lr_kernel (phase 1 xr with f32 FMAs, one warp an R row; phase 2
+# l_kernel's __dp4a tiles), and two launches: xr_kernel (xr on bf16 wgmma,
+# split-K) and then the L-fused tile kernel of _w4a8_l_plan on that xr. On
+# an H100 80GB HBM3 (700 W, scripts/torch_w4a8_lr_times.py --sweep) the two
+# launches beat lr_kernel at every M from 1 (qkv at M 1: 0.0440 against
+# 0.0603 ms; M 8: 0.0423 against 0.1022; gate/up at M 8: 0.0665 against
+# 0.1350; M 9: 0.0428 against 0.3621), so decode takes them too. The tile
+# path cannot hold a rank over 320 (the L epilogue's ring) or K over 66311
+# (its i32 sums of u8 codes), which lr_kernel takes (xr windows in shared
+# memory, no ring; rowdot.cuh sums 8-bit codes as u - 127): those shapes run
+# lr_kernel at every M.
+
+# xr_kernel's tiles: 128 R rows (two consumer warpgroups) and 16, 64 or 128
+# activation rows a CTA, steps of 64 k, blocks of 4 steps chained on one
+# accumulator before it joins the running sum; K is split until the grid
+# fills the SMs, but no split except the last walks fewer than 4 steps.
+# On an H100 80GB HBM3 (700 W, scripts/torch_w4a8_lr_times.py --sweep) 16
+# activation rows a tile were fastest up to M 128 (qkv at M 128: 0.0112 ms
+# against 0.0162 at 64 and 0.0201 at 128 rows), 64 at M 512 (0.0174
+# against 0.0210 at 16 and 0.0209 at 128) and 128 at M 2048 (0.0290
+# against 0.0336 at 64 and 0.0645 at 16).
+_XR_COLS = ((128, 16), (1024, 64))
+_XR_ROWS = 128
+_XR_BK = 64
+_XR_BLOCK_STEPS = 4
+
+
+def _xr_plan(M: int, nR: int, K: int, sms: int = 132,
+             cols: Optional[int] = None,
+             split_steps: Optional[int] = None) -> dict:
+    """How ``xr_kernel`` of ``csrc/w4a8_lowrank.cu`` computes ``(bf16(x)
+    @ R.T) * Rs`` for x (M, K) and R (nR, K): ``tiles`` of 128 R rows and
+    ``cols`` activation rows (16 at M <= 128, 64 at M <= 1024, else 128),
+    each walking the ``ceil(K / 64)`` steps of 64 k in ``splits`` CTAs of
+    ``split_steps`` steps, the last possibly shorter; ``workspace`` f32 hold
+    the partial tiles when ``splits`` > 1. The split count is the most that
+    keeps the grid within one CTA per SM, but no split except the last
+    walks fewer than 4 steps. ``cols`` and ``split_steps`` override the
+    choice (for tuning)."""
+    k_steps = -(-K // _XR_BK)
+    if cols is None:
+        cols = next((c for m, c in _XR_COLS if M <= m), 128)
+    if cols not in (16, 64, 128):
+        raise ValueError(f"the xr kernel takes 16, 64 or 128 activation "
+                         f"rows a CTA, got {cols}")
+    grid_nm = (-(-nR // _XR_ROWS), -(-M // cols))
+    tiles = grid_nm[0] * grid_nm[1]
+    plan = _split_k(tiles, _XR_ROWS, cols, k_steps, sms // tiles, split_steps)
+    return dict(cols=cols, grid=grid_nm + (plan["splits"],), **plan)
+
+
+def _w4a8_lr_plan(M: int, N: int, K: int, bits: int, rank: int, splits,
+                  sms: int = 132, path: Optional[str] = None,
+                  rows: Optional[int] = None,
+                  xr_cols: Optional[int] = None,
+                  xr_split_steps: Optional[int] = None) -> dict:
+    """How ``csrc/w4a8_lowrank.cu`` runs the LR-fused matmul: ``path``
+    "tile" at every M where the L tile path holds the rank and K: ``xr``,
+    the plan of :func:`_xr_plan` for ``xr_kernel`` (nR = n_proj * rank rows
+    of R), and the rest the L-fused tile path's plan of
+    :func:`_w4a8_l_plan` (its tiles, rank padding, projection windows);
+    ``path`` "coop" (the cooperative ``lr_kernel``, ``rows`` = 8 or 32
+    activation rows a tile) for a rank over 320 or K over 66311. ``path``,
+    ``rows``, ``xr_cols`` and ``xr_split_steps`` override the choice (for
+    tuning and for comparing the two designs); a forced tile path raises
+    where it cannot hold the shape."""
+    if path is None:
+        fits = (-(-rank // _L_TILE_RANKS) <= _L_TILE_MAX_CHUNKS[128]
+                and K <= _W4A8_TILE_MAX_K)
+        path = "tile" if fits else "coop"
+    if path == "coop":
+        return dict(path=path, rows=8 if M <= 8 else 32)
+    if path != "tile":
+        raise ValueError(f"unknown LR-fused path {path!r}")
+    plan = _w4a8_l_plan(M, N, K, bits, rank, splits, sms, "tile", rows)
+    plan["xr"] = _xr_plan(M, len(splits) * rank, K, sms, xr_cols,
+                          xr_split_steps)
+    return plan
+
+
+def _launch_lr_xr(xb, R_l, Rs_l, rank: int, plan: dict):
+    """Launch ``w4a8_lr_xr_launch`` on bf16 activations ``xb`` and one
+    layer's R codes ``R_l`` (nR, K) int8 and scales ``Rs_l`` (nR, 1) f32,
+    on an :func:`_xr_plan` (a split-K workspace from ``torch.empty``,
+    counters from :func:`_split_counters`). Returns ``xr`` (M, nR) f32 and
+    its bf16 rounding as the L tile kernel reads it, (M, nR / rank, rank8)
+    as :func:`_l_tile_operands` makes it (zeros past the rank)."""
+    M, K = xb.shape
+    nR = R_l.shape[0]
+    _check_cuda_operands(xb, R_l, Rs_l)
+    # TMA reads x and R from 16-byte aligned bases
+    xb, R_l = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xb, R_l))
+    xr = torch.empty((M, nR), dtype=torch.float32, device=xb.device)
+    rank8 = -(-rank // 8) * 8
+    xr_b = (torch.empty if rank8 == rank else torch.zeros)(
+        (M, nR // rank, rank8), dtype=torch.bfloat16, device=xb.device)
+    ws = counters = None
+    if plan["splits"] > 1:
+        ws = torch.empty(plan["workspace"], dtype=torch.float32,
+                         device=xb.device)
+        counters = _split_counters(xb.device, plan["tiles"])
+    err = _build.library("w4a8_lowrank").w4a8_lr_xr_launch(
+        xb.data_ptr(), R_l.data_ptr(), Rs_l.data_ptr(), xr.data_ptr(),
+        xr_b.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), M, nR, K, rank,
+        plan["cols"], plan["split_steps"], plan["splits"],
+        _build.stream_ptr(xb.device))
+    _build.check(err, "w4a8_lr_xr")
+    return xr, xr_b
+
+
 def _launch_lr(xf, xq, sx, packed, scales, layer: int, R, Rs, L_cat, Ls,
-               num_bits: int, rank: int, splits):
-    """Launch the cooperative ``w4a8_lr_stacked_launch`` on f32 activations
-    ``xf`` and their int8 codes; returns the output and the ``xr`` its
-    first phase computed."""
+               num_bits: int, rank: int, splits, path: Optional[str] = None,
+               rows: Optional[int] = None, **xr_kw):
+    """Launch the LR-fused matmul on f32 activations ``xf`` and their int8
+    codes, on the plan of :func:`_w4a8_lr_plan` (``path``, ``rows`` and
+    ``xr_cols`` / ``xr_split_steps`` passed on to it): the cooperative
+    ``w4a8_lr_stacked_launch``, or ``w4a8_lr_xr_launch`` and then
+    ``w4a8_l_tile_launch`` on its ``xr``. Returns the output and that
+    ``xr``. A failed launch raises: neither design stands in for the
+    other."""
     M, K = xq.shape
     N = packed.shape[1]
     sx = sx.contiguous()
-    if xf.data_ptr() % 16:      # the kernel reads x with 16-byte loads
+    if xf.data_ptr() % 16:      # the kernels read x with 16-byte loads
         xf = xf.clone()
     _check_cuda_operands(xf, xq, sx, packed, scales, R, Rs, L_cat, Ls)
+    index = xq.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _w4a8_lr_plan(M, N, K, num_bits, rank, splits, _sm_count(index),
+                         path, rows, **xr_kw)
+    if plan["path"] == "tile":
+        xr, xr_b = _launch_lr_xr(xf.to(torch.bfloat16), R[layer], Rs[layer],
+                                 rank, plan["xr"])
+        return _launch_l_tile(xq, sx, packed, scales, layer, xr_b,
+                              _l_tile_L(L_cat[layer], rank), Ls, num_bits,
+                              rank, splits, plan), xr
     xr = torch.empty((M, len(splits) * rank), dtype=torch.float32,
                      device=xq.device)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)

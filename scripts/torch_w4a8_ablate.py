@@ -2,7 +2,7 @@
 """Where the W4A8 tile path's time goes: device times of ablated copies of
 its kernel (``csrc/w4a8_tile.cuh``) beside the kernel itself, on one card.
 
-    python3 scripts/torch_w4a8_ablate.py [--l]
+    python3 scripts/torch_w4a8_ablate.py [--l | --xr]
 
 Each copy removes one part of the tile kernel by a text edit of the header
 (the script checks that every edited passage is still there and stops if
@@ -39,6 +39,16 @@ weights (``row3``):
   consumers run no bf16 ``wgmma`` on them;
 - ``no_l_substeps``: no L sub-steps at all (the L epilogue's structure
   remains: ``setmaxnreg``, the outputs held in registers, Ls staged).
+
+With ``--xr``, the LR-fused kernel's tensor-core xr kernel (row 5's tile
+path: ``xr_kernel`` of ``csrc/w4a8_lowrank.cu`` through
+``ops/kernels.py::_launch_lr_xr`` on its plan), the source itself edited:
+
+- ``kernel``: the kernel as it is (checked against ``thin_xr``);
+- ``no_widen``: the consumers load the R codes' fragment bytes but pass
+  them to ``wgmma`` as they are, without widening them to bf16;
+- ``no_products``: the codes are loaded and widened, but no ``wgmma``
+  runs (the TMA ring, the split-K sum and the stores remain).
 
 Prints one JSON line per copy and round (two rounds, copies in turn) and a
 last line ``{"card", "rounds": [...]}``.
@@ -121,6 +131,29 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8u8(int (&d)[64],
 }
 """
 ANCHOR = "namespace tile {\n"
+XR_WIDEN = """      a[kk][0] = widen2<0>(u0);
+      a[kk][1] = widen2<0>(u1);
+      a[kk][2] = widen2<2>(u0);
+      a[kk][3] = widen2<2>(u1);
+"""
+XR_NO_WIDEN = """      a[kk][0] = u0;
+      a[kk][1] = u1;
+      a[kk][2] = u0 >> 8;
+      a[kk][3] = u1 >> 8;
+"""
+XR_MMA = """    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64k16_rs<NT>(acc, a[kk],
+                                  hopper::desc_sw128(st + kRaw + 32 * kk),
+                                  !(fresh && kk == 0));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+"""
+XR_NO_MMA = """#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      acc[kk] += __uint_as_float(a[kk][0] ^ a[kk][1] ^ a[kk][2] ^ a[kk][3]);
+"""
 L_MMA = """#pragma unroll
             for (int kk = 0; kk < kLK / 16; ++kk)
               wgmma_m64n64k16(
@@ -150,6 +183,15 @@ def _l_variants(src):
     }
 
 
+def _xr_variants(src):
+    _check(src, (XR_WIDEN, XR_MMA))
+    return {
+        "kernel": src,
+        "no_widen": src.replace(XR_WIDEN, XR_NO_WIDEN),
+        "no_products": src.replace(XR_MMA, XR_NO_MMA),
+    }
+
+
 def _variants(src):
     _check(src, (UNPACK, X_BOX, MMA, EPILOGUE, ANCHOR))
     i = src.index(EPILOGUE)
@@ -166,15 +208,17 @@ def _variants(src):
     }
 
 
-def _build_copies(_build, source, variants, out):
-    """Build ``source`` (a ``csrc`` file name) once per edited header, each
-    beside its own copy of the source; returns {name: library path}."""
+def _build_copies(_build, source, variants, out, edited="w4a8_tile.cuh"):
+    """Build ``source`` (a ``csrc`` file name) once per edited text of the
+    file ``edited`` (a header beside a copy of the source, or the source
+    itself); returns {name: library path}."""
     procs, libs = {}, {}
     for name, text in variants.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "w4a8_tile.cuh").write_text(text)
-        shutil.copy(_build.CSRC / source, d / source)
+        if edited != source:
+            shutil.copy(_build.CSRC / source, d / source)
+        (d / edited).write_text(text)
         libs[name] = d / f"lib{name}.so"
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
@@ -199,6 +243,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--l", action="store_true",
                     help="ablate the L-fused kernel's tile path")
+    ap.add_argument("--xr", action="store_true",
+                    help="ablate the LR-fused kernel's xr kernel")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -207,7 +253,13 @@ def main() -> int:
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         _build, kernels as K)
     header = (_build.CSRC / "w4a8_tile.cuh").read_text()
-    if args.l:
+    edited = "w4a8_tile.cuh"
+    if args.xr:
+        source = edited = "w4a8_lowrank.cu"
+        lib_name = "w4a8_lowrank"
+        variants = _xr_variants((_build.CSRC / source).read_text())
+        _build.library("grouped_matmul")  # the split-K counters' capture id
+    elif args.l:
         source, lib_name = "w4a8_lowrank.cu", "w4a8_lowrank"
         variants = _l_variants(header)
         _build.library("w4a8_stacked")  # row 3 beside it
@@ -215,18 +267,35 @@ def main() -> int:
         source, lib_name = "w4a8_stacked.cu", "w4a8_stacked"
         variants = _variants(header)
     libs = _build_copies(_build, source, variants,
-                         _build.BUILD_DIR / f"ablate_{lib_name}")
+                         _build.BUILD_DIR / f"ablate_{lib_name}"
+                         f"{'_xr' if args.xr else ''}", edited)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rank = 128
     cases = {}
-    for nm, splits, Kd, M in (("qkv", (4096,) * 3, 4096, 512),
-                              ("o", (4096,), 4096, 512),
-                              ("down", (4096,), 11008, 512),
-                              ("qkv", (4096,) * 3, 4096, 2048),
-                              ("gate/up", (11008,) * 2, 4096, 2048)):
+    if args.xr:
+        for nm, n_proj, M in (("qkv", 3, 512), ("gate/up", 2, 512),
+                              ("qkv", 3, 2048), ("gate/up", 2, 2048)):
+            nR, Kd = n_proj * rank, 4096
+            Lk = max(2, math.ceil(200e6 / (nR * Kd)))
+            w = dict(R=torch.randint(-127, 128, (Lk, nR, Kd), generator=gen,
+                                     dtype=torch.int8, device=dev),
+                     Rs=torch.rand((Lk, nR, 1), generator=gen,
+                                   device=dev) * 1e-3)
+            x = torch.randn((M, Kd), generator=gen, device=dev)
+            xb, plan = x.to(torch.bfloat16), K._xr_plan(M, nR, Kd, sms)
+            w["ref"] = K.thin_xr(x, w["R"][0], w["Rs"][0])
+            w["launch"] = (lambda i, w=w, xb=xb, plan=plan, Lk=Lk:
+                           K._launch_lr_xr(xb, w["R"][i % Lk],
+                                           w["Rs"][i % Lk], rank, plan)[0])
+            cases[f"{nm} M={M}"] = w
+    w4a8_cases = (("qkv", (4096,) * 3, 4096, 512), ("o", (4096,), 4096, 512),
+                  ("down", (4096,), 11008, 512),
+                  ("qkv", (4096,) * 3, 4096, 2048),
+                  ("gate/up", (11008,) * 2, 4096, 2048))
+    for nm, splits, Kd, M in () if args.xr else w4a8_cases:
         N, P = sum(splits), Kd // 2
         Lk = max(2, math.ceil(200e6 / (N * P)))
         w = dict(packed=torch.randint(0, 256, (Lk, N, P), generator=gen,
@@ -276,7 +345,7 @@ def main() -> int:
                     y, ref = w["launch"](0), w["ref"]
                     tol = 1e-5 * float(ref.abs().max())
                     ok = (torch.allclose(y, ref, rtol=1e-5, atol=tol)
-                          if args.l else torch.equal(y, ref))
+                          if args.l or args.xr else torch.equal(y, ref))
                     if not ok:
                         print(f"kernel {key} disagrees with the plain "
                               f"version", file=sys.stderr)

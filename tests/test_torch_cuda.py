@@ -1076,35 +1076,160 @@ def test_l_tile_rules(dev):
                                           rank, (8,))
 
 
-@pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("M", [1, 8, 33])
-@pytest.mark.parametrize("splits,rank", _SPLITS)
-def test_lr_kernel_matches_plain(dev, splits, rank, M, bits):
-    # xr from the kernel's first phase against the plain thin dot (f32
-    # sums in another order), then the output against the plain version
-    # on the kernel's own xr: an xr element that rounds to the other bf16
-    # neighbour before the L dot moved outputs by up to 4.7e-4 (1.1e-4 of
-    # their largest), so the output is not held to the plain xr. Two
-    # launches give the same bits.
-    g = _lowrank_group(np.random.default_rng(800 + M + bits), 2, splits, 512,
-                       rank, bits, M)
+def _lr_case(dev, seed, splits, rank, M, bits, Kd=512):
+    g = _lowrank_group(np.random.default_rng(seed), 2, splits, Kd, rank,
+                       bits, M)
     d = {k: t.to(dev) for k, t in g.items()}
-    y = K.quantized_matmul_w4a8_lr_stacked(
-        d["x"], d["packed"], d["scales"], 1, d["R"], d["Rs"], d["L"],
-        d["Ls"], bits, rank, splits)
     xq, sx = K.quantize_activations_int8(d["x"])
-    y2, xr = K._launch_lr(d["x"], xq, sx, d["packed"], d["scales"], 1,
-                          d["R"], d["Rs"], d["L"], d["Ls"], bits, rank,
-                          splits)
-    assert torch.equal(y, y2)
-    xr_ref = K.thin_xr(g["x"], g["R"][1], g["Rs"][1])
-    torch.testing.assert_close(xr.cpu(), xr_ref, rtol=1e-5,
+    return d, (d["x"], xq, sx, d["packed"], d["scales"], 1, d["R"], d["Rs"],
+               d["L"], d["Ls"], bits, rank, splits)
+
+
+@pytest.mark.parametrize("path", [None, "coop", "tile"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 8, 9, 33, 130, 512])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_lr_kernel_matches_plain(dev, splits, rank, M, bits, path):
+    # each design (None: the plan's, through the public wrapper) at decode
+    # and prefill M. xr (the cooperative kernel's first phase, or the
+    # tensor-core xr kernel) against the plain thin dot (f32 sums in
+    # another order), then the output against the plain version on the
+    # kernel's own xr: an xr element that rounds to the other bf16
+    # neighbour before the L dot moved outputs by up to 4.7e-4 (1.1e-4 of
+    # their largest), so the output is not held to the plain xr. A second
+    # launch gives the same bits.
+    d, largs = _lr_case(dev, 800 + M + bits, splits, rank, M, bits)
+    y, xr = K._launch_lr(*largs, path=path)
+    if path is None:
+        before = K.quantized_matmul_w4a8_lr_stacked.launches
+        y_pub = K.quantized_matmul_w4a8_lr_stacked(
+            d["x"], d["packed"], d["scales"], 1, d["R"], d["Rs"], d["L"],
+            d["Ls"], bits, rank, splits)
+        assert K.quantized_matmul_w4a8_lr_stacked.launches == before + 1
+        assert torch.equal(y, y_pub)
+    y2, xr2 = K._launch_lr(*largs, path=path)
+    assert torch.equal(y, y2) and torch.equal(xr, xr2)
+    xr_ref = K.thin_xr(d["x"], d["R"][1], d["Rs"][1])
+    torch.testing.assert_close(xr, xr_ref, rtol=1e-5,
                                atol=1e-5 * float(xr_ref.abs().max()))
     ref = K.quantized_matmul_w4a8_l_stacked_plain(
-        g["x"], g["packed"], g["scales"], 1, xr.cpu(), g["L"], g["Ls"], bits,
-        rank, splits)
-    torch.testing.assert_close(y.cpu(), ref, rtol=1e-5,
+        d["x"], d["packed"], d["scales"], 1, xr, d["L"], d["Ls"], bits, rank,
+        splits)
+    torch.testing.assert_close(y, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("path", ["coop", "tile"])
+@pytest.mark.parametrize("M", [8, 33, 512])
+@pytest.mark.parametrize("splits,rank", _SPLITS)
+def test_lr_zero_factors_equal_w4a8(dev, splits, rank, M, path):
+    # with L = 0 the epilogue adds exact zeros: the integer half is the
+    # stacked W4A8 kernel's (rowdot or its tile path) bit for bit
+    d, largs = _lr_case(dev, 850 + M, splits, rank, M, 4)
+    largs = list(largs)
+    largs[8] = torch.zeros_like(d["L"])
+    y, _ = K._launch_lr(*largs, path=path)
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked(
+        d["x"], d["packed"], d["scales"], 1, 4))
+
+
+@pytest.mark.parametrize("xr_cols", [16, 64, 128])
+@pytest.mark.parametrize("xr_split_steps", [1, 3, None])
+def test_lr_xr_kernel_tiles_and_splits(dev, xr_cols, xr_split_steps):
+    # every tile width and split count of the xr kernel, ragged M, nR and K
+    # (rank 130 x 3 projections: 390 R rows; K 4160: 65 steps of 64), each
+    # within the bound of the plain thin dot, its bf16 copy in the L tile
+    # kernel's layout, repeating bit for bit
+    splits, rank, M, Kd = (128, 128, 128), 130, 70, 4160
+    d, largs = _lr_case(dev, 870 + xr_cols, splits, rank, M, 4, Kd)
+    plan = K._xr_plan(M, 3 * rank, Kd, cols=xr_cols,
+                      split_steps=xr_split_steps)
+    ops = (d["x"].to(torch.bfloat16), d["R"][1], d["Rs"][1], rank)
+    xr, xr_b = K._launch_lr_xr(*ops, plan)
+    xr_ref = K.thin_xr(d["x"], d["R"][1], d["Rs"][1])
+    torch.testing.assert_close(xr, xr_ref, rtol=1e-5,
+                               atol=1e-5 * float(xr_ref.abs().max()))
+    # its bf16 copy is the L tile kernel's operand, zeros past the rank
+    assert torch.equal(xr_b, K._l_tile_operands(xr, d["L"][1], rank, 3)[0])
+    again = K._launch_lr_xr(*ops, plan)
+    assert torch.equal(xr, again[0]) and torch.equal(xr_b, again[1])
+
+
+def test_lr_tile_two_streams(dev):
+    # split-K xr launches on two streams at once: each stream has its own
+    # arrival counters, so neither sees the other's arrivals
+    cases = []
+    for M in (40, 512):
+        d, largs = _lr_case(dev, 880 + M, (512, 256, 256), 128, M, 4, 4096)
+        assert K._w4a8_lr_plan(M, 1024, 4096, 4, 128,
+                               (512, 256, 256))["xr"]["splits"] > 1
+        cases.append((largs, K._launch_lr(*largs)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(10):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(K._launch_lr(*cases[k][0]))
+    torch.cuda.synchronize()
+    for k, (_, (y, xr)) in enumerate(cases):
+        assert all(torch.equal(o[0], y) and torch.equal(o[1], xr)
+                   for o in outs[k])
+
+
+@pytest.mark.parametrize("M", [17, 512])
+def test_lr_tile_in_cuda_graph(dev, M):
+    # tensor maps are kernel parameters and the xr kernel's split-K
+    # counters of a capture belong to its graph: replays give the eager bits
+    d, largs = _lr_case(dev, 890 + M, (512, 256, 256), 128, M, 4, 4096)
+    eager, _ = K._launch_lr(*largs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K._launch_lr(*largs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [K._launch_lr(*largs)[0] for _ in range(2)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, eager) for out in outs)
+    with torch.cuda.stream(side):
+        again, _ = K._launch_lr(*largs)
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager)
+
+
+@pytest.mark.parametrize("rank,Kd,bits,M,path", [
+    (320, 256, 4, 8, "tile"), (321, 256, 4, 8, "coop"),
+    (320, 256, 4, 32, "tile"), (321, 256, 4, 32, "coop"),
+    (16, 66304, 8, 8, "tile"), (16, 66320, 8, 8, "coop")])
+def test_lr_tile_rules(dev, rank, Kd, bits, M, path):
+    # the plan takes the tile path up to the rank (320, the L tile path's
+    # ring) and K (66311, its i32 sums) it holds and the cooperative kernel
+    # past them, at decode and prefill M: the public wrapper gives that
+    # design's bits, within the bounds of test_lr_kernel_matches_plain; a
+    # forced tile path past them raises
+    d, largs = _lr_case(dev, 895 + M + rank, (64,), rank, M, bits, Kd)
+    assert K._w4a8_lr_plan(M, 64, Kd, bits, rank, (64,))["path"] == path
+    y = K.quantized_matmul_w4a8_lr_stacked(
+        d["x"], d["packed"], d["scales"], 1, d["R"], d["Rs"], d["L"],
+        d["Ls"], bits, rank, (64,))
+    y_path, xr = K._launch_lr(*largs, path=path)
+    assert torch.equal(y, y_path)
+    xr_ref = K.thin_xr(d["x"], d["R"][1], d["Rs"][1])
+    torch.testing.assert_close(xr, xr_ref, rtol=1e-5,
+                               atol=1e-5 * float(xr_ref.abs().max()))
+    ref = K.quantized_matmul_w4a8_l_stacked_plain(
+        d["x"], d["packed"], d["scales"], 1, xr, d["L"], d["Ls"], bits, rank,
+        (64,))
+    torch.testing.assert_close(y, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    if path == "coop":
+        with pytest.raises(ValueError, match="ranks" if rank > 320 else "i32"):
+            K._launch_lr(*largs, path="tile")
 
 
 def _mlp_inputs(rng, L, h, im, rank, bits, M):

@@ -136,9 +136,12 @@ class TestLowRankKernels:
 
     @pytest.mark.parametrize("bits", [4, 8])
     @pytest.mark.parametrize("splits,rank,rows", [
-        ((512, 256, 256), 128, 8), ((512,), 24, 3)])
+        ((512, 256, 256), 128, 8), ((512,), 24, 3), ((512, 256, 256), 128, 33),
+        ((512,), 24, 130)])
     def test_lr_matches_reference(self, splits, rank, rows, bits):
-        g = _group(4, 3, splits, 512, rank, bits)
+        # at decode rows and above the tile path's threshold (the card's
+        # plan; the CPU runs the plain version at every M)
+        g = _group(4, 3, splits, 512, rank, bits, rows=max(rows, 8))
         ref = JK.quantized_matmul_w4a8_lr_stacked(
             jnp.asarray(g["x"][:rows]), jnp.asarray(g["packed"]),
             jnp.asarray(g["scales"]), jnp.asarray(2), jnp.asarray(g["R"]),
