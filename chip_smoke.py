@@ -128,7 +128,10 @@ caught):
    f32 dots), (c) 32 greedy steps of exactly one megastep and one int8 head
    launch each, eager ms/step and one step as a CUDA graph beside phase 4's
    and phase 8's steps, the kernel's own time and bound; (d) ragged
-   positions with the per-row commit against the plain versions.
+   positions with the per-row commit against the plain versions. The
+   megastep's entry of the kernel table adds its cooperative grid (``ctas``,
+   ``ctas_per_sm``) and the ``-Xptxas -v`` lines of both builds
+   (``ptxas``).
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -2975,6 +2978,28 @@ def _prefill_2048(torch, dev, config, params, xla, lr):
                                  "prefill")
 
 
+def _megastep_ptxas():
+    """nvcc's -Xptxas -v lines of the megastep kernels of both builds, one
+    string each: "<bits>-bit MT <rows>: <registers>, <spills>"."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import _build
+    out = []
+    for name in ("megastep", "megastep_2bit"):
+        lines = _build.build_log(name).splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" not in line \
+                    or "megastep_kernelILi" not in line:
+                continue
+            tag = line.split("megastep_kernelILi")[1]
+            bits, mt = tag.split("ELi")[0], tag.split("ELi")[1].split("E")[0]
+            used = next((ln for ln in lines[i + 1:i + 4] if "Used" in ln), "")
+            spill = next((ln for ln in lines[i + 1:i + 4] if "spill" in ln),
+                         "")
+            regs = used.split("Used ")[1].split(",")[0] if used else "?"
+            out.append(f"{bits}-bit MT {mt}: {regs}, "
+                       f"{spill.split(', ', 1)[-1].strip() or '?'}")
+    return out
+
+
 def phase_mega(torch, dev, record, params, cache, tok0, pos0):
     """Phase 10, the whole-step megakernel: ``decode_step_persistent``,
     Llama-2-7B, 32 layers, batch 8, on phase 8's "l" params and cache (eight
@@ -3017,8 +3042,11 @@ def phase_mega(torch, dev, record, params, cache, tok0, pos0):
                                             prep)
     ctas = MS.megastep_ctas(*args, **kw)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = _megastep_ptxas()
     print(f"mega: cooperative grid of {ctas} CTAs of 256 threads, "
-          f"{ctas / sms:g} per SM on {sms} SMs (occupancy query)", flush=True)
+          f"{ctas / sms:g} per SM on {sms} SMs (occupancy query); ptxas: "
+          f"{'; '.join(ptxas)}", flush=True)
+    record["megastep"].update(ctas=ctas, ctas_per_sm=ctas / sms, ptxas=ptxas)
 
     # (a) the kernel against its plain version on the card
     ck, cp = _copy_cache(cache, dev), _copy_cache(cache, dev)
@@ -3559,7 +3587,9 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"],
                     **{k: r[k] for k in measured},
-                    library_ms=r["library_ms"])
+                    library_ms=r["library_ms"],
+                    **{k: r[k] for k in ("ctas", "ctas_per_sm", "ptxas")
+                       if k in r})
                for name, r in record.items()]
     print(f"all phases ran in {time.perf_counter() - t_run:.1f} s after the "
           f"build", flush=True)

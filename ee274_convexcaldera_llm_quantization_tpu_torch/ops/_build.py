@@ -39,6 +39,9 @@ _MEGASTEP = {
     "megastep_launch": [_P, _P],
     # MegaArgs*, int* (the cooperative grid's CTAs)
     "megastep_grid": [_P, _P],
+    # x8, packed, out (N, B) i32, partials, counters, N, K, B, bng, CTAs,
+    # stream: one projection stage's i32 sums alone (card tests)
+    "megastep_proj_launch": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 # C entry points of each source: name -> argtypes (all return int).

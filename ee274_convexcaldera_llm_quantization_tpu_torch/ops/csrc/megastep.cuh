@@ -7,15 +7,16 @@
 // The TPU kernel walks one sequential (layer, program) grid and keeps the
 // hidden state and every intermediate in VMEM scratch. Blocks of a GPU run
 // in parallel and carry nothing from one to the next, so here every CTA
-// that fits on the card at once (occupancy query x SMs, memoized) runs one
-// loop over the layers, and each layer is eleven stages split by grid-wide
-// barriers; the state between stages lives in global scratch (under 1 MB
-// at Llama-2-7B, batch 8), which stays in the 50 MB L2:
+// that fits on the card at once (occupancy query x SMs, memoized: one CTA
+// of 8 warps per SM) runs one loop over the layers, and each layer is eleven
+// stages split by grid-wide barriers; the state between stages lives in
+// global scratch (a few MB at Llama-2-7B), which stays in the 50 MB L2:
 //
 //   1. PRE    one CTA per row: RMSNorm (attn_norm), y (f32), its int8 codes
 //             and row scale;
-//   2. XRQ    xr = (bf16(y) @ bf16(R_qkv).T) * Rs, one warp per R row;
-//   3. QKV    the W4A8 row tiles of the fused q/k/v projection with the L
+//   2. XRQ    xr = (bf16(y) @ bf16(R_qkv).T) * Rs, units of 4 R rows x 1
+//             activation row over every warp of the grid;
+//   3. QKV    the W4A8 products of the fused q/k/v projection with the L
 //             epilogue on xr and each row's global scale;
 //   4. ATTN   one CTA per (b, head) stream: rotate-half RoPE on q and k,
 //             int8 K and V of the current token (outputs), then the staged
@@ -24,48 +25,59 @@
 //   5. FIN    every CTA reduces the absmax partials to the row scales; the
 //             grid requantizes the attention output to int8 and computes
 //             xr_o = (bf16(ao) @ bf16(R_o).T) * Rs;
-//   6. O      the o_proj tiles, x += out * gs_o;
+//   6. O      the o_proj products, x += out * gs_o;
 //   7. MLP    as PRE on mlp_norm;
 //   8. XRG    as XRQ on the gate/up R;
-//   9. GU     each unit one tile of gate rows and the same tile of up rows
-//             of the INTERLEAVED gate/up arrays (block j of bng rows: gate
-//             rows [2j bng, 2j bng + bng), up rows the next bng), m =
-//             silu(gate) * up to scratch, the tile's absmax of |m| into a
-//             partial slot (one per tile: no atomics);
+//   9. GU     each group one 16-row tile of gate rows and the same tile of
+//             up rows of the INTERLEAVED gate/up arrays (block j of bng
+//             rows: gate rows [2j bng, 2j bng + bng), up rows the next bng),
+//             m = silu(gate) * up to scratch, the group's absmax of |m|
+//             into a partial slot (one per group: no atomics);
 //  10. DQ     row scales max(absmax, 1e-12) / 127 of the f32 m, the int8
 //             codes of bf16(m), and xrd = (bf16(m) @ bf16(R_down).T) * Rs;
-//  11. DOWN   the down_proj tiles on those codes, x += out * gs_down.
-//
-// The pieces are those of the per-kernel paths: lowrank.cuh's lr_tile
-// (rowdot.cuh's W4A8 row tile plus the L epilogue) for the four projection
-// stages, xr_rows for the thin R contractions, and flash_decode.cuh's
-// decode_attend for the attention. Data written by another CTA of the launch
-// is read through L2 (__ldcg, the CG flags), never the read-only path.
-// Multiplies and adds upstream of an int8 rounding are rounded one by one
-// (__fmul_rn / __fadd_rn), in the reference's order; the integer sums are
-// exact; the f32 sums a fixed order, so a launch is deterministic.
+//  11. DOWN   the down_proj products on those codes, x += out * gs_down.
 //
 // Bound on an H100: the bytes of one step, read once: every layer's packed
 // codes (101 MB at Llama-2-7B, 4-bit), int8 factors (10 MB) and scales,
 // plus the live int8 K/V of the cache (8.7 MB per layer at batch 8, 128
-// tokens): ~3.85 GB per step, ~1.15 ms at 3.35 TB/s. The design reads each
-// packed byte once and keeps every activation in L2; its cost beyond the
-// bound is the 11 barriers per layer and the stages that cannot fill the
-// card (PRE: B CTAs; O and DOWN: h / 32 row tiles).
+// tokens): ~3.85 GB per step, ~1.15 ms at 3.35 TB/s. The projection stages
+// hold 106 of a layer's ~119 MB and run on megastep_proj.cuh: int8 products
+// on the tensor cores (mma.sync), each warp streaming its share of every
+// projection stage's weights through a cp.async ring that runs across the
+// grid barriers (the next stage's first slabs load while the attention,
+// the norms and the thin factor dots run), every stage's bytes cut evenly
+// over every warp of the grid, and the L factor's dots spread over every
+// warp too. What is left beyond the bytes is latency: eleven barriers a
+// layer, the thin R dots' per-lane chains (one R row of K bytes read in
+// order; the R rows are prefetched into L2 a stage ahead), the stage-start
+// L dots, the split groups' hand-over and the attention (scripts/
+// torch_megastep_stages.py times each stage). The attention (decode_attend)
+// is flash_decode.cuh's. Data written by another CTA of the launch is read
+// through L2 (__ldcg, the CG flags), never the read-only path. Multiplies
+// and adds upstream of an int8 rounding are rounded one by one (__fmul_rn
+// / __fadd_rn), in the reference's order; the integer sums are exact; the
+// f32 sums a fixed order (the thin dots' and the L dots' that of
+// lowrank.cuh's xr_rows and lr_tile, whose outputs they equal bit for
+// bit), so a launch is deterministic.
 #pragma once
 
 #include "flash_decode.cuh"
 #include "lowrank.cuh"
+#include "megastep_proj.cuh"
 
 namespace megastep {
 
-using lowrank::kCoopSmemBytes;
-using lowrank::LFactor;
-using lowrank::pick_jc;
-using lowrank::Splits;
 using rowdot::kThreads;
 using rowdot::kWarps;
 using rowdot::Tile;
+
+// Dynamic shared memory, from a 1024-byte boundary: the projection stages'
+// weight rings; a region that holds each warp's projection scratch, and a
+// row of the norms (h floats); the CTA's copy of a stage's xr windows.
+constexpr int kXsBytes = kWarps * mproj::kWarpScratch;
+constexpr int kSmemBytes =
+    1024 + mproj::kRingBytes + kXsBytes + mproj::kWinBytes;
+static_assert(kWarps * mproj::kWarpScratch <= kXsBytes, "epilogue scratch");
 
 // Pointers and sizes of one step; layer-stacked tensors point at layer 0.
 // The Python side (ops/megastep.py::_MegaArgs) mirrors this layout.
@@ -125,10 +137,15 @@ struct MegaArgs {
   float* ao;            // (B, qdim) attention output
   float* part;          // absmax partials: (KVH, B), then (im / RPB, B)
   float* m;             // (B, im) silu(gate) * up
+  int* pws;             // split-group partials: 2 slots of 32 x MT a warp
+  int* cnt;             // split-group counters (zero between stages), then
+                        // per warp of the grid the last projection stage
+                        // whose L dots it wrote
+  float* ylr;           // (rows, B) L dots of a projection stage's rows
   int L, B, h, im, KVH, D, T, bt, rank, bng;
-  int jc_h, jc_q, jc_im;  // activation words per staged chunk (lr_tile)
   float eps, scale;
 };
+
 
 __device__ __forceinline__ int8_t code8(float v, float s) {
   return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
@@ -136,17 +153,27 @@ __device__ __forceinline__ int8_t code8(float v, float s) {
 
 // Stages PRE and MLP for the rows b = blockIdx.x, + gridDim.x, ...: y =
 // (x * rsqrt(mean(x^2) + eps)) * w, its int8 codes and row scale. At layer 0
-// the rows come from x0 and are copied into the residual x.
+// the rows come from x0 and are copied into the residual x. The first pass
+// keeps the row and w in shared memory (xs, where 2 h floats fit) for the
+// other two.
 __device__ __forceinline__ void norm_quant(const MegaArgs& a,
                                            const float* xin, bool init,
-                                           const float* w, float* red) {
+                                           const float* w, float* red,
+                                           float* xs) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int h = a.h;
+  const bool keep = 2 * h <= kXsBytes / 4;
+  float* ws = xs + h;
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
     const float* xr = xin + (size_t)b * h;
     float ss = 0.f;
+#pragma unroll 8
     for (int k = tid; k < h; k += kThreads) {
       const float v = __ldcg(xr + k);
+      if (keep) {
+        xs[k] = v;
+        ws[k] = w[k];
+      }
       ss = __fadd_rn(ss, __fmul_rn(v, v));
     }
     ss = lowrank::warp_sum_f(ss);
@@ -157,10 +184,11 @@ __device__ __forceinline__ void norm_quant(const MegaArgs& a,
     const float r = __fdiv_rn(
         1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(tot, (float)h), a.eps)));
     float amax = 0.f;
+#pragma unroll 8
     for (int k = tid; k < h; k += kThreads) {
-      const float v = __ldcg(xr + k);
+      const float v = keep ? xs[k] : __ldcg(xr + k);
       if (init) a.x[(size_t)b * h + k] = v;
-      const float yv = __fmul_rn(__fmul_rn(v, r), w[k]);
+      const float yv = __fmul_rn(__fmul_rn(v, r), keep ? ws[k] : w[k]);
       a.y[(size_t)b * h + k] = yv;
       amax = fmaxf(amax, fabsf(yv));
     }
@@ -171,38 +199,76 @@ __device__ __forceinline__ void norm_quant(const MegaArgs& a,
     amax = red[0];
     for (int i = 1; i < kWarps; ++i) amax = fmaxf(amax, red[i]);
     const float sx = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+#pragma unroll 8
     for (int k = tid; k < h; k += kThreads) {
-      const float yv = __fmul_rn(__fmul_rn(__ldcg(xr + k), r), w[k]);
+      const float yv = __fmul_rn(
+          __fmul_rn(keep ? xs[k] : __ldcg(xr + k), r), keep ? ws[k] : w[k]);
       a.a8[(size_t)b * h + k] = code8(yv, sx);
     }
     if (tid == 0) a.sy[b] = sx;
-    __syncthreads();  // red is reused by the next row
+    __syncthreads();  // red and xs are reused by the next row
   }
 }
 
+// Prefetch `bytes` at p into L2, spread over the grid's threads (a stage's
+// R rows, read by the thin dots of a later stage).
+__device__ __forceinline__ void prefetch_grid(const void* p, size_t bytes) {
+  const char* c = static_cast<const char*>(p);
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+       i < (bytes + 127) / 128; i += (size_t)gridDim.x * kThreads)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + 128 * i));
+}
+
 // out[b, j] = (sum_k bf16(act[b, k]) * R[j, k]) * Rs[j] for the nR rows of
-// R, kWarps rows per unit (lowrank::xr_rows, activations from scratch).
-template <int MT>
+// R (out rows of nR), in units of 4 R rows x 1 activation row spread over
+// every warp of the grid (nR / 4 x B units; the activation row runs
+// fastest, so the warps that share R rows run together). Each output's sum
+// is lowrank::xr_rows's: lane i over k = 4 i + 128 j, four k a step in
+// order, then the warp tree; the activations come from L2 (this launch's
+// scratch), four steps of loads in flight.
 __device__ __forceinline__ void thin_rows(const float* act, int B, int K,
-                                          const int8_t* R, const float* Rs,
-                                          int nR, float* out, int* smem) {
-  const int groups = (nR + kWarps - 1) / kWarps;
-  for (int u = blockIdx.x; u < groups; u += gridDim.x) {
-    const int j0 = u * kWarps;
-    lowrank::xr_rows<MT, true>(act, B, K, R + (size_t)j0 * K, Rs + j0,
-                               min(kWarps, nR - j0), out + j0, nR,
-                               reinterpret_cast<float*>(smem),
-                               kCoopSmemBytes / 4);
+                                          const int8_t* __restrict__ R,
+                                          const float* __restrict__ Rs,
+                                          int nR, float* out) {
+  const int lane = threadIdx.x & 31;
+  const int W = gridDim.x * kWarps, w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  for (int u = w; u < nR / 4 * B; u += W) {
+    const int j0 = 4 * (u / B), b = u - (u / B) * B;
+    const float* ar = act + (size_t)b * K;
+    const int8_t* Rr = R + (size_t)j0 * K;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int c = 4 * lane; c < K; c += 128) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(ar + c));
+      const float x0 = lowrank::bf16r(v.x), x1 = lowrank::bf16r(v.y);
+      const float x2 = lowrank::bf16r(v.z), x3 = lowrank::bf16r(v.w);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rw =
+            __ldg(reinterpret_cast<const int*>(Rr + (size_t)r * K + c));
+        part[r] = fmaf(x0, (float)(int8_t)(rw & 0xFF), part[r]);
+        part[r] = fmaf(x1, (float)(int8_t)((rw >> 8) & 0xFF), part[r]);
+        part[r] = fmaf(x2, (float)(int8_t)((rw >> 16) & 0xFF), part[r]);
+        part[r] = fmaf(x3, (float)(int8_t)((rw >> 24) & 0xFF), part[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float s = lowrank::warp_sum_f(part[r]);
+      if (lane == r) out[(size_t)b * nR + j0 + r] = __fmul_rn(s, Rs[j0 + r]);
+    }
   }
 }
 
 // srow[b] = max(max_t part[t * B + b], 1e-12) / 127 over n partials: one
-// warp per row, the lanes over the partials (max is order-free).
+// warp per row, the lanes over the partials (max is order-free), eight
+// loads in flight.
 __device__ __forceinline__ void row_scales(const float* part, int n, int B,
                                            float* srow) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int b = warp; b < B; b += kWarps) {
     float amax = 0.f;
+#pragma unroll 8
     for (int t = lane; t < n; t += 32)
       amax = fmaxf(amax, __ldcg(part + (size_t)t * B + b));
     amax = lowrank::warp_max_f(amax);
@@ -211,56 +277,87 @@ __device__ __forceinline__ void row_scales(const float* part, int n, int B,
   __syncthreads();
 }
 
+// The counters of the split groups: the most groups of any stage (the L-dot
+// flags of the grid's warps follow them).
+__host__ __device__ inline int counters(int h, int im, int qdim) {
+  const int n = 3 * qdim / 32 > h / 32 ? 3 * qdim / 32 : h / 32;
+  return n > im / 16 ? n : im / 16;
+}
+
 template <int BITS, int MT>
-__global__ void __launch_bounds__(kThreads) megastep_kernel(MegaArgs a) {
-  constexpr int F = 8 / BITS;
-  constexpr int CODE = rowdot::kOffsetPacked;
-  constexpr int RPB = Tile<MT>::kRowsPerBlock;
-  extern __shared__ int smem[];
+__global__ void __launch_bounds__(kThreads)
+    megastep_kernel(const __grid_constant__ MegaArgs a,
+                    const __grid_constant__ mproj::Plan pl) {
+  constexpr int kTR = mproj::kTileRows;
   __shared__ float srow[32];       // row scales of the int8 activations
   __shared__ float red[kWarps];    // block reductions
-  __shared__ float g_s[RPB * MT];  // a GU tile's gate values, then |m|
   __shared__ float sq[flash_decode::kMaxD], sk[flash_decode::kMaxD];
   __shared__ float kmax_s[kWarps], vmax_s[kWarps];
-  float* xrw = reinterpret_cast<float*>(smem + kCoopSmemBytes / 4);
+  uint8_t* base = hopper::smem_1k();
+  int* smem = reinterpret_cast<int*>(base + mproj::kRingBytes);
+  __nv_bfloat16* wcta = reinterpret_cast<__nv_bfloat16*>(
+      base + mproj::kRingBytes + kXsBytes);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int B = a.B, h = a.h, im = a.im, rank = a.rank, D = a.D;
   const int KVH = a.KVH, qdim = KVH * D, nq = 3 * qdim;
-  const Splits one{1 << 30, 1 << 30, 1 << 30};
-  const Splits qkv_splits{qdim, 2 * qdim, nq};
+  // this warp's epilogue scratch: MT-row totals of a group, then l_tile's
+  int* tot = smem + warp * (mproj::kWarpScratch / 4);
+  uint8_t* scr = reinterpret_cast<uint8_t*>(tot + 32 * MT);
+
+  mproj::Ring rg;
+  mproj::Stream q;
+  // the first slabs of layer 0's q/k/v load while PRE and XRQ run
+  mproj::stream_start(pl, base, rg, q);
+  for (int i = blockIdx.x * kThreads + tid;
+       i < counters(h, im, qdim) + gridDim.x * kWarps;
+       i += gridDim.x * kThreads)
+    a.cnt[i] = 0;
+  int* ldone = a.cnt + counters(h, im, qdim);
 
   for (int l = 0; l < a.L; ++l) {
     const size_t ll = l;
     const float* gs = a.gs + ll * 8;
 
-    // 1. PRE
-    norm_quant(a, l == 0 ? a.x0 : a.x, l == 0, a.an + ll * h, red);
+    // 1. PRE (and the R rows of XRQ into L2)
+    prefetch_grid(a.q_R + ll * 3 * rank * h, (size_t)3 * rank * h);
+    norm_quant(a, l == 0 ? a.x0 : a.x, l == 0, a.an + ll * h, red,
+               reinterpret_cast<float*>(smem));
     lowrank::grid_sync();
 
     // 2. XRQ
-    thin_rows<MT>(a.y, B, h, a.q_R + ll * 3 * rank * h, a.q_Rs + ll * 3 * rank,
-                  3 * rank, a.xr, smem);
+    thin_rows(a.y, B, h, a.q_R + ll * 3 * rank * h, a.q_Rs + ll * 3 * rank,
+              3 * rank, a.xr);
     lowrank::grid_sync();
 
     // 3. QKV
     for (int b = tid; b < B; b += kThreads) srow[b] = __ldcg(a.sy + b);
+    __syncthreads();
     {
-      const LFactor f{a.xr, 3 * rank, a.q_L + ll * nq * rank, a.q_Ls + ll * nq,
-                      rank, qkv_splits};
-      const uint8_t* w = a.q_w + ll * nq * (h / F);
-      const float* ws = a.q_s + ll * nq;
-      for (int t = blockIdx.x; t < nq / RPB; t += gridDim.x)
-        lowrank::lr_tile<BITS, CODE, MT, true, true>(
-            reinterpret_cast<const int*>(a.a8), srow, B, h, w, ws, nq, a.jc_h,
-            t, f, smem, xrw, [&](int m, int n, int, float v) {
-              const int p = lowrank::proj_of(n, qkv_splits);
-              a.qkv[(size_t)m * nq + n] = __fmul_rn(v, gs[p]);
-            });
+      mproj::Epi e{};
+      e.mode = mproj::kEpiStore;
+      e.ws = a.q_s + ll * nq;
+      e.L = a.q_L + ll * nq * rank;
+      e.Ls = a.q_Ls + ll * nq;
+      e.xr = a.xr;
+      e.ldxr = 3 * rank;
+      e.sx = srow;
+      e.out = a.qkv;
+      e.ldo = nq;
+      e.gain[0] = gs[0];
+      e.gain[1] = gs[1];
+      e.gain[2] = gs[2];
+      e.pw = qdim;
+      e.ylr = a.ylr;
+      e.done = ldone;
+      e.seq = 4 * l + 1;
+      mproj::run_stage<BITS, MT>(pl, l, 0, q, rg, a.a8, h, B, a.pws, a.cnt,
+                                 tot, scr, e, wcta);
     }
     lowrank::grid_sync();
 
     // 4. ATTN: RoPE and K/V quantization of the stream's own head, then the
-    //    staged attention over the cache
+    //    staged attention over the cache (and the R rows of XRO into L2)
+    prefetch_grid(a.o_R + ll * rank * qdim, (size_t)rank * qdim);
     {
       const int half = D / 2;
       const size_t lkv = ll * B * KVH;
@@ -332,131 +429,207 @@ __global__ void __launch_bounds__(kThreads) megastep_kernel(MegaArgs a) {
     }
     lowrank::grid_sync();
 
+
     // 5. FIN + XRO
     row_scales(a.part, KVH, B, srow);
     for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < (size_t)B * qdim;
          i += (size_t)gridDim.x * kThreads)
       a.a8[i] = code8(__ldcg(a.ao + i), srow[i / qdim]);
-    thin_rows<MT>(a.ao, B, qdim, a.o_R + ll * rank * qdim, a.o_Rs + ll * rank,
-                  rank, a.xr, smem);
+    thin_rows(a.ao, B, qdim, a.o_R + ll * rank * qdim, a.o_Rs + ll * rank,
+              rank, a.xr);
     lowrank::grid_sync();
 
     // 6. O: x += out * gs_o
     {
-      const LFactor f{a.xr, rank, a.o_L + ll * h * rank, a.o_Ls + ll * h, rank,
-                      one};
-      const uint8_t* w = a.o_w + ll * h * (qdim / F);
-      const float* ws = a.o_s + ll * h;
-      const float g = gs[3];
-      for (int t = blockIdx.x; t < h / RPB; t += gridDim.x)
-        lowrank::lr_tile<BITS, CODE, MT, true, true>(
-            reinterpret_cast<const int*>(a.a8), srow, B, qdim, w, ws, h,
-            a.jc_q, t, f, smem, xrw, [&](int m, int n, int, float v) {
-              float* xp = a.x + (size_t)m * h + n;
-              *xp = __fadd_rn(__ldcg(xp), __fmul_rn(v, g));
-            });
+      mproj::Epi e{};
+      e.mode = mproj::kEpiAccum;
+      e.ws = a.o_s + ll * h;
+      e.L = a.o_L + ll * h * rank;
+      e.Ls = a.o_Ls + ll * h;
+      e.xr = a.xr;
+      e.ldxr = rank;
+      e.sx = srow;
+      e.out = a.x;
+      e.ldo = h;
+      e.gain[0] = gs[3];
+      e.ylr = a.ylr;
+      e.done = ldone;
+      e.seq = 4 * l + 2;
+      mproj::run_stage<BITS, MT>(pl, l, 1, q, rg, a.a8, qdim, B, a.pws, a.cnt,
+                                 tot, scr, e, wcta);
     }
     lowrank::grid_sync();
 
-    // 7. MLP
-    norm_quant(a, a.x, false, a.mn + ll * h, red);
+    // 7. MLP (and the R rows of XRG into L2)
+    prefetch_grid(a.g_R + ll * 2 * rank * h, (size_t)2 * rank * h);
+    norm_quant(a, a.x, false, a.mn + ll * h, red,
+               reinterpret_cast<float*>(smem));
     lowrank::grid_sync();
 
     // 8. XRG
-    thin_rows<MT>(a.y, B, h, a.g_R + ll * 2 * rank * h, a.g_Rs + ll * 2 * rank,
-                  2 * rank, a.xr, smem);
+    thin_rows(a.y, B, h, a.g_R + ll * 2 * rank * h, a.g_Rs + ll * 2 * rank,
+              2 * rank, a.xr);
     lowrank::grid_sync();
 
     // 9. GU: gate and up tiles of the interleaved arrays, m, tile absmax
+    //    (and the R rows of XRD into L2)
+    prefetch_grid(a.d_R + ll * rank * im, (size_t)rank * im);
     for (int b = tid; b < B; b += kThreads) srow[b] = __ldcg(a.sy + b);
+    __syncthreads();
     {
-      const uint8_t* w = a.g_w + ll * 2 * im * (h / F);
-      const float* ws = a.g_s + ll * 2 * im;
-      const int8_t* Lg = a.g_L + ll * 2 * im * rank;
-      const float* Lgs = a.g_Ls + ll * 2 * im;
-      const LFactor fg{a.xr, 2 * rank, Lg, Lgs, rank, one};
-      const LFactor fu{a.xr + rank, 2 * rank, Lg, Lgs, rank, one};
-      const float gs_gate = gs[4], gs_up = gs[5];
-      const int bpt = a.bng / RPB;  // row tiles per gate (or up) block
-      for (int t = blockIdx.x; t < im / RPB; t += gridDim.x) {
-        const int i0 = t * RPB;  // the tile's first intermediate column
-        const int tg = 2 * (t / bpt) * bpt + t % bpt;  // its gate tile
-        lowrank::lr_tile<BITS, CODE, MT, true, true>(
-            reinterpret_cast<const int*>(a.a8), srow, B, h, w, ws, 2 * im,
-            a.jc_h, tg, fg, smem, xrw, [&](int m, int, int rl, float v) {
-              g_s[rl * MT + m] = __fmul_rn(v, gs_gate);
-            });
-        lowrank::lr_tile<BITS, CODE, MT, true, true>(
-            reinterpret_cast<const int*>(a.a8), srow, B, h, w, ws, 2 * im,
-            a.jc_h, tg + bpt, fu, smem, xrw, [&](int m, int, int rl, float v) {
-              const float g = g_s[rl * MT + m];
-              const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
-              const float mv =
-                  __fmul_rn(__fmul_rn(g, sig), __fmul_rn(v, gs_up));
-              a.m[(size_t)m * im + i0 + rl] = mv;
-              g_s[rl * MT + m] = fabsf(mv);
-            });
-        __syncthreads();
-        if (tid < B) {
-          float amax = 0.f;
-          for (int rl = 0; rl < RPB; ++rl)
-            amax = fmaxf(amax, g_s[rl * MT + tid]);
-          a.part[(size_t)t * B + tid] = amax;
-        }
-      }
+      mproj::Epi e{};
+      e.mode = mproj::kEpiGateUp;
+      e.ws = a.g_s + ll * 2 * im;
+      e.L = a.g_L + ll * 2 * im * rank;
+      e.Ls = a.g_Ls + ll * 2 * im;
+      e.xr = a.xr;
+      e.ldxr = 2 * rank;
+      e.sx = srow;
+      e.out = a.m;
+      e.ldo = im;
+      e.gain[0] = gs[4];
+      e.gain[1] = gs[5];
+      e.part = a.part;
+      e.ylr = a.ylr;
+      e.done = ldone;
+      e.seq = 4 * l + 3;
+      mproj::run_stage<BITS, MT>(pl, l, 2, q, rg, a.a8, h, B, a.pws, a.cnt,
+                                 tot, scr, e, wcta);
     }
     lowrank::grid_sync();
 
     // 10. DQ + XRD: the codes of bf16(m) on the f32 absmax
-    row_scales(a.part, im / RPB, B, srow);
+    row_scales(a.part, im / kTR, B, srow);
     for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < (size_t)B * im;
          i += (size_t)gridDim.x * kThreads)
       a.a8[i] = code8(lowrank::bf16r(__ldcg(a.m + i)), srow[i / im]);
-    thin_rows<MT>(a.m, B, im, a.d_R + ll * rank * im, a.d_Rs + ll * rank,
-                  rank, a.xrd, smem);
+    thin_rows(a.m, B, im, a.d_R + ll * rank * im, a.d_Rs + ll * rank, rank,
+              a.xrd);
     lowrank::grid_sync();
 
     // 11. DOWN: x += out * gs_down
     {
-      const LFactor f{a.xrd, rank, a.d_L + ll * h * rank, a.d_Ls + ll * h,
-                      rank, one};
-      const uint8_t* w = a.d_w + ll * h * (im / F);
-      const float* ws = a.d_s + ll * h;
-      const float g = gs[6];
-      for (int t = blockIdx.x; t < h / RPB; t += gridDim.x)
-        lowrank::lr_tile<BITS, CODE, MT, true, true>(
-            reinterpret_cast<const int*>(a.a8), srow, B, im, w, ws, h,
-            a.jc_im, t, f, smem, xrw, [&](int m, int n, int, float v) {
-              float* xp = a.x + (size_t)m * h + n;
-              *xp = __fadd_rn(__ldcg(xp), __fmul_rn(v, g));
-            });
+      mproj::Epi e{};
+      e.mode = mproj::kEpiAccum;
+      e.ws = a.d_s + ll * h;
+      e.L = a.d_L + ll * h * rank;
+      e.Ls = a.d_Ls + ll * h;
+      e.xr = a.xrd;
+      e.ldxr = rank;
+      e.sx = srow;
+      e.out = a.x;
+      e.ldo = h;
+      e.gain[0] = gs[6];
+      e.ylr = a.ylr;
+      e.done = ldone;
+      e.seq = 4 * l + 4;
+      mproj::run_stage<BITS, MT>(pl, l, 3, q, rg, a.a8, im, B, a.pws, a.cnt,
+                                 tot, scr, e, wcta);
     }
     lowrank::grid_sync();
   }
 }
 
+// The projection stages of a launch: q/k/v, o, gate/up (groups of 16 gate
+// and 16 up rows of the interleaved arrays), down.
+template <int BITS>
+mproj::Plan plan(const MegaArgs& a) {
+  constexpr int F = 8 / BITS, KC = mproj::kKC;
+  const int qdim = a.KVH * a.D, nq = 3 * qdim, h = a.h, im = a.im;
+  mproj::Plan pl{};
+  pl.st[0] = {h / F, (h / F + KC - 1) / KC, nq / 32, nq, 0};
+  pl.st[1] = {qdim / F, (qdim / F + KC - 1) / KC, h / 32, h, 0};
+  pl.st[2] = {h / F, (h / F + KC - 1) / KC, im / mproj::kTileRows, 2 * im,
+              a.bng};
+  pl.st[3] = {im / F, (im / F + KC - 1) / KC, h / 32, h, 0};
+  const uint8_t* w[4] = {a.q_w, a.o_w, a.g_w, a.d_w};
+  const int8_t* Lf[4] = {a.q_L, a.o_L, a.g_L, a.d_L};
+  const float* ws[4] = {a.q_s, a.o_s, a.g_s, a.d_s};
+  const float* Ls[4] = {a.q_Ls, a.o_Ls, a.g_Ls, a.d_Ls};
+  for (int i = 0; i < 4; ++i) {
+    pl.w[i] = w[i];
+    pl.Lf[i] = Lf[i];
+    pl.ws[i] = ws[i];
+    pl.Ls[i] = Ls[i];
+  }
+  pl.nst = 4;
+  pl.L = a.L;
+  pl.rank = a.rank;
+  return pl;
+}
+
 // Launch (or, with `grid_only`, size) the cooperative grid.
 template <int BITS, int MT>
 cudaError_t launch(MegaArgs a, cudaStream_t st, int* grid_only) {
-  constexpr int F = 8 / BITS;
-  auto kernel = megastep_kernel<BITS, MT>;
-  a.jc_h = pick_jc<F>(kCoopSmemBytes, MT, a.h);
-  a.jc_q = pick_jc<F>(kCoopSmemBytes, MT, a.KVH * a.D);
-  a.jc_im = pick_jc<F>(kCoopSmemBytes, MT, a.im);
-  // one L-factor window per row tile (every split is a multiple of it)
-  const size_t smem = kCoopSmemBytes + (size_t)MT * a.rank * 4;
-  static const cudaError_t attr = lowrank::allow_smem(kernel, 200 * 1024);
-  if (attr != cudaSuccess) return attr;
+  cudaError_t err =
+      hopper::allow_smem<megastep_kernel<BITS, MT>>(kSmemBytes);
+  if (err != cudaSuccess) return err;
   int grid = 0;
-  cudaError_t err = lowrank::coop_grid(kernel, smem, 1 << 30, &grid);
+  err = lowrank::coop_grid(megastep_kernel<BITS, MT>, kSmemBytes, 1 << 30,
+                           &grid);
   if (err != cudaSuccess) return err;
   if (grid_only != nullptr) {
     *grid_only = grid;
     return cudaSuccess;
   }
-  void* args[] = {(void*)&a};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kThreads), args, smem, st);
+  mproj::Plan pl = plan<BITS>(a);
+  void* args[] = {(void*)&a, (void*)&pl};
+  err = cudaLaunchCooperativeKernel((const void*)megastep_kernel<BITS, MT>,
+                                    dim3(grid), dim3(kThreads), args,
+                                    kSmemBytes, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// One projection stage alone, for the card tests of megastep_proj.cuh: the
+// exact i32 sums sum_k (code(w[n, k]) - MAXQ) * x8[m, k] of the N rows of w
+// (B rows of x8, K codes) into out (N, B), on the stage's own stream, split
+// plan (over `grid` CTAs) and group layout (bng = 0: 32 consecutive rows a
+// group; else gate/up blocks of bng rows as the GU stage reads them).
+template <int BITS, int MT>
+__global__ void __launch_bounds__(kThreads)
+    proj_sums_kernel(const __grid_constant__ mproj::Plan pl, const int8_t* x8,
+                     int* out, int* pws, int* cnt, int K, int B) {
+  uint8_t* base = hopper::smem_1k();
+  const int warp = threadIdx.x >> 5;
+  int* tot = reinterpret_cast<int*>(base + mproj::kRingBytes) +
+             warp * (mproj::kWarpScratch / 4);
+  mproj::Ring rg;
+  mproj::Stream q;
+  mproj::stream_start(pl, base, rg, q);
+  mproj::Epi e{};
+  e.mode = mproj::kEpiSums;
+  e.sums = out;
+  mproj::run_stage<BITS, MT>(pl, 0, 0, q, rg, x8, K, B, pws, cnt, tot,
+                             reinterpret_cast<uint8_t*>(tot + 32 * MT), e);
+}
+
+template <int BITS>
+cudaError_t proj_sums(const int8_t* x8, const uint8_t* w, int* out, int* pws,
+                      int* cnt, int N, int K, int B, int bng, int grid,
+                      cudaStream_t st) {
+  constexpr int F = 8 / BITS;
+  if (B < 1 || B > 32 || grid < 1 || K % (16 * F) != 0 ||
+      (bng == 0 ? N % 32 != 0 : bng % 16 != 0 || N % (2 * bng) != 0))
+    return cudaErrorInvalidValue;
+  constexpr int smem = 1024 + mproj::kRingBytes + kWarps * mproj::kWarpScratch;
+  mproj::Plan pl{};
+  pl.st[0] = {K / F, (K / F + mproj::kKC - 1) / mproj::kKC,
+              bng ? N / 2 / mproj::kTileRows : N / 32, N, bng};
+  pl.w[0] = w;
+  pl.nst = 1;
+  pl.L = 1;
+  cudaError_t err;
+  if (B <= 8) {
+    err = hopper::allow_smem<proj_sums_kernel<BITS, 8>>(smem);
+    if (err == cudaSuccess)
+      proj_sums_kernel<BITS, 8><<<grid, kThreads, smem, st>>>(
+          pl, x8, out, pws, cnt, K, B);
+  } else {
+    err = hopper::allow_smem<proj_sums_kernel<BITS, 32>>(smem);
+    if (err == cudaSuccess)
+      proj_sums_kernel<BITS, 32><<<grid, kThreads, smem, st>>>(
+          pl, x8, out, pws, cnt, K, B);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -499,4 +672,16 @@ cudaError_t dispatch(const MegaArgs& a, cudaStream_t st, int* grid_only) {
     return (int)megastep::dispatch<BITS>(                                   \
         *static_cast<const megastep::MegaArgs*>(args), nullptr,             \
         static_cast<int*>(ctas));                                           \
+  }                                                                         \
+  /* one projection stage's i32 sums alone (card tests): x8, packed w, */   \
+  /* out (N, B) i32, partials, zeroed counters, N, K, B, bng, grid */       \
+  extern "C" int megastep_proj_launch(const void* x8, const void* w,        \
+                                      void* out, void* pws, void* cnt,      \
+                                      int N, int K, int B, int bng,         \
+                                      int grid, void* stream) {             \
+    return (int)megastep::proj_sums<BITS>(                                  \
+        static_cast<const int8_t*>(x8), static_cast<const uint8_t*>(w),     \
+        static_cast<int*>(out), static_cast<int*>(pws),                     \
+        static_cast<int*>(cnt), N, K, B, bng, grid,                         \
+        static_cast<cudaStream_t>(stream));                                 \
   }

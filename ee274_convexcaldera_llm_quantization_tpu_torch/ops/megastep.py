@@ -249,9 +249,61 @@ _PTRS = ("x0", "pos", "cos", "sin", "an", "mn", "gs",
          "kc", "vc", "kcs", "vcs",
          "x", "k8", "ks8", "v8", "vs8",
          "y", "a8", "sy", "xr", "xrd", "qkv", "qrot", "kf", "vf", "ao",
-         "part", "m")
-_INTS = ("L", "B", "h", "im", "KVH", "D", "T", "bt", "rank", "bng",
-         "jc_h", "jc_q", "jc_im")
+         "part", "m", "pws", "cnt", "ylr")
+_INTS = ("L", "B", "h", "im", "KVH", "D", "T", "bt", "rank", "bng")
+
+# The projection stages' plan (csrc/megastep_proj.cuh): packed bytes of a
+# weight row per slab, rows of a tile, warps of a CTA.
+_KC, _TILE_ROWS, _WARPS = 128, 16, 8
+
+
+def _stage_plan(h: int, im: int, qdim: int, num_bits: int, bng: int):
+    """The four projection stages as the kernel cuts them (``Plan.st``):
+    ``(P, nk, groups, nrows, bng)`` each: packed bytes of a row, chunks of
+    128 bytes a row, groups of two 16-row tiles (32 consecutive rows, or for
+    gate/up 16 gate rows and the same up rows), rows a layer."""
+    f = K._pack_factor(num_bits)
+
+    def stage(kd, groups, nrows, b=0):
+        P = kd // f
+        return (P, -(-P // _KC), groups, nrows, b)
+    return (stage(h, 3 * qdim // 32, 3 * qdim), stage(qdim, h // 32, h),
+            stage(h, im // _TILE_ROWS, 2 * im, bng), stage(im, h // 32, h))
+
+
+def _group_rows(g: int, bng: int):
+    """The first rows of group ``g``'s two 16-row tiles (``group_rows``)."""
+    if bng == 0:
+        return 32 * g, 32 * g + _TILE_ROWS
+    i0 = _TILE_ROWS * g
+    r0 = 2 * (i0 // bng) * bng + i0 % bng
+    return r0, r0 + bng
+
+
+def _warp_range(S: int, w: int, W: int):
+    """Warp ``w``'s slabs ``[lo, hi)`` of a stage's ``S`` cut ``W`` ways."""
+    return S * w // W, S * (w + 1) // W
+
+
+def _owner(s: int, S: int, W: int) -> int:
+    """The warp whose range holds slab ``s``."""
+    return ((s + 1) * W - 1) // S
+
+
+def _contributors(g: int, nk: int, S: int, W: int):
+    """The warps whose slabs make up group ``g`` (``split_sum``'s walk: the
+    owner of the group's first slab, then the owner of the slab after each
+    one's range)."""
+    out, s = [], g * nk
+    while s < (g + 1) * nk:
+        out.append(_owner(s, S, W))
+        s = _warp_range(S, out[-1] + 1, W)[0]
+    return out
+
+
+def _counters(h: int, im: int, qdim: int) -> int:
+    """Split-group counters: the most groups of any stage."""
+    return max(3 * qdim // 32, h // 32, im // _TILE_ROWS)
 
 
 class _MegaArgs(ctypes.Structure):
@@ -261,24 +313,32 @@ class _MegaArgs(ctypes.Structure):
 
 
 def _scratch(B: int, h: int, im: int, qdim: int, KVH: int, rank: int,
-             device):
+             ctas: int, device):
     """One byte buffer holding the kernel's scratch, and a typed view of
     each region (256-byte aligned offsets). The absmax partials take (KVH,
-    B) slots, then (im / 8, B) (8-row tiles at B > 8; 32-row at B <= 8)."""
-    f4, i1 = torch.float32, torch.int8
+    B) slots, then (im / 16, B) (one per gate/up group); the split-group
+    partials two slots of 32 x MT i32 for each warp of the ``ctas`` CTAs (MT
+    = 8 at B <= 8, else 32), the counters one i32 per group and a flag per
+    warp (zeroed by the kernel), the L dots of a stage's rows (rows, B)."""
+    f4, i1, i4 = torch.float32, torch.int8, torch.int32
+    mt = 8 if B <= 8 else 32
     shapes = dict(y=((B, h), f4), a8=((B * max(h, qdim, im),), i1),
                   sy=((B,), f4), xr=((B * 3 * rank,), f4), xrd=((B, rank), f4),
                   qkv=((B, 3 * qdim), f4), qrot=((B, qdim), f4),
                   kf=((B, qdim), f4), vf=((B, qdim), f4), ao=((B, qdim), f4),
-                  part=((max(KVH, im // 8) * B,), f4), m=((B, im), f4))
+                  part=((max(KVH, im // _TILE_ROWS) * B,), f4),
+                  m=((B, im), f4),
+                  pws=((ctas * _WARPS * 2 * 32 * mt,), i4),
+                  cnt=((_counters(h, im, qdim) + ctas * _WARPS,), i4),
+                  ylr=((max(3 * qdim, h, 2 * im) * B,), f4))
     offs, n = {}, 0
     for k, (shape, dt) in shapes.items():
         offs[k] = n
-        nbytes = torch.Size(shape).numel() * (4 if dt == f4 else 1)
+        nbytes = torch.Size(shape).numel() * (1 if dt == i1 else 4)
         n += (nbytes + 255) // 256 * 256
     buf = torch.empty(n, dtype=torch.uint8, device=device)
     return {k: buf[offs[k]:offs[k] + torch.Size(shape).numel() * (
-        4 if dt == f4 else 1)].view(dt).view(shape)
+        1 if dt == i1 else 4)].view(dt).view(shape)
         for k, (shape, dt) in shapes.items()}
 
 
@@ -315,8 +375,7 @@ def _launch(a, grid_only: bool = False):
                ks8=torch.empty((L, B, KVH), dtype=torch.float32, device=dev),
                v8=torch.empty((L, B, KVH, D), dtype=torch.int8, device=dev),
                vs8=torch.empty((L, B, KVH), dtype=torch.float32, device=dev))
-    scratch = _scratch(B, h, im, KVH * D, KVH, a.rank, dev)
-    args = _MegaArgs(**{k: t.data_ptr() for d in (ops, out, scratch)
+    args = _MegaArgs(**{k: t.data_ptr() for d in (ops, out)
                         for k, t in d.items()},
                      L=L, B=B, h=h, im=im, KVH=KVH, D=D, T=a.T,
                      bt=_block_t(a.T), rank=a.rank, bng=_bn(256, im),
@@ -326,11 +385,14 @@ def _launch(a, grid_only: bool = False):
     if size != ctypes.sizeof(_MegaArgs):
         raise RuntimeError(f"MegaArgs is {size} bytes in csrc/megastep.cuh "
                            f"but {ctypes.sizeof(_MegaArgs)} in _MegaArgs")
+    ctas = ctypes.c_int(0)
+    _build.check(lib.megastep_grid(ctypes.byref(args), ctypes.byref(ctas)),
+                 "megastep_grid")
     if grid_only:
-        ctas = ctypes.c_int(0)
-        _build.check(lib.megastep_grid(ctypes.byref(args),
-                                       ctypes.byref(ctas)), "megastep_grid")
         return ctas.value
+    scratch = _scratch(B, h, im, KVH * D, KVH, a.rank, ctas.value, dev)
+    for k, t in scratch.items():
+        setattr(args, k, t.data_ptr())
     err = lib.megastep_launch(ctypes.byref(args), _build.stream_ptr(dev))
     _build.check(err, "megastep")
     return tuple(out.values()), scratch
@@ -377,6 +439,35 @@ def megastep(x0, pos, attn_norm, mlp_norm,
 
 
 megastep.launches = 0
+
+
+def _proj_sums(x8: torch.Tensor, packed: torch.Tensor, num_bits: int,
+               bng: int = 0, ctas: int = None) -> torch.Tensor:
+    """One projection stage of the kernel alone (``megastep_proj_launch``,
+    card tests): the exact i32 sums ``sum_k (code(packed[n, k]) - maxq) *
+    x8[m, k]`` as an (N, B) int32 tensor, through the kernel's stream, split
+    plan over ``ctas`` CTAs (default: one per SM) and group layout (``bng``
+    0: 32 consecutive rows a group; else gate/up blocks of ``bng`` rows).
+    The counters must come back zeroed, which the call checks."""
+    B, Kd = x8.shape
+    N = packed.shape[0]
+    dev = x8.device
+    if ctas is None:
+        ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    mt = 8 if B <= 8 else 32
+    groups = N // (2 * _TILE_ROWS) if bng else N // 32
+    out = torch.empty((N, B), dtype=torch.int32, device=dev)
+    pws = torch.empty((ctas * _WARPS * 2 * 32 * mt,), dtype=torch.int32,
+                      device=dev)
+    cnt = torch.zeros((max(groups, 1),), dtype=torch.int32, device=dev)
+    lib = _build.library("megastep" if num_bits == 4 else "megastep_2bit")
+    _build.check(lib.megastep_proj_launch(
+        x8.contiguous().data_ptr(), packed.contiguous().data_ptr(),
+        out.data_ptr(), pws.data_ptr(), cnt.data_ptr(), N, Kd, B, bng, ctas,
+        _build.stream_ptr(dev)), "megastep_proj_launch")
+    if int(cnt.abs().sum()):
+        raise RuntimeError("megastep_proj_launch left a split counter set")
+    return out
 
 
 def megastep_ctas(*args, num_bits: int, rank: int, eps: float,

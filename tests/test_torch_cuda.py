@@ -1508,6 +1508,66 @@ def test_megastep_stages_match_plain(dev, name, bits, B, T, ragged):
     assert rows(x, r["x"]) <= MEGA_STAGE_BF16
 
 
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("layout,N,Kd,bng", [
+    ("qkv", 384, 4096, 0),        # 32-row groups, 16 chunks a row
+    ("down", 128, 11008, 0),      # a ragged last chunk at 2 bits
+    ("gateup", 2 * 512, 1024, 256)])
+def test_megastep_proj_sums_exact(dev, bits, B, layout, N, Kd, bng):
+    # one projection stage of the megakernel alone (megastep_proj.cuh: the
+    # TMA weight stream, mma.sync m16n8k32 on the signed codes, the split
+    # groups' partial sums): its i32 sums equal the exact sums and the W4A8
+    # kernel's (rowdot at B <= 8), on one CTA per SM and on 7 CTAs (other
+    # splits), and leave every split counter at 0
+    rng = np.random.default_rng(1500 + bits + B + N)
+    f = 8 // bits
+    x8 = torch.from_numpy(rng.integers(-127, 128, size=(B, Kd),
+                                       dtype=np.int8)).to(dev)
+    packed = torch.from_numpy(rng.integers(0, 256, size=(N, Kd // f),
+                                           dtype=np.uint8)).to(dev)
+    maxq = 2 ** (bits - 1) - 1
+    codes = K.unpack_codes(packed, bits).double() - maxq
+    exact = (codes @ x8.double().T).long()
+    ref = K._launch_w4a8_stacked(
+        x8, torch.ones((B, 1), device=dev), packed[None],
+        torch.ones((1, N, 1), device=dev), 0, bits)
+    assert torch.equal(ref.T.double(), exact.double())
+    for ctas in (None, 7):
+        got = MS._proj_sums(x8, packed, bits, bng=bng, ctas=ctas)
+        assert torch.equal(got.long(), exact), (ctas, int(
+            (got.long() - exact).abs().max()))
+
+
+def test_megastep_streams_and_graph(dev):
+    # launches on two streams at once and one captured in a CUDA graph give
+    # the eager launch's bits (each call has its own scratch and counters)
+    args, kw = _mega_case(dev, "7b-2l", 4, 8, 256, False)
+    ref = MS.megastep(*args, **kw)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        out1 = MS.megastep(*args, **kw)
+    with torch.cuda.stream(s2):
+        out2 = MS.megastep(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        MS.megastep(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out3 = MS.megastep(*args, **kw)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in (out1, out2, out3):
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+
+
 def test_megastep_guards(dev):
     # the reference's assert as a ValueError: batch 33, and a GQA layout
     # (the fused q/k/v rows are not 3 x KVH x D); decode_step_persistent

@@ -379,3 +379,53 @@ class TestDecodeStepPersistent:
         for name in ("k", "v", "k_scale", "v_scale"):
             assert torch.equal(getattr(ca, name)[0], getattr(cb, name)[0])
         assert float((ca.k != cb.k).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("name,bits,ctas", [
+    (name, bits, ctas) for name in ("llama2-7b", "tiny-mha")
+    for bits in (2, 4) for ctas in (132, 7, 1)])
+def test_megastep_split_plan_covers_once(name, bits, ctas):
+    # the projection stages' plan (csrc/megastep_proj.cuh, mirrored by
+    # ops/megastep.py): the warps' slab ranges partition each stage, every
+    # (weight row, 128-byte chunk) is one slab's exactly once (the gate/up
+    # groups through the interleaved blocks), a group's contributors (the
+    # warps whose nonempty ranges meet it: a stage of fewer slabs than
+    # warps leaves some empty) are the owners _contributors walks, each
+    # warp's split groups take distinct partial slots, and the counters
+    # cover every stage's groups
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B, TINY_MHA)
+    cfg = {"llama2-7b": LLAMA2_7B, "tiny-mha": TINY_MHA}[name]
+    h, im, qdim = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim
+    bng = TM._bn(256, im)
+    W = ctas * TM._WARPS
+    stages = TM._stage_plan(h, im, qdim, bits, bng)
+    assert TM._counters(h, im, qdim) >= max(s[2] for s in stages)
+    for P, nk, groups, nrows, b in stages:
+        assert (nk - 1) * TM._KC < P <= nk * TM._KC
+        S = groups * nk
+        ranges = [TM._warp_range(S, w, W) for w in range(W)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == S
+        assert all(ranges[w][1] == ranges[w + 1][0] for w in range(W - 1))
+        hits = np.zeros((nrows, nk), np.int32)
+        slots = {}
+        for w, (lo, hi) in enumerate(ranges):
+            for s in range(lo, hi):
+                g, c = divmod(s, nk)
+                for r in TM._group_rows(g, b):
+                    hits[r:r + TM._TILE_ROWS, c] += 1
+            for g in range(lo // nk, -(-hi // nk)) if lo < hi else ():
+                if lo <= g * nk and hi >= (g + 1) * nk:
+                    continue           # the whole group: no partial
+                slot = 0 if g == lo // nk else 1
+                assert slot == 0 or g == (hi - 1) // nk
+                assert (w, slot) not in slots
+                slots[w, slot] = g
+        assert (hits == 1).all()
+        for g in range(groups):
+            touch = [w for w, (lo, hi) in enumerate(ranges)
+                     if lo < hi and lo < (g + 1) * nk and hi > g * nk]
+            assert TM._contributors(g, nk, S, W) == touch
+            if len(touch) > 1:
+                assert sorted(w for (w, _), gg in slots.items()
+                              if gg == g) == touch
