@@ -28,8 +28,11 @@ caught):
    TFLOP/s; two launches bit-equal), and on sharp logits (q, k x 3) within
    1.25x the plain version's error against a float64 attention; the
    all-batch decode kernel, staged and inline, over a 4096-token cache at
-   ragged positions; the inline and staged row decode kernels and the int8
-   head at the bench shape; the
+   ragged positions; the inline and staged row decode kernels at the bench
+   shape; the int8 head (32000 x 4096) on its int8 wgmma tile path, swapped
+   at M 8 and 32 and in 128 x 256 tiles at M 1024 and 2048, each bit-equal
+   to the plain version, timed beside torch._int_mm plus the rescale and
+   the bound (the kernel table's ``at_m``); the
    grouped bf16 matmul (bound: 989 TFLOP/s bf16 or bytes; beside one bf16
    torch.matmul on its weights dequantized beforehand; its plan printed and
    a second launch equal bit for bit, also at M 16 and 17 and on a plane of
@@ -48,8 +51,8 @@ caught):
    the attention + o_proj kernel (staged and inline; the flipped int8 codes
    of their inner requantization counted against the plain version's); the
    decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
-   persistent launch on o and down at M 8 and 512, bit-equal to kernel 1
-   and timed beside it; ``bf16_matmul_stacked`` (TMA + wgmma, split-K at
+   persistent launch on o and down at M 8 (rowdot's persistent grid) and
+   512 (the tile path), bit-equal to kernel 1 and timed beside it; ``bf16_matmul_stacked`` (TMA + wgmma, split-K at
    M <= 16) at rank-128 factor shapes and 4096 x 4096 beside one bf16
    torch.matmul, with its plan, the M 16/17 edge and a repeated split-K
    launch equal bit for bit; decode blocks over 256
@@ -84,7 +87,10 @@ caught):
    1024-token window; (b) ``ServingEngine`` on w4a8 params (224 flat W4A8
    launches and the head per prefill and tick); (c) the unfused
    ``FastServingEngine`` on the same params, bf16 cache (greedy tokens
-   equal to (b)'s) and int8 cache.
+   equal to (b)'s) and int8 cache; (f) ``evaluate_perplexity`` on (b)'s
+   w4a8 views, one 1024-token window: 224 flat W4A8 launches and the int8
+   head, all at M = 1024, the head's device time in the window, and the
+   perplexity equal to the plain versions' on the card.
 7. Paged serving, Llama-2-7B, 32 layers, on phase 4's params (run before
    phase 6, which builds its own): (a) the paged fused step with identity
    page tables and 256-token pages against the staged fused step, batch 8
@@ -380,45 +386,52 @@ def phase_kernels(torch, dev, record):
         del k, v
     torch.cuda.empty_cache()
 
-    # --- int8 matmul: the Llama-2-7B lm_head
+    # --- int8 matmul: the Llama-2-7B lm_head at decode's M 8, batch
+    # decode's M 32 (swapped tiles) and the perplexity window's M 1024 and
+    # 2048 (128 x 256 tiles), each bit-equal to the plain version on the
+    # card, beside torch._int_mm plus the rescale and the bound
     i8 = record["int8_matmul"]
     N, Kd = 32000, 4096
-    w8 = torch.randint(-127, 128, (N, Kd), generator=gen, dtype=torch.int8,
-                       device=dev)
-    s = torch.rand((N, 1), generator=gen, device=dev) * 0.01
-    x = torch.randn((M, Kd), generator=gen, device=dev)
-    y = K.int8_matmul(x, w8, s)
-    ref = K.int8_matmul_plain(x, w8, s)
-    torch.cuda.synchronize()
-    err = float((y - ref).abs().max())
-    tol = 1e-6 * float(ref.abs().max())
-    xq, sx = K.quantize_activations_int8(x)
-    ms = _time_ms(torch, lambda i: K._launch_int8_matmul(xq, sx, w8, s), 50)
-    plain_ms = _time_ms(torch, lambda i: K.int8_matmul_plain(x, w8, s), 3,
-                        reps=3)
-    bound, by = _bound_ms(M * Kd + M * 4 + N * Kd + N * 4 + M * N * 4,
-                          2 * M * N * Kd)
-    srow = s.reshape(1, -1)
-    lib_ms = (None if refusal is not None else
-              _int_mm_ms(torch, xq, [w8], [srow], sx, 50))
-    print(f"int8_matmul lm_head M={M} N={N} K={Kd}: max diff {err:.3e} "
-          f"(bound rtol 1e-6, atol {tol:.3e}) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch._int_mm {_ms_txt(lib_ms, ms)}, bound "
-          f"{bound:.4f} ms ({bound / ms:.1%} of bound)", flush=True)
-    if not torch.allclose(y, ref, rtol=1e-6, atol=tol):
-        raise AssertionError("int8_matmul disagrees with plain")
-    i8.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-              bound_by=by, library_ms=lib_ms)
-    if refusal is not None:
-        # the smallest M that _int_mm takes, kernel and yardstick side by side
-        M32 = 32
-        x32 = torch.randn((M32, Kd), generator=gen, device=dev)
-        xq32, sx32 = K.quantize_activations_int8(x32)
-        ms32 = _time_ms(torch, lambda i: K._launch_int8_matmul(
-            xq32, sx32, w8, s), 50)
-        lib32 = _int_mm_ms(torch, xq32, [w8], [srow], sx32, 50)
-        print(f"int8_matmul lm_head M={M32}: kernel {ms32:.4f} ms, "
-              f"torch._int_mm {_ms_txt(lib32, ms32)}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w8 = [torch.randint(-127, 128, (N, Kd), generator=gen, dtype=torch.int8,
+                        device=dev) for _ in range(2)]
+    s = [torch.rand((N, 1), generator=gen, device=dev) * 0.01
+         for _ in range(2)]
+    srow = [t.reshape(1, -1) for t in s]
+    i8["at_m"] = []
+    for Mh in (8, 32, 1024, 2048):
+        x = torch.randn((Mh, Kd), generator=gen, device=dev)
+        y = K.int8_matmul(x, w8[1], s[1])
+        ref = K.int8_matmul_plain(x, w8[1], s[1])
+        xq, sx = K.quantize_activations_int8(x)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        if not torch.equal(y, ref):
+            raise AssertionError(f"int8_matmul M={Mh}: not the plain "
+                                 f"version's bits (max diff {err:.3e})")
+        plan = K._int8_plan(Mh, N, Kd, sms)
+        iters = 50 if Mh <= 32 else 10
+        ms = _time_ms(torch, lambda i: K._launch_int8_matmul(
+            xq, sx, w8[i % 2], s[i % 2]), iters)
+        lib_ms = None
+        if _int_mm_refusal(torch, dev, Mh, Kd, N) is None:
+            lib_ms = _int_mm_ms(torch, xq, w8, srow, sx, iters)
+        bound, by = _bound_ms(Mh * Kd + Mh * 4 + N * Kd + N * 4 + Mh * N * 4,
+                              2 * Mh * N * Kd)
+        tile = (f"tile {plan['rows']} x {plan['cols']}"
+                f"{' swapped' if plan['swap'] else ''}")
+        print(f"int8_matmul lm_head M={Mh} N={N} K={Kd}: {tile}; max diff "
+              f"0 against the plain version (bit-equal); kernel {ms:.4f} "
+              f"ms, torch._int_mm + rescale {_ms_txt(lib_ms, ms)}, bound "
+              f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)", flush=True)
+        i8["at_m"].append(dict(M=Mh, tile=tile, ms=ms, library_ms=lib_ms,
+                               bound_ms=bound, bound_by=by))
+        if Mh == M:
+            plain_ms = _time_ms(torch, lambda i: K.int8_matmul_plain(
+                x, w8[i % 2], s[i % 2]), 3, reps=3)
+            i8.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del x, y, ref
     del w8
     _phase_kernels_prefill(torch, dev, gen, record)
     _phase_kernels_decode(torch, dev, gen, record)
@@ -3288,6 +3301,7 @@ def phase_unfused(torch, dev, record):
     (c) ``FastServingEngine`` on the same stacked w4a8 params, unfused:
     the same requests on a bf16 cache (greedy completions equal to (b)'s),
     then on an int8 cache (reported);
+    (f) :func:`_perplexity_w4a8` on (b)'s views;
     (e), run first: :func:`_grouped_width`, the grouped path at 2 layers,
     card against CPU."""
     from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
@@ -3486,7 +3500,107 @@ def phase_unfused(torch, dev, record):
           f"the int8 cache's greedy completions "
           f"{'equal' if all(runs['c int8'][u] == runs['b'][u] for u in greedy) else 'differ from'}"
           f" them", flush=True)
+    _perplexity_w4a8(torch, dev, views, config, counters, names)
     print(f"unfused phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+class _RecordCalls:
+    """Within this context ``models/compressed.py`` sees the kernels module
+    through a proxy: each named wrapper there records the M of every call
+    (``calls``: (name, M)) and, for ``timed``, the device time of the call
+    between CUDA events (``events``), then calls the wrapper itself (whose
+    launch counter stays its own)."""
+
+    def __init__(self, torch, names, timed):
+        self.torch, self.names, self.timed = torch, names, timed
+        self.calls, self.events = [], []
+
+    def __enter__(self):
+        from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+            compressed)
+        rec, kernels = self, compressed.K
+
+        class Proxy:
+            def __getattr__(self, name):
+                fn = getattr(kernels, name)
+                if name not in rec.names:
+                    return fn
+
+                def wrapper(x, *args, **kw):
+                    rec.calls.append((name, x.shape[0]))
+                    if name != rec.timed:
+                        return fn(x, *args, **kw)
+                    ev = [rec.torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                    out = fn(x, *args, **kw)
+                    ev[1].record()
+                    rec.events.append(ev)
+                    return out
+                return wrapper
+
+        self.module, self.saved = compressed, kernels
+        compressed.K = Proxy()
+        return self
+
+    def __exit__(self, *exc):
+        self.module.K = self.saved
+        return False
+
+
+def _perplexity_w4a8(torch, dev, views, config, counters, names):
+    """Phase 6 (f): ``evaluate_perplexity`` on the w4a8 per-layer views of
+    (b) (int8 factors and head), one seeded 1024-token window, batch 1:
+    exactly 224 flat W4A8 launches and one int8 head launch, all at M =
+    1024 (the head on its tile path); the window's wall time and the head's
+    device time in it (activation quantization and kernel, CUDA events);
+    the perplexity equal to the same window's through the plain versions on
+    the card."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.evalm import (
+        perplexity)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+
+    L, window = config.num_layers, 1024
+    stream = torch.randint(0, config.vocab_size, (window,),
+                           generator=torch.Generator().manual_seed(12))
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with _RecordCalls(torch, ("quantized_matmul_w4a8", "int8_matmul"),
+                      "int8_matmul") as rec:
+        ppl = perplexity.evaluate_perplexity(views, stream.numpy(), config,
+                                             window=window, batch_size=1,
+                                             device=dev)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    got = tuple(c.launches for c in counters)
+    want = (0, 7 * L, 0, 1)
+    Ms = sorted({m for _, m in rec.calls})
+    head_ms = sum(a.elapsed_time(b) for a, b in rec.events)
+    plan = K._int8_plan(window, config.vocab_size, config.hidden_size,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    with _PlainKernels():
+        ppl_plain = perplexity.evaluate_perplexity(
+            views, stream.numpy(), config, window=window, batch_size=1,
+            device=dev)
+    rel = abs(ppl - ppl_plain) / ppl_plain
+    print(f"unfused (f) evaluate_perplexity on the w4a8 views, one "
+          f"{window}-token window, batch 1: perplexity {ppl:.6f} (random "
+          f"weights), through the plain versions on the card {ppl_plain:.6f}"
+          f" (rel diff {rel:.3e}; must be 0); launches "
+          f"{dict(zip(names, got))} at M {Ms}; {wall:.3f} s wall, the head "
+          f"(tile {plan['rows']} x {plan['cols']}) {head_ms:.3f} ms of "
+          f"device time in it", flush=True)
+    # one glue runs both sides, and the W4A8 and int8 kernels equal their
+    # plain versions bit for bit: the perplexities are equal
+    if (got != want or Ms != [window] or len(rec.events) != 1
+            or not math.isfinite(ppl) or ppl != ppl_plain):
+        raise AssertionError(f"unfused (f): perplexity {ppl} against "
+                             f"{ppl_plain}, launches {got} (expected "
+                             f"{want}) at M {Ms}")
 
 
 def main() -> int:
@@ -3588,8 +3702,8 @@ def main() -> int:
                     replaces=r["replaces"],
                     **{k: r[k] for k in measured},
                     library_ms=r["library_ms"],
-                    **{k: r[k] for k in ("ctas", "ctas_per_sm", "ptxas")
-                       if k in r})
+                    **{k: r[k] for k in ("ctas", "ctas_per_sm", "ptxas",
+                                         "at_m") if k in r})
                for name, r in record.items()]
     print(f"all phases ran in {time.perf_counter() - t_run:.1f} s after the "
           f"build", flush=True)

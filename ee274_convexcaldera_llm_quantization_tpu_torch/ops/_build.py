@@ -71,8 +71,9 @@ ENTRIES = {
         "bf16_stacked_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     },
     "int8_matmul": {
-        # xq, sx, w8, scales, out, M, N, K, stream
-        "int8_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # xq, sx, w8, scales, out, M, N, K, rows, cols, persistent CTAs,
+        # stream
+        "int8_tile_launch": [_P] * 5 + [_I] * 6 + [_P],
     },
     "flash_decode": {
         # q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,

@@ -39,7 +39,6 @@ constexpr int kSmemBytes = 47 * 1024;
 // Weight code formats.
 constexpr int kOffsetPacked = 0;  // BITS < 8 offset-binary, row-global planes
 constexpr int kOffset8 = 1;       // 8-bit offset-binary: signed code u - 127
-constexpr int kSigned8 = 2;       // int8 weights, no offset
 
 template <int MT>
 struct Tile {
@@ -54,8 +53,6 @@ __device__ __forceinline__ int dot_word(unsigned word, int p, int xw, int acc) {
   if (CODE == kOffsetPacked) {
     const int codes = (int)((word >> (BITS * (F - 1 - p))) & kMask);
     return __dp4a(codes, xw, acc);
-  } else if (CODE == kSigned8) {
-    return __dp4a((int)word, xw, acc);
   } else {
 #pragma unroll
     for (int b = 0; b < 4; ++b) {

@@ -6,7 +6,8 @@
 // quantized_matmul_w4a8_stacked_persistent (_qmm_w4a8_persistent_kernel:
 // the same function, one program per M tile walking every output block
 // with hand double-buffered weight DMAs; here w4a8_stacked_persistent_launch,
-// rowdot.cuh's persistent launch) and quantized_matmul_w4a8
+// rowdot.cuh's persistent launch, at decode M, and above it the tile path,
+// whose CTAs are persistent too) and quantized_matmul_w4a8
 // (_qmm_w4a8_kernel), the same function without the layer axis:
 //   y[m, n] = sx[m] * s[n] * (sum_k xq[m, k] * u[n, k] - maxq * sum_k xq[m, k])
 // with u the offset-binary 2/4/8-bit codes of layer `layer`.

@@ -514,9 +514,10 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
     """Launch ``csrc/w4a8_stacked.cu`` on quantized activations against
     layer ``layer`` of a stacked (L, N, K/f) tensor, or a flat (N, K/f)
     tensor when ``layer`` is None (the flat entry point), on the plan of
-    :func:`_w4a8_plan` (``path`` and ``rows`` passed on to it); on the
-    persistent grid (rowdot.cuh) when ``persistent``. A failed launch
-    raises: neither design stands in for the other."""
+    :func:`_w4a8_plan` (``path`` and ``rows`` passed on to it); where the
+    plan is ``rowdot`` and ``persistent`` is set, on rowdot's persistent
+    grid (rowdot.cuh); the tile path's CTAs are persistent already. A failed
+    launch raises: neither design stands in for the other."""
     M, K = xq.shape
     N = packed.shape[-2]
     sx = sx.contiguous()
@@ -527,9 +528,8 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
     index = xq.device.index
     if index is None:
         index = torch.cuda.current_device()
-    plan = None if persistent else _w4a8_plan(M, N, K, num_bits,
-                                              _sm_count(index), path, rows)
-    if plan is not None and plan["path"] == "tile":
+    plan = _w4a8_plan(M, N, K, num_bits, _sm_count(index), path, rows)
+    if plan["path"] == "tile":
         # TMA reads x and the layer's bytes from 16-byte aligned bases: a
         # layer of a stacked slab is read in place, a view off that
         # alignment is copied
@@ -561,9 +561,9 @@ quantized_matmul_w4a8_stacked.launches = 0
 # W4A8 stacked matmul on a persistent grid (replaces the TPU kernel #4)
 # ---------------------------------------------------------------------------
 
-# dynamic shared memory of a persistent CTA (csrc/rowdot.cuh): the int8
-# activations of up to 8 rows of K and two 32-row stages of 1024 packed
-# bytes, within 226 KB
+# dynamic shared memory of a persistent rowdot CTA (csrc/rowdot.cuh, M <= 8):
+# the int8 activations of the M rows of K and two 32-row stages of 1024
+# packed bytes, within 226 KB
 _PERSIST_SMEM = 226 * 1024
 _PERSIST_STAGES = 2 * 32 * 1024
 
@@ -576,22 +576,25 @@ def quantized_matmul_w4a8_stacked_persistent(
         x: torch.Tensor, packed: torch.Tensor, row_scales: torch.Tensor,
         layer: int, num_bits: int,
         act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`quantized_matmul_w4a8_stacked` on a persistent grid: as many
-    CTAs as fit on the card, each walking its row tiles with the next
-    weight stage loading (``cp.async``) while the current one computes, and
-    the activations staged once per CTA (``w4a8_stacked_persistent_launch``
-    of ``csrc/w4a8_stacked.cu``). Same arguments; the output equals the grid
-    kernel's bit for bit. CPU tensors go through its plain version. On the
-    card ``min(M, 8) * K`` bytes of activations must fit beside the weight
-    stages (K <= 20992 at M >= 8).
+    """:func:`quantized_matmul_w4a8_stacked` on persistent CTAs. At M <= 8
+    (decode) the rowdot kernel on a persistent grid: as many CTAs as fit on
+    the card, each walking its row tiles with the next weight stage loading
+    (``cp.async``) while the current one computes, and the activations
+    staged once per CTA (``w4a8_stacked_persistent_launch`` of
+    ``csrc/w4a8_stacked.cu``); there ``M * K`` bytes of activations must fit
+    beside the weight stages (K <= 20992 at M 8). Above M 8 the grid
+    launch's int8 ``wgmma`` tile path (:func:`_w4a8_plan`), whose CTAs are
+    persistent, one an SM. Same arguments; the output equals the grid
+    kernel's bit for bit. CPU tensors go through its plain version.
     """
     _check_w4a8_stacked(x, packed, row_scales, layer, num_bits)
     if x.device.type == "cpu":
         return quantized_matmul_w4a8_stacked_persistent_plain(
             x, packed, row_scales, layer, num_bits, act_scale)
     M, K = x.shape
-    if min(M, 8) * K + _PERSIST_STAGES > _PERSIST_SMEM:
-        raise ValueError(f"the persistent kernel stages min(M, 8) x K int8 "
+    if (M <= _W4A8_ROWDOT_MAX_M
+            and M * K + _PERSIST_STAGES > _PERSIST_SMEM):
+        raise ValueError(f"the persistent rowdot kernel stages M x K int8 "
                          f"activations in shared memory; M={M} K={K} is "
                          f"over its {_PERSIST_SMEM - _PERSIST_STAGES} bytes")
     xq, sx = quantize_activations_int8(x, act_scale)
@@ -1345,7 +1348,9 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor,
     """``y = x @ (row_scales * w_int8).T`` with int8 activations per row.
 
     ``x`` (M, K) float; ``w_int8`` (N, K) int8; ``row_scales`` (N, 1) f32.
-    CUDA tensors go through ``csrc/int8_matmul.cu``; CPU tensors through
+    CUDA tensors go through ``csrc/int8_matmul.cu``'s int8 ``wgmma`` tile
+    kernel on the plan of :func:`_int8_plan` (swapped, weight-bytes bound,
+    up to M 64; operation-bound tiles above); CPU tensors through
     :func:`int8_matmul_plain`.
     """
     if w_int8.dtype != torch.int8:
@@ -1366,17 +1371,92 @@ def int8_matmul(x: torch.Tensor, w_int8: torch.Tensor,
     return out
 
 
-def _launch_int8_matmul(xq, sx, w_int8, scales):
-    """Launch ``csrc/int8_matmul.cu`` on quantized activations."""
+# The CUDA kernel (csrc/int8_matmul.cu): TMA and int8 wgmma m64nNk32
+# s32.s8.s8, persistent CTAs, 128-byte k steps. Up to M 64 it is swapped:
+# 128 weight rows as wgmma's A operand and the M activation rows as its 64
+# columns, bound by the weight bytes. Above, 128 activation rows and 128 or
+# 256 weight rows a tile, bound by the int8 operations, the output leaving
+# through TMA stores (N % 4 == 0; the swapped tiles, in M tiles of 64, take
+# any other N). The i32 sums hold while K <= 2^31 / 127^2.
+# On an H100 80GB HBM3 (700 W, scripts/torch_int8_times.py --sweep, the
+# Llama-2-7B head 32000 x 4096) the tile kernel beat the rowdot kernel it
+# replaced (__dp4a, one warp a weight row) at every M from 1 (M 1: 0.0460
+# against 0.0560 ms; M 8: 0.0467 against 0.0722; M 32: 0.0492 against
+# 0.7890); swapped tiles of 8, 16 or 32 columns were at most 2.5% faster
+# than the 64-column tile at the M they hold (M 8: 0.0470 against 0.0481
+# ms; M 16: 0.0478 against 0.0490), so one width serves; 256-row weight
+# tiles beat 128 by 3-5% at M 512 to 2048 (M 1024: 0.2108 against 0.2224
+# ms) and lost by 1-2% at M 96, 128 and 256, where they leave fewer than two
+# tiles an SM.
+_INT8_SWAP_ROWS = 64
+_INT8_TILE_MAX_K = (2 ** 31 - 1) // (127 * 127)
+
+
+def _int8_plan(M: int, N: int, K: int, sms: int = 132,
+               rows: Optional[int] = None,
+               cols: Optional[int] = None) -> dict:
+    """How ``csrc/int8_matmul.cu`` runs ``(M, K) @ W.T`` with ``W`` (N, K)
+    int8: tiles of ``rows`` activation rows and ``cols`` weight rows,
+    ``swap`` where ``rows`` is 64 (M <= 64, or N % 4 != 0: the weights are
+    wgmma's A operand, 128 rows a tile, the activations its 64 columns),
+    else 128 activation rows by 256 weight rows where that still makes at
+    least two tiles an SM and 128 otherwise (the TMA stores need N % 4 ==
+    0). ``tiles`` = (A tiles, B tiles), walked A fastest; ``grid`` one
+    persistent CTA a tile, at most one an SM. ``rows`` and ``cols``
+    override the choice (for tuning and for the tests). Raises where the
+    i32 sums could overflow (K over 133144)."""
+    if K > _INT8_TILE_MAX_K:
+        raise ValueError(f"the int8 tile kernel's i32 sums hold K <= "
+                         f"{_INT8_TILE_MAX_K} (127 x 127 per product), got "
+                         f"K={K}")
+    if rows is None:
+        rows = (_INT8_SWAP_ROWS if M <= _INT8_SWAP_ROWS or N % 4
+                else 128)
+    if rows not in (_INT8_SWAP_ROWS, 128):
+        raise ValueError(f"the int8 tile kernel takes 64 (swapped) or 128 "
+                         f"activation rows a tile, got {rows}")
+    swap = rows == _INT8_SWAP_ROWS
+    if cols is None:
+        wide = -(-M // 128) * -(-N // 256)
+        cols = 256 if not swap and wide >= 2 * sms else 128
+    if (swap and cols != 128) or (not swap and cols not in (128, 256)):
+        raise ValueError(f"the int8 tile kernel takes 128 weight rows a "
+                         f"swapped tile and 128 or 256 otherwise, got rows "
+                         f"{rows}, cols {cols}")
+    if not swap and N % 4:
+        raise ValueError(f"the int8 tile kernel's TMA stores need N % 4 == "
+                         f"0 at 128 activation rows a tile, got N={N}")
+    tiles = ((-(-N // cols), -(-M // rows)) if swap
+             else (-(-M // rows), -(-N // cols)))
+    return dict(swap=swap, rows=rows, cols=cols, tiles=tiles,
+                grid=(min(tiles[0] * tiles[1], sms),))
+
+
+def _launch_int8_matmul(xq, sx, w_int8, scales, rows: Optional[int] = None,
+                        cols: Optional[int] = None):
+    """Launch ``csrc/int8_matmul.cu`` on quantized activations, on the plan
+    of :func:`_int8_plan` (``rows`` and ``cols`` passed on to it). A failed
+    launch raises."""
     M, K = xq.shape
     N = w_int8.shape[0]
     sx = sx.contiguous()
     _check_cuda_operands(xq, sx, w_int8, scales)
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-    err = _build.library("int8_matmul").int8_matmul_launch(
+    lib = _build.library("int8_matmul")
+    stream = _build.stream_ptr(xq.device)
+    index = xq.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _int8_plan(M, N, K, _sm_count(index), rows, cols)
+    # TMA reads xq and w from 16-byte aligned bases: a view off that
+    # alignment is copied
+    xq, w_int8 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (xq, w_int8))
+    err = lib.int8_tile_launch(
         xq.data_ptr(), sx.data_ptr(), w_int8.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), M, N, K, _build.stream_ptr(xq.device))
-    _build.check(err, "int8_matmul")
+        out.data_ptr(), M, N, K, plan["rows"], plan["cols"], plan["grid"][0],
+        stream)
+    _build.check(err, "int8_tile")
     return out
 
 

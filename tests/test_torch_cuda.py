@@ -91,12 +91,36 @@ def test_persistent_kernel_equals_grid_kernel(dev, bits, M, N, Kd):
                                                     bits))
 
 
+@pytest.mark.parametrize("N,Kd", [(4096, 4096), (4096, 11008)])
+@pytest.mark.parametrize("M", [9, 64, 512])
+def test_persistent_launch_above_m8_equals_row3(dev, M, N, Kd):
+    # above M 8 the persistent launch runs row 3's tile path: the grid
+    # launch's bits, and the plain version's on the card
+    rng = np.random.default_rng(480 + M + Kd)
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
+    packed = torch.from_numpy(
+        rng.integers(0, 256, size=(2, N, Kd // 2), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(2, N, 1)).astype(np.float32))
+    args = (x.to(dev), packed.to(dev), scales.to(dev), 1, 4)
+    before = K.quantized_matmul_w4a8_stacked_persistent.launches
+    y = K.quantized_matmul_w4a8_stacked_persistent(*args)
+    assert K.quantized_matmul_w4a8_stacked_persistent.launches == before + 1
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked(*args))
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked_plain(*args))
+
+
 def test_persistent_kernel_rules(dev):
     x = torch.zeros((8, 24576), device=dev)
     packed = torch.zeros((1, 64, 12288), dtype=torch.uint8, device=dev)
     scales = torch.ones((1, 64, 1), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         K.quantized_matmul_w4a8_stacked_persistent(x, packed, scales, 0, 4)
+    # above M 8 the tile path takes the same K
+    x9 = torch.randn((9, 24576), device=dev)
+    assert torch.equal(
+        K.quantized_matmul_w4a8_stacked_persistent(x9, packed, scales, 0, 4),
+        K.quantized_matmul_w4a8_stacked(x9, packed, scales, 0, 4))
 
 
 def _bf16_inputs(seed, M, N, Kd, layers=3):
@@ -181,16 +205,112 @@ def test_bf16_stacked_kernel_rules(dev):
                                           device=dev), 0)
 
 
-@pytest.mark.parametrize("M", [1, 8, 33])
-def test_int8_kernel_matches_plain(dev, M):
-    rng = np.random.default_rng(500 + M)
-    x = torch.from_numpy(rng.normal(size=(M, 256)).astype(np.float32))
-    w8 = torch.from_numpy(rng.integers(-127, 128, size=(300, 256),
+@pytest.mark.parametrize("Kd", [256, 4096])
+@pytest.mark.parametrize("N", [300, 1000, 32000])
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 17, 32, 33, 64, 65, 128, 1024])
+def test_int8_kernel_matches_plain(dev, M, N, Kd):
+    # the exact i32 sums and one epilogue order: the default launch and
+    # each forced tile (swapped at every M, 128-row tiles where N % 4 == 0)
+    # equal the plain version on the card bit for bit (the same int8
+    # activations: the CPU rounds x / scale in another way now and then);
+    # the first shapes also against the plain version on the CPU, within
+    # f32 rounding
+    rng = np.random.default_rng(500 + M + N + Kd)
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
+    w8 = torch.from_numpy(rng.integers(-127, 128, size=(N, Kd),
                                        dtype=np.int8))
-    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(300, 1))
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(N, 1))
                          .astype(np.float32))
-    _close(K.int8_matmul(x.to(dev), w8.to(dev), s.to(dev)),
-           K.int8_matmul_plain(x, w8, s))
+    xd, wd, sd = x.to(dev), w8.to(dev), s.to(dev)
+    before = K.int8_matmul.launches
+    y = K.int8_matmul(xd, wd, sd)
+    assert K.int8_matmul.launches == before + 1
+    ref = K.int8_matmul_plain(xd, wd, sd)
+    assert torch.equal(y, ref)
+    xq, sx = K.quantize_activations_int8(xd)
+    for rows in (64, 128) if N % 4 == 0 else (64,):
+        assert torch.equal(K._launch_int8_matmul(xq, sx, wd, sd, rows=rows),
+                           ref), rows
+    if M in (1, 8, 33) and N == 300 and Kd == 256:
+        _close(y, K.int8_matmul_plain(x, w8, s))
+
+
+@pytest.mark.parametrize("rows,cols", [(64, 128), (128, 128), (128, 256)])
+@pytest.mark.parametrize("M,N", [(9, 1000), (70, 1000), (130, 300),
+                                 (200, 1012), (1000, 4100)])
+def test_int8_tile_ragged(dev, M, N, rows, cols):
+    # every tile of the kernel at M and N off its tiles (swapped tiles in
+    # several M tiles), K off the 128-byte step: bit-equal to the plain
+    # version on the card
+    rng = np.random.default_rng(1700 + M + N + rows + cols)
+    Kd = 4000
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32)).to(dev)
+    w8 = torch.from_numpy(rng.integers(-127, 128, size=(N, Kd),
+                                       dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(N, 1))
+                         .astype(np.float32)).to(dev)
+    xq, sx = K.quantize_activations_int8(x)
+    y = K._launch_int8_matmul(xq, sx, w8, s, rows=rows, cols=cols)
+    assert torch.equal(y, K.int8_matmul_plain(x, w8, s))
+
+
+def test_int8_tile_odd_n_goes_swapped(dev):
+    # N % 4 != 0: no TMA store of 128-row tiles; the plan takes swapped
+    # tiles of 64 M rows, and forcing the 128-row tiles raises
+    rng = np.random.default_rng(1750)
+    M, N, Kd = 300, 1001, 512
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32)).to(dev)
+    w8 = torch.from_numpy(rng.integers(-127, 128, size=(N, Kd),
+                                       dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(N, 1))
+                         .astype(np.float32)).to(dev)
+    assert K._int8_plan(M, N, Kd)["swap"]
+    assert torch.equal(K.int8_matmul(x, w8, s), K.int8_matmul_plain(x, w8, s))
+    xq, sx = K.quantize_activations_int8(x)
+    with pytest.raises(ValueError, match="N % 4"):
+        K._launch_int8_matmul(xq, sx, w8, s, rows=128)
+
+
+@pytest.mark.parametrize("M", [32, 1024])
+def test_int8_tile_repeats_and_replays(dev, M):
+    # the same bits on a second launch, on two streams at once and in a
+    # CUDA graph (the tensor maps are kernel parameters)
+    rng = np.random.default_rng(1760 + M)
+    x = torch.from_numpy(rng.normal(size=(M, 4096)).astype(np.float32))
+    w8 = torch.from_numpy(rng.integers(-127, 128, size=(32000, 4096),
+                                       dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(32000, 1))
+                         .astype(np.float32)).to(dev)
+    xq, sx = K.quantize_activations_int8(x.to(dev))
+    eager = K._launch_int8_matmul(xq, sx, w8, s)
+    assert torch.equal(eager, K._launch_int8_matmul(xq, sx, w8, s))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(K._launch_int8_matmul(xq, sx, w8, s))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager) for o in outs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = K._launch_int8_matmul(xq, sx, w8, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_int8_tile_rules(dev):
+    # K past the i32 bound raises: the kernel has no other route
+    x = torch.zeros((32, 133152), device=dev)
+    w8 = torch.zeros((8, 133152), dtype=torch.int8, device=dev)
+    s = torch.ones((8, 1), device=dev)
+    with pytest.raises(ValueError, match="i32"):
+        K.int8_matmul(x, w8, s)
 
 
 @pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])

@@ -111,6 +111,25 @@ class TestInt8Matmul:
                                        torch.from_numpy(scales))
         _assert_matmul_close(port_twin, twin)
 
+    @pytest.mark.parametrize("N", [200, 300])
+    @pytest.mark.parametrize("M", [17, 40, 130])
+    def test_matches_pallas_and_xla_above_decode_m(self, M, N):
+        # the M of the card's tile path (swapped up to 64, 128-row tiles
+        # above), N ragged against its 128-row weight tiles
+        rng = _rng(250 + M + N)
+        K = 256
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        w8 = rng.integers(-127, 128, size=(N, K), dtype=np.int8)
+        scales = rng.uniform(0.001, 0.02, size=(N, 1)).astype(np.float32)
+        y = TK.int8_matmul(torch.from_numpy(x), torch.from_numpy(w8),
+                           torch.from_numpy(scales))
+        ref = JK.int8_matmul(jnp.asarray(x), jnp.asarray(w8),
+                             jnp.asarray(scales), interpret=True)
+        _assert_matmul_close(y, ref)
+        twin = JK.int8_matmul_xla(jnp.asarray(x), jnp.asarray(w8),
+                                  jnp.asarray(scales))
+        _assert_matmul_close(y, twin)
+
 
 class TestPacking:
     @pytest.mark.parametrize("bits", [2, 3, 4, 8])
