@@ -27,8 +27,10 @@ caught):
    shape, beside one SDPA call (bound: its 3xTF32 operations at 495
    TFLOP/s; two launches bit-equal), and on sharp logits (q, k x 3) within
    1.25x the plain version's error against a float64 attention; the
-   all-batch decode kernel, staged and inline, over a 4096-token cache at
-   ragged positions; the inline and staged row decode kernels at the bench
+   all-batch decode kernel (the block-parallel kernel), staged and inline,
+   over a 4096-token cache at ragged positions, each output equal bit for
+   bit to the staged or inline row kernel's at the same block; the inline
+   and staged row decode kernels at the bench
    shape; the int8 head (32000 x 4096) on its int8 wgmma tile path, swapped
    at M 8 and 32 and in 128 x 256 tiles at M 1024 and 2048, each bit-equal
    to the plain version, timed beside torch._int_mm plus the rescale and
@@ -40,7 +42,9 @@ caught):
    matmul at Llama-2-7B's three projection shapes, M = 8 and 512; the paged
    decode kernel at Llama-2-7B's heads, batch 8, over a randomly permuted
    page table of about 2048 tokens per row at ragged positions, pages of 16
-   and 256 tokens, beside the staged kernel over the same context; the
+   and 256 tokens, each output equal bit for bit to the staged kernel's over
+   the gathered pages at the same block, beside the staged kernel over the
+   same context; the
    fused-factor kernels at Llama-2-7B's shapes, rank 128, batch 8: the
    L-fused kernel on the four projections at M = 8, 512 and 2048 (l_kernel
    at 8, the int8 wgmma tile path with its L epilogue above), the LR-fused
@@ -57,7 +61,8 @@ caught):
    torch.matmul, with its plan, the M 16/17 edge and a repeated split-K
    launch equal bit for bit; decode blocks over 256
    tokens (the all-batch kernel on one 2000-token block, 512-token pages, a
-   7-head GQA block of 7000 tokens) in i8, f32 and bf16.
+   7-head GQA block of 7000 tokens) in i8, f32 and bf16, each equal bit for
+   bit to the staged row kernel at the same block.
 3. One Llama-2-7B-width, 2-layer model, the same weights on the card and
    the CPU: 40 steps from position 0, each step on the card against the
    plain step on the CPU (from the CPU's cache, and from the card's own)
@@ -77,7 +82,9 @@ caught):
    decodes with the inline row kernel. Every prefill and decode tick is
    checked for its exact launches, and the first prefill against the plain
    versions on the card; prints the prefill ms per bucket, the median
-   decode tick, tokens/s and wall time.
+   decode tick, the device time of the busiest tick (its decode step
+   replayed as a CUDA graph) and of that tick's attention launches alone,
+   tokens/s and wall time.
 6. The unfused path, Llama-2-7B, 32 layers (``phase_unfused``): first (e)
    the grouped path at 2 layers, the same weights on the card and the CPU:
    a 300-token prefill and a batch-8 decode step from the CPU's cache,
@@ -99,7 +106,9 @@ caught):
    seeded requests (prompts of 64-256 tokens, 16-48 new tokens, some
    sampled) over a pool too small for all of them at once (sized by a dry
    run of the native scheduler), every prefill and tick checked for its
-   exact launches, the first prefill and tick against the plain versions;
+   exact launches, the first prefill and tick against the plain versions,
+   the device time of the busiest tick (replayed as a CUDA graph) and of
+   its attention launches alone;
    (c) the same engine with the prefix cache, 8 requests sharing a
    256-token prefix; (d) ``ServingHTTPServer`` over the paged engine on
    127.0.0.1: 8 concurrent completions, one streamed, and the health and
@@ -634,6 +643,10 @@ def _phase_kernels_long_blocks(torch, dev, gen):
             out = AT.flash_decode_q8_ab(*args, 1, p, staged=True, dots=dots)
             ref = AT.flash_decode_q8_ab_plain(*args, 1, p, staged=True,
                                               dots=dots)
+            if not torch.equal(out, AT.flash_decode_q8_staged(
+                    *args, 1, p, block_t=T, dots=dots)):
+                raise AssertionError(f"long block {name} {dots}: not equal "
+                                     "to the staged row kernel")
             torch.cuda.synchronize()
             ok, bound_txt = _attn_ok(torch, out, ref, dots)
             ms = _time_ms(torch, lambda i: AT.flash_decode_q8_ab(
@@ -642,7 +655,8 @@ def _phase_kernels_long_blocks(torch, dev, gen):
                                   _DOTS_RATE[dots])
             line = (f"long block: flash_decode_q8_ab {name} B={B} KVH={KVH} "
                     f"G={G} D={D}, one block of {T} tokens, staged, "
-                    f"dots={dots}: {bound_txt}; kernel {ms:.4f} ms, bound "
+                    f"dots={dots}: equal to the staged row kernel; "
+                    f"{bound_txt}; kernel {ms:.4f} ms, bound "
                     f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)")
             if T == 2000:
                 # the same context in 250-token blocks of the row kernel:
@@ -678,15 +692,21 @@ def _phase_kernels_long_blocks(torch, dev, gen):
     for dots in ("i8", "f32", "bf16"):
         out = AT.flash_decode_q8_paged(*args, 1, tables, p, dots=dots)
         ref = AT.flash_decode_q8_paged_plain(*args, 1, tables, p, dots=dots)
+        gathered = [AT._gather_pages(x, 1, tables) for x in args[1:5]]
+        if not torch.equal(out, AT.flash_decode_q8_staged(
+                args[0], *gathered, *args[5:], 0, p, block_t=P, dots=dots)):
+            raise AssertionError(f"long pages {dots}: not equal to the "
+                                 "staged kernel at the same block")
+        del gathered
         torch.cuda.synchronize()
         ok, bound_txt = _attn_ok(torch, out, ref, dots)
-        ms = _time_ms(torch, lambda i: AT._launch_decode(
-            "flash_decode_paged_launch", *args, i % 2, p, P, dots,
-            page_tables=tables), 20)
+        ms = _time_ms(torch, lambda i: AT._flash_decode_q8_paged(
+            *args, i % 2, tables, p, dots=dots), 20)
         bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
                               _DOTS_RATE[dots])
         print(f"long block: flash_decode_q8_paged 7b {P}-token pages, ctx "
-              f"{ctx}, pos {pos}, dots={dots}: {bound_txt}; kernel "
+              f"{ctx}, pos {pos}, dots={dots}: equal to the staged kernel "
+              f"at the same block; {bound_txt}; kernel "
               f"{ms:.4f} ms, bound {bound:.4f} ms ({by}; {bound / ms:.1%} "
               f"of bound)", flush=True)
         if not ok:
@@ -1108,6 +1128,19 @@ def _phase_kernels_decode(torch, dev, gen, record):
                 return f(q, k, v, ks, vs, i % Lk, p, dots=dots)
             rec, label = inl, "flash_decode_q8 inline"
         out, ref = fn(1), fn(1, plain=True)
+        same = ""
+        if kind == "ab":
+            # the row kernel at the same block: the same walk, bit for bit
+            bt = AT._ab_blocks(B, KVH, D, T, 64)[1]
+            row = (AT.flash_decode_q8_staged(q, k, v, ks, vs, kn, vn, 1, p,
+                                             block_t=bt, dots=dots)
+                   if staged else AT.flash_decode_q8(q, k, v, ks, vs, 1, p,
+                                                     block_t=bt, dots=dots))
+            if not torch.equal(out, row):
+                raise AssertionError(f"{label} {name} {dots}: not equal to "
+                                     f"the row kernel at block {bt}")
+            same = (f"equal to the {'staged' if staged else 'inline'} row "
+                    f"kernel at block {bt}; ")
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         ok, bound_txt = _attn_ok(torch, out, ref, dots)
@@ -1120,7 +1153,8 @@ def _phase_kernels_decode(torch, dev, gen, record):
         ops = 4 * KVH * G * live * D
         bound, by = _bound_ms(nbytes, ops, _DOTS_RATE[dots])
         print(f"{label} {name} dots={dots} B={B} KVH={KVH} G={G} D={D} "
-              f"T={T}: max diff {err:.3e} ({bound_txt}) kernel {ms:.4f} ms, "
+              f"T={T}: {same}max diff {err:.3e} ({bound_txt}) kernel "
+              f"{ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
               f"{bound / ms:.1%} of bound)", flush=True)
         if not ok:
@@ -1138,10 +1172,13 @@ def _phase_kernels_paged(torch, dev, gen, record):
     heads, batch 8, over about 2048 tokens of context per row: a randomly
     permuted page table, ragged positions (0 and non-multiples of the
     page), pages of 16 tokens (the paged engine's default, the record's
-    row) and of 256 (the staged kernel's block), dots i8 and f32; beside
-    the staged kernel over the same context in a contiguous cache. The
-    kernel is timed through its launcher: the wrapper's page-id check
-    reads the table back to the host, which a CUDA graph cannot capture."""
+    row) and of 256 (the staged kernel's block), dots i8, f32 and bf16;
+    each output equal bit for bit to the staged kernel's over the rows'
+    pages gathered into a contiguous cache, in blocks of the page; timed
+    beside the staged kernel over the same context in 256-token blocks.
+    The kernel is timed through ``_flash_decode_q8_paged``: the wrapper's
+    page-id check reads the table back to the host, which a CUDA graph
+    cannot capture."""
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         attention as AT)
 
@@ -1180,23 +1217,31 @@ def _phase_kernels_paged(torch, dev, gen, record):
         tables = perm[:B * max_pages].reshape(B, max_pages).to(
             device=dev, dtype=torch.int32)
         args = (q, k, v, ks, vs, kn, vn)
+        gathered = [AT._gather_pages(t, 1, tables) for t in (k, v, ks, vs)]
         for dots in ("i8", "f32", "bf16"):
             out = AT.flash_decode_q8_paged(*args, 1, tables, p, dots=dots)
             ref = AT.flash_decode_q8_paged_plain(*args, 1, tables, p,
                                                  dots=dots)
+            row = AT.flash_decode_q8_staged(q, *gathered, kn, vn, 0, p,
+                                            block_t=P, dots=dots)
+            if not torch.equal(out, row):
+                raise AssertionError(f"flash_decode_q8_paged page {P} {dots}"
+                                     ": not equal to the staged kernel at "
+                                     "the same block")
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             ok, bound_txt = _attn_ok(torch, out, ref, dots)
-            ms = _time_ms(torch, lambda i: AT._launch_decode(
-                "flash_decode_paged_launch", *args, i % Lk, p, P, dots,
-                page_tables=tables), 50)
+            ms = _time_ms(torch, lambda i: AT._flash_decode_q8_paged(
+                *args, i % Lk, tables, p, dots=dots), 50)
             plain_ms = _time_ms(
                 torch, lambda i: AT.flash_decode_q8_paged_plain(
                     *args, i % Lk, tables, p, dots=dots), 2, reps=3)
             bound, by = _bound_ms(nbytes, 4 * KVH * G * live * D,
                                   _DOTS_RATE[dots])
             print(f"flash_decode_q8_paged 7b page {P} dots={dots} B={B} "
-                  f"KVH={KVH} G={G} D={D} ctx {ctx} pos {pos}: max diff "
+                  f"KVH={KVH} G={G} D={D} ctx {ctx} pos {pos}: equal to the "
+                  f"staged kernel at block {P} over the gathered pages; "
+                  f"max diff "
                   f"{err:.3e} ({bound_txt}) kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
                   f"{bound / ms:.1%} of bound); staged kernel over the same "
@@ -1209,7 +1254,7 @@ def _phase_kernels_paged(torch, dev, gen, record):
             if P == 16 and dots == "f32":
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                            bound_by=by)
-        del k, v, ks, vs
+        del k, v, ks, vs, gathered
     torch.cuda.empty_cache()
 
 
@@ -1608,6 +1653,8 @@ class _PlainKernels:
                  (AT, "flash_decode_q8_ab", AT.flash_decode_q8_ab_plain),
                  (AT, "flash_decode_q8_paged",
                   AT.flash_decode_q8_paged_plain),
+                 (AT, "_flash_decode_q8_paged",
+                  AT.flash_decode_q8_paged_plain),
                  (AT, "flash_prefill", AT.flash_prefill_plain)]
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
         for m, n, plain in swaps:
@@ -1911,7 +1958,9 @@ class _Watch:
     the watched calls. ``first_prefill(prefill, tokens, last_pos, logits)``
     runs once, after the first prefill, and ``first_tick(decode, args,
     kw)`` once, before the first tick, both outside the counts and the
-    times, with the unwatched functions."""
+    times, with the unwatched functions. ``busiest`` keeps the arguments of
+    the tick whose rows sum to the most positions (:func:`_tick_device_ms`
+    replays it)."""
 
     def __init__(self, torch, counters, per_prefill, per_tick,
                  first_prefill=None, first_tick=None, module=None,
@@ -1922,6 +1971,7 @@ class _Watch:
         self.first_prefill, self.first_tick = first_prefill, first_tick
         self.module, self.names = module, names
         self.prefill_ms, self.tick_ms = {}, []
+        self.busiest, self.busiest_load = None, -1
         self.counted = [0] * len(counters)
         # more prefill-like functions of the module: name -> (launches per
         # call, first(fn, args, kw, logits) run once after the first call)
@@ -1950,6 +2000,14 @@ class _Watch:
             return logits, cache
         return wrapped
 
+    def _tick_done(self, ms, args, kw, logits):
+        self.tick_ms.append(ms)
+        if not self.torch.is_tensor(args[2]):
+            return
+        load = int(args[2].sum())          # the rows' positions
+        if load > self.busiest_load:
+            self.busiest, self.busiest_load = (args, kw), load
+
     def _tick_check(self, args, kw):
         if self.first_tick is not None:
             first, self.first_tick = self.first_tick, None
@@ -1972,8 +2030,7 @@ class _Watch:
         setattr(m, pre, self._wrap(self.saved[0], self.per_prefill,
                                    self._prefill_done))
         setattr(m, dec, self._wrap(self.saved[1], self.per_tick,
-                                   lambda ms, *_: self.tick_ms.append(ms),
-                                   self._tick_check))
+                                   self._tick_done, self._tick_check))
         self.saved_extra = {}
         for name, (expected, first) in self.extra.items():
             fn = self.saved_extra[name] = getattr(m, name)
@@ -1998,6 +2055,44 @@ class _Watch:
         for name, fn in self.saved_extra.items():
             setattr(self.module, name, fn)
         return False
+
+
+def _tick_device_ms(torch, watch, attn):
+    """Device time of the busiest tick ``watch`` saw, its decode call
+    captured once in a CUDA graph and replayed (the median of 5); the
+    device time of that tick's attention launches alone (``attn``: the
+    function of ``ops/attention.py`` the step calls once a layer), recorded
+    from one more run of the tick and replayed the same way with the
+    tick's own arguments; their number; and the positions of the tick's
+    rows. The paged step's page-id check reads the table back to the host,
+    which a capture cannot hold: the eager tick checked these tables, and
+    the replays skip the check."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT)
+    args, kw = watch.busiest
+    decode = watch.saved[1]
+    fn, calls = getattr(AT, attn), []
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+
+    # a wrapper counts its launches on its module name, which is `record`
+    # while it records: those launches are not the main path's
+    record.launches = 0
+    check, AT._check_pages = AT._check_pages, lambda *a: None
+    try:
+        ms = _time_ms(torch, lambda i: decode(*args, **kw), 1, reps=5)
+        setattr(AT, attn, record)
+        try:
+            decode(*args, **kw)
+        finally:
+            setattr(AT, attn, fn)
+        attn_ms = _time_ms(torch, lambda i: [fn(*a, **k) for a, k in calls],
+                           1, reps=5)
+    finally:
+        AT._check_pages = check
+    return ms, attn_ms, len(calls), args[2].tolist()
 
 
 def _serve(torch, engine, watch, reqs, new_tokens=None, done_out=None):
@@ -2111,6 +2206,12 @@ def phase_serving(torch, dev, params, record):
               f" ms (min {min(watch.tick_ms):.2f}, max "
               f"{max(watch.tick_ms):.2f}); {ntok} tokens in {wall:.2f} s "
               f"wall: {ntok / wall:.1f} tokens/s", flush=True)
+        dev_ms, attn_ms, n_attn, at = _tick_device_ms(
+            torch, watch, "flash_decode_q8_ab" if run == "a"
+            else "flash_decode_q8")
+        print(f"  device time of the busiest decode tick (positions {at}; "
+              f"CUDA graph replay): {dev_ms:.3f} ms; its {n_attn} attention "
+              f"launches alone {attn_ms:.3f} ms", flush=True)
         if run == "a":
             for name in ("flash_prefill", "flash_decode_q8_ab"):
                 record[name].update(
@@ -2366,6 +2467,11 @@ def phase_paged(torch, dev, params, record):
         c.launches = 0
     wall, ntok = _serve(torch, engine, watch, reqs)
     totals = report("b", engine, watch, reqs, wall, ntok)
+    dev_ms, attn_ms, n_attn, at = _tick_device_ms(torch, watch,
+                                                  "_flash_decode_q8_paged")
+    print(f"  device time of the busiest decode tick (positions {at}; CUDA "
+          f"graph replay without the page-id check): {dev_ms:.3f} ms; its "
+          f"{n_attn} attention launches alone {attn_ms:.3f} ms", flush=True)
     print(f"  peak pages in use {peak[0]} of {num_pages} (dry run "
           f"{plan_peak}); all returned: {engine.allocator.free_pages}",
           flush=True)
@@ -3640,7 +3746,7 @@ def main() -> int:
                             replaces=ref + "kernels.py:1448"),
         "flash_prefill": dict(source=src + "flash_prefill.cu",
                               replaces=ref + "attention.py:632"),
-        "flash_decode_q8_ab": dict(source=src + "flash_decode.cu",
+        "flash_decode_q8_ab": dict(source=src + "flash_decode_split.cu",
                                    replaces=ref + "attention.py:506"),
         "flash_decode_q8": dict(source=src + "flash_decode.cu",
                                 replaces=ref + "attention.py:155"),
@@ -3648,7 +3754,7 @@ def main() -> int:
                                  replaces=ref + "kernels.py:222"),
         "quantized_matmul_w4a8": dict(source=src + "w4a8_stacked.cu",
                                       replaces=ref + "kernels.py:460"),
-        "flash_decode_q8_paged": dict(source=src + "flash_decode.cu",
+        "flash_decode_q8_paged": dict(source=src + "flash_decode_split.cu",
                                       replaces=ref + "attention.py:761"),
         "quantized_matmul_w4a8_l_stacked": dict(
             source=src + "w4a8_lowrank.cu", replaces=ref + "kernels.py:1021"),

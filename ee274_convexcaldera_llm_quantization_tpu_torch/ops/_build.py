@@ -84,13 +84,14 @@ ENTRIES = {
         # dots, stream
         "flash_decode_inline_launch": [_P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        # as staged, then staged (0/1) before the stream
-        "flash_decode_ab_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-        # q, k, v, ks, vs, k_new, v_new, pos, page_tables, out, B, KVH, G,
-        # D, max_pages, page_size, scale, dots, stream
-        "flash_decode_paged_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_decode_split": {
+        # q, k, v, ks, vs, k_new, v_new, pos, page_tables, out, scratch
+        # logits, smax, state, contrib, counters, B, KVH, G, D, T, block_t,
+        # max_pages, seg, spb, nseg, asegs, nbw, grid, scale, dots, staged,
+        # stream
+        "flash_decode_split_launch": [_P] * 15 + [_I] * 13 + [_F, _I, _I,
+                                                              _P],
     },
     "flash_prefill": {
         # q, k, v, out, B, S, H, KVH, D, scale, stream

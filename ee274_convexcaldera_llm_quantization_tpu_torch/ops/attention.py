@@ -17,10 +17,11 @@ for the serving path. The decode cache is ``(L, B, KVH, T, D)`` int8 with
   (MHA) fused with the W4A8 o_proj and its int8 factors.
 - :func:`flash_prefill`: causal GQA self-attention of a prompt, f32.
 
-Each wrapper launches its hand-written CUDA kernel (``csrc/flash_decode.cu``,
-``csrc/attn_o.cu``, ``csrc/flash_prefill.cu``) for CUDA tensors, counts the
-launch, and runs the plain PyTorch version defined beside it for CPU tensors
-only.
+Each wrapper launches its hand-written CUDA kernel (``csrc/flash_decode.cu``
+for the staged and inline kernels, ``csrc/flash_decode_split.cu`` for the
+all-batch and paged ones, ``csrc/attn_o.cu``, ``csrc/flash_prefill.cu``) for
+CUDA tensors, counts the launch, and runs the plain PyTorch version defined
+beside it for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -205,19 +206,16 @@ def flash_decode_q8_ab_plain(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
 
 
 # ---------------------------------------------------------------------------
-# Decode kernel wrappers (CUDA: csrc/flash_decode.cu)
+# Decode kernel wrappers (CUDA: csrc/flash_decode.cu, csrc/flash_decode_split.cu)
 # ---------------------------------------------------------------------------
 
-def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
-                   pos, bt: int, dots: str, *flags: int,
-                   page_tables=None) -> torch.Tensor:
-    """Check the operands and launch one entry of ``csrc/flash_decode.cu``
-    on layer ``layer`` of the cache or pool (a pointer offset, never a
-    copy). ``page_tables`` (B, max_pages) selects the paged entry, whose
-    blocks are the pool's pages (``bt`` = page size); the caller has checked
-    the page ids (:func:`_check_pages`)."""
+def _decode_operands(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
+                     page_tables=None):
+    """Check the operands of a decode kernel and return the pointers its C
+    entry takes: q, layer ``layer`` of k, v, ks, vs (a pointer offset, never
+    a copy), k_new and v_new (None when absent), pos and the page tables
+    (None for a contiguous cache); and the operands kept alive meanwhile."""
     B, KVH, G, D = q.shape
-    T = k.shape[3]
     if G > 8 or D > 128 or D % 16:
         raise ValueError(
             f"the CUDA decode kernel takes G <= 8, D <= 128 with D % 16 == 0; "
@@ -249,23 +247,131 @@ def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("attention operands must be contiguous and on "
                              "one device")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the int8 K/V cache must start on a 16-byte "
+                         "boundary (the kernels read it in 16-byte vectors)")
     layer_kv = k[0].numel()
     layer_s = ksf[0].numel() * 4
-    out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
     ptrs = [qf.data_ptr(), k.data_ptr() + layer * layer_kv,
             v.data_ptr() + layer * layer_kv, ksf.data_ptr() + layer * layer_s,
             vsf.data_ptr() + layer * layer_s]
     ptrs += [t.data_ptr() for t in news] or [None, None]
-    if entry == "flash_decode_inline_launch":
-        ptrs = ptrs[:5]
     ptrs.append(pos32.data_ptr())
-    if tables:
-        ptrs.append(tables[0].data_ptr())
-        T = tables[0].shape[1]              # the entry takes max_pages
+    ptrs.append(tables[0].data_ptr() if tables else None)
+    return ptrs, (qf, ksf, vsf, pos32, *news, *tables)
+
+
+def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
+                   pos, bt: int, dots: str) -> torch.Tensor:
+    """Check the operands and launch ``flash_decode_staged_launch`` or
+    ``flash_decode_inline_launch`` of ``csrc/flash_decode.cu`` on layer
+    ``layer`` of the cache, in blocks of ``bt`` tokens."""
+    B, KVH, G, D = q.shape
+    ptrs, _keep = _decode_operands(q, k, v, ks, vs, k_new, v_new, layer, pos)
+    ptrs.pop()                              # no page tables
+    if entry == "flash_decode_inline_launch":
+        ptrs = ptrs[:5] + ptrs[7:]          # no current token
+    out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
     fn = getattr(_build.library("flash_decode"), entry)
-    err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, T, bt, _scale_f32(D),
-             _DOTS[dots], *flags, _build.stream_ptr(q.device))
+    err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, k.shape[3], bt,
+             _scale_f32(D), _DOTS[dots], _build.stream_ptr(q.device))
     _build.check(err, entry)
+    return out
+
+
+# tokens of a chunk and of a window; (block, head) pairs of a window;
+# segment maxima of a window; bytes of a whole stream's K rows; CTAs an SM
+# holds (the kernel's kChunk, kSlots, kMaxSegs, kWholeBytes and
+# __launch_bounds__)
+_SPLIT_CHUNK = 256
+_SPLIT_SLOTS = 12
+_SPLIT_SEGS = 1024
+_SPLIT_WHOLE_BYTES = 24576
+_SPLIT_RESIDENT = 3
+
+
+def _decode_split_plan(B: int, KVH: int, G: int, D: int, T: int, bt: int,
+                       sms: int) -> dict:
+    """The work split of ``csrc/flash_decode_split.cu`` for B rows of KVH
+    streams, G query heads of D columns, T cache tokens a row (max_pages *
+    page size, paged) in blocks of ``bt`` tokens, on ``sms`` SMs. Shapes
+    only: the kernel finds the live items from ``pos`` on the device.
+
+    - Segments (``seg`` = min(bt, 256) tokens, ``spb`` a block, ``nseg`` a
+      stream) carry the maxima; a chunk (an A item) is ``asegs`` segments:
+      whole blocks of at most 256 tokens, or a 256-token piece of a longer
+      block.
+    - A window (a B item) is ``nbw`` whole blocks of at most 256 tokens and
+      ``_SPLIT_SLOTS`` (block, head) pairs, or one longer block.
+    - A row attending no cache token, or whose live tokens fit one chunk,
+      one window and ``_SPLIT_WHOLE_BYTES`` of K, takes one W item a stream
+      instead; the others one C item a stream.
+    - ``items``: the most items any positions give; ``grid``: persistent
+      CTAs taking them in ticket order.
+    - ``counters``: int32 words the kernel finds zero and leaves zero (the
+      ticket, A and B items done a stream, CTAs out), from
+      ``kernels._split_counters``.
+    - Scratch, in 4-byte words: ``state`` (m, alpha, sum, code scale per
+      block and head), ``logits``, ``smax`` (segment maxima) and
+      ``contrib`` (a block's p @ V per head)."""
+    if bt < 1 or T < bt or T % bt or min(B, KVH, G, D, sms) < 1:
+        raise ValueError(f"no split of T={T} in blocks of {bt}")
+    nblk = T // bt
+    seg = min(bt, _SPLIT_CHUNK)
+    spb = -(-bt // seg)
+    if spb * G > _SPLIT_SEGS:
+        raise ValueError(f"a block of {bt} tokens and {G} heads has more "
+                         f"than {_SPLIT_SEGS} segment maxima")
+    nseg = nblk * spb
+    short = bt <= _SPLIT_CHUNK
+    asegs = _SPLIT_CHUNK // bt if short else 1
+    nbw = max(1, min(_SPLIT_CHUNK // bt, _SPLIT_SLOTS // G)) if short else 1
+    streams = B * KVH
+    items = streams * (-(-nseg // asegs) + -(-nblk // nbw) + 1)
+    return dict(
+        nblk=nblk, seg=seg, spb=spb, nseg=nseg, asegs=asegs, nbw=nbw,
+        whole_tokens=_SPLIT_WHOLE_BYTES // D, items=items,
+        grid=min(items, sms * _SPLIT_RESIDENT),
+        counters=2 + 2 * streams, state=4 * streams * nblk * G,
+        logits=streams * G * T, smax=streams * G * nseg,
+        contrib=streams * nblk * G * D)
+
+
+def _launch_split(q, k, v, ks, vs, k_new, v_new, layer: int, pos, bt: int,
+                  dots: str, staged: bool, page_tables=None) -> torch.Tensor:
+    """Check the operands and launch ``flash_decode_split_launch`` of
+    ``csrc/flash_decode_split.cu`` on layer ``layer`` of the cache (blocks
+    of ``bt`` tokens) or, with ``page_tables`` (B, max_pages), of the pool
+    (blocks are its pages, ``bt`` the page size; the caller has checked the
+    page ids, :func:`_check_pages`). The scratch comes from ``torch.empty``,
+    the counters from ``kernels._split_counters`` (one zeroed buffer per
+    stream and CUDA-graph capture, which the kernel leaves zeroed); nothing
+    is read back to the host."""
+    B, KVH, G, D = q.shape
+    ptrs, _keep = _decode_operands(q, k, v, ks, vs, k_new if staged else None,
+                                   v_new if staged else None, layer, pos,
+                                   page_tables)
+    max_pages = 0 if page_tables is None else page_tables.shape[1]
+    T = k.shape[3] if page_tables is None else max_pages * bt
+    index = q.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _decode_split_plan(B, KVH, G, D, T, bt, K._sm_count(index))
+    # each part on a 16-byte boundary: the kernel copies 16 bytes at a time
+    names = ("state", "logits", "smax", "contrib")
+    sizes = [-(-plan[n] // 4) * 4 for n in names]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+    offs = dict(zip(names, np.cumsum([0] + sizes[:-1]) * 4))
+    counters = K._split_counters(q.device, plan["counters"])
+    out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
+    err = _build.library("flash_decode_split").flash_decode_split_launch(
+        *ptrs, out.data_ptr(),
+        *(scratch.data_ptr() + int(offs[n]) for n in
+          ("logits", "smax", "state", "contrib")), counters.data_ptr(),
+        B, KVH, G, D, T, bt, max_pages,
+        *(plan[n] for n in ("seg", "spb", "nseg", "asegs", "nbw", "grid")),
+        _scale_f32(D), _DOTS[dots], int(staged), _build.stream_ptr(q.device))
+    _build.check(err, "flash_decode_split")
     return out
 
 
@@ -337,7 +443,9 @@ def flash_decode_q8_ab(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
     (``staged``) or :func:`flash_decode_q8` (inline) on the block partition
     :func:`_ab_blocks` picks from the cap ``block_t``. ``k_new``/``v_new``
     are read only when ``staged`` (None is accepted otherwise). Returns
-    (B, KVH, G, D) f32.
+    (B, KVH, G, D) f32. CUDA tensors go through the block-parallel kernel
+    of ``csrc/flash_decode_split.cu``, whose outputs equal the row kernels'
+    walk over the same blocks bit for bit.
     """
     _check_dots(dots)
     _check_layer(k, layer)
@@ -348,10 +456,8 @@ def flash_decode_q8_ab(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
                                         pos, staged, block_t, dots)
     B, KVH, _, D = q.shape
     _, bt = _ab_blocks(B, KVH, D, k.shape[3], block_t)
-    out = _launch_decode("flash_decode_ab_launch", q, k, v, ks, vs,
-                         k_new if staged else None,
-                         v_new if staged else None, layer, pos, bt, dots,
-                         int(staged))
+    out = _launch_split(q, k, v, ks, vs, k_new, v_new, layer, pos, bt, dots,
+                        staged)
     flash_decode_q8_ab.launches += 1
     return out
 
@@ -360,7 +466,7 @@ flash_decode_q8_ab.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Paged decode (CUDA: csrc/flash_decode.cu, flash_decode_paged_launch)
+# Paged decode (CUDA: csrc/flash_decode_split.cu)
 # ---------------------------------------------------------------------------
 
 def _check_pages(page_tables, num_pages: int) -> None:
@@ -415,17 +521,32 @@ def flash_decode_q8_paged(q, k, v, ks, vs, k_new, v_new, layer: int,
     int32, the pool holding row ``b``'s tokens ``< pos[b]`` (logical token
     ``j`` at page ``page_tables[b, j // P]``, offset ``j % P``); ``dots``
     "i8", "bf16" or "f32". Block == page, of any size. Returns
-    (B, KVH, G, D) f32.
+    (B, KVH, G, D) f32. The page ids are checked first (a read-back to the
+    host); a caller that attends many layers through one table checks it
+    once and calls :func:`_flash_decode_q8_paged` per layer.
     """
     _check_dots(dots)
     _check_layer(k, layer)
     _check_pages(page_tables, k.shape[1])
+    return _flash_decode_q8_paged(q, k, v, ks, vs, k_new, v_new, layer,
+                                  page_tables, pos, dots)
+
+
+def _flash_decode_q8_paged(q, k, v, ks, vs, k_new, v_new, layer: int,
+                           page_tables, pos, dots: str = "f32"
+                           ) -> torch.Tensor:
+    """:func:`flash_decode_q8_paged` on page tables whose ids the caller has
+    checked (:func:`_check_pages`): CUDA tensors go through the
+    block-parallel kernel of ``csrc/flash_decode_split.cu`` (no host
+    read-back, so it can be captured in a CUDA graph); CPU tensors through
+    :func:`flash_decode_q8_paged_plain`."""
+    _check_dots(dots)
+    _check_layer(k, layer)
     if q.device.type == "cpu":
         return flash_decode_q8_paged_plain(q, k, v, ks, vs, k_new, v_new,
                                            layer, page_tables, pos, dots)
-    out = _launch_decode("flash_decode_paged_launch", q, k, v, ks, vs, k_new,
-                         v_new, layer, pos, k.shape[3], dots,
-                         page_tables=page_tables)
+    out = _launch_split(q, k, v, ks, vs, k_new, v_new, layer, pos,
+                        k.shape[3], dots, True, page_tables=page_tables)
     flash_decode_q8_paged.launches += 1
     return out
 

@@ -2,7 +2,7 @@
 // per (b, kv-head) with G grouped query heads, online softmax over the live
 // token blocks of one layer (int8 codes, per-(token, head) f32 scales).
 //
-// One kernel template, four entry points, each replacing one TPU kernel of
+// One kernel template, two entry points, each replacing one TPU kernel of
 // ee274_convexcaldera_llm_quantization_tpu/ops/attention.py:
 // - flash_decode_staged_launch: flash_decode_q8_staged
 //   (_flash_decode_q8_staged_kernel). The cache holds the tokens < pos[b];
@@ -12,25 +12,8 @@
 //   The current token is already in the cache: the tokens <= pos[b] are
 //   attended (pos 0 attends token 0), the live blocks are t <= pos / bt,
 //   and there is no current-token update.
-// - flash_decode_ab_launch: flash_decode_q8_ab (_flash_decode_q8_ab_kernel),
-//   staged or inline. The TPU kernel attends a (Bb, KVH) slab of rows per
-//   program with a per-slab compute guard (a block runs while any row of
-//   the slab is live). A block that is past a row's last live block is
-//   fully masked for that row and leaves its softmax state exactly as it
-//   was (alpha = 1, p = 0, and in i8 the quantized p is 0), so the slab
-//   guard does not change the result: this per-(b, kv-head) CTA over the
-//   row's own live blocks, walking ab's block partition (the caller passes
-//   _ab_blocks' block_t, which in dots="i8" is part of the result), computes
-//   the ab kernel's function. The slab exists on the TPU to make fewer,
-//   larger DMAs; on the GPU every (b, head) stream is already one CTA.
-// - flash_decode_paged_launch: flash_decode_q8_paged (the staged kernel on a
-//   grid whose block t of row b is pool page page_tables[b, t]: block ==
-//   page). The cache is one layer of a paged pool (NP, KVH, P, D) int8 with
-//   (NP, KVH, P) scales; block t of (b, h) starts at ((pt[b, t] * KVH + h) *
-//   P) * D. The same body runs with the page table as a pointer (null for
-//   the contiguous entries), so the staged and paged functions are one code
-//   path. Only the live pages t < ceil(pos[b] / P) are read: the TPU's
-//   clamped re-reads of the last page for dead blocks never contribute.
+// The all-batch and paged kernels (flash_decode_q8_ab, flash_decode_q8_paged)
+// compute this walk's function block-parallel in flash_decode_split.cu.
 //
 // Bound on an H100: the live K/V codes and scales (2 * live * (D + 4) bytes
 // per (b, head)); the operations are 4 * G * D per live token, far below
@@ -75,34 +58,30 @@ flash_decode_kernel(const float* __restrict__ q,
                     const float* __restrict__ kn,
                     const float* __restrict__ vn,
                     const int* __restrict__ pos,
-                    const int* __restrict__ pt, int max_pages,
                     float* __restrict__ out, int KVH, int G, int D, int T,
                     int bt, float scale) {
   flash_decode::decode_attend<kThreads, kMaxG, DOTS, STAGED>(
-      blockIdx.x, q, k, v, ks, vs, kn, vn, pos, pt, max_pages, out, KVH, G,
-      D, T, bt, scale);
+      blockIdx.x, q, k, v, ks, vs, kn, vn, pos, nullptr, 0, out, KVH, G, D,
+      T, bt, scale);
 }
 
 template <int DOTS, bool STAGED>
 void launch_one(dim3 grid, cudaStream_t st, const float* qp,
                 const int8_t* kp, const int8_t* vp, const float* ksp,
                 const float* vsp, const float* knp, const float* vnp,
-                const int* pp, const int* ptp, int max_pages, float* op,
-                int KVH, int G, int D, int T, int block_t, float scale) {
+                const int* pp, float* op, int KVH, int G, int D, int T,
+                int block_t, float scale) {
   flash_decode_kernel<DOTS, STAGED><<<grid, kThreads, 0, st>>>(
-      qp, kp, vp, ksp, vsp, knp, vnp, pp, ptp, max_pages, op, KVH, G, D, T,
-      block_t, scale);
+      qp, kp, vp, ksp, vsp, knp, vnp, pp, op, KVH, G, D, T, block_t, scale);
 }
 
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* k_new, const void* v_new,
-           const void* pos, const void* page_tables, int max_pages,
-           void* out, int B, int KVH, int G, int D, int T, int block_t,
-           float scale, int dots, bool staged, void* stream) {
+           const void* pos, void* out, int B, int KVH, int G, int D, int T,
+           int block_t, float scale, int dots, bool staged, void* stream) {
   if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || D < 16 || D > kMaxD ||
       D % 16 != 0 || block_t < 1 || T % block_t != 0 ||
-      dots < flash_decode::kDotsF32 || dots > flash_decode::kDotsI8 ||
-      (page_tables != nullptr && (max_pages < 1 || T != max_pages * block_t)))
+      dots < flash_decode::kDotsF32 || dots > flash_decode::kDotsI8)
     return (int)cudaErrorInvalidValue;
   const auto fn =
       dots == flash_decode::kDotsI8
@@ -118,7 +97,6 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
      static_cast<const int8_t*>(v), static_cast<const float*>(ks),
      static_cast<const float*>(vs), static_cast<const float*>(k_new),
      static_cast<const float*>(v_new), static_cast<const int*>(pos),
-     static_cast<const int*>(page_tables), max_pages,
      static_cast<float*>(out), KVH, G, D, T, block_t, scale);
   return (int)cudaGetLastError();
 }
@@ -130,40 +108,14 @@ extern "C" int flash_decode_staged_launch(
     const void* vs, const void* k_new, const void* v_new, const void* pos,
     void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
     int dots, void* stream) {
-  return launch(q, k, v, ks, vs, k_new, v_new, pos, nullptr, 0, out, B, KVH,
-                G, D, T, block_t, scale, dots, true, stream);
+  return launch(q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
+                block_t, scale, dots, true, stream);
 }
 
 extern "C" int flash_decode_inline_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, void* out, int B, int KVH, int G, int D,
     int T, int block_t, float scale, int dots, void* stream) {
-  return launch(q, k, v, ks, vs, nullptr, nullptr, pos, nullptr, 0, out, B,
-                KVH, G, D, T, block_t, scale, dots, false, stream);
-}
-
-extern "C" int flash_decode_ab_launch(
-    const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* k_new, const void* v_new, const void* pos,
-    void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
-    int dots, int staged, void* stream) {
-  if (staged && (k_new == nullptr || v_new == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, ks, vs, k_new, v_new, pos, nullptr, 0, out, B, KVH,
-                G, D, T, block_t, scale, dots, staged != 0, stream);
-}
-
-// k, v: one layer of the pool (NP, KVH, page_size, D) int8; ks, vs (NP, KVH,
-// page_size) f32; page_tables (B, max_pages) int32, every id < NP (the
-// wrapper checks); the staged current token's k_new, v_new (B, KVH, D) f32.
-extern "C" int flash_decode_paged_launch(
-    const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* k_new, const void* v_new, const void* pos,
-    const void* page_tables, void* out, int B, int KVH, int G, int D,
-    int max_pages, int page_size, float scale, int dots, void* stream) {
-  if (k_new == nullptr || v_new == nullptr || page_tables == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, ks, vs, k_new, v_new, pos, page_tables, max_pages,
-                out, B, KVH, G, D, max_pages * page_size, page_size, scale,
-                dots, true, stream);
+  return launch(q, k, v, ks, vs, nullptr, nullptr, pos, out, B, KVH, G, D, T,
+                block_t, scale, dots, false, stream);
 }

@@ -289,13 +289,15 @@ def paged_decode_step_fused(params: fused.FusedStackedParams,
                torch.empty((Lk, B, KVH), dtype=torch.float32, device=dev),
                torch.empty((Lk, B, KVH, D), dtype=torch.int8, device=dev),
                torch.empty((Lk, B, KVH), dtype=torch.float32, device=dev))
+    # the page ids once per step (a read-back to the host), not per layer
+    AT._check_pages(page_tables, pool.num_pages)
     for l in range(Lk):
         q, k, v = fused._qkv(lp, l, x, cos, sin, config, (B, 1))
         kq, ksc = llama.quantize_kv(k[:, 0])
         vq, vsc = llama.quantize_kv(v[:, 0])
         for buf, val in zip(staging, (kq, ksc, vq, vsc)):
             buf[l] = val
-        attn = AT.flash_decode_q8_paged(
+        attn = AT._flash_decode_q8_paged(
             q[:, 0].reshape(B, KVH, kv_groups, D), pool.k, pool.v,
             pool.k_scale, pool.v_scale, kq.float() * ksc[..., None],
             vq.float() * vsc[..., None], l, page_tables, pos,

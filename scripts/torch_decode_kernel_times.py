@@ -4,20 +4,34 @@
 the repository on one card in one call.
 
     python3 scripts/torch_decode_kernel_times.py --root TREE [--build-only]
+                                                 [--out F] [--against F]
 
 imports the port package from ``TREE`` (its ``build/kernels`` too), builds
-its kernels, and prints one JSON line ``{"root": ..., "card": ..., "ms":
-{case: ms}}``: each case's median device time per launch (50 launches
-captured in a CUDA graph, 5 replays, caches rotated over enough layers to
-come from device memory). The cases are the staged and inline kernels at
-T 256, position 128; the all-batch kernel over a 4096-token cache at ragged
-positions, staged and inline; the paged kernel on 16- and 256-token pages
-over 2048 tokens per row; and the fused attention + o_proj kernel (f32).
-Compare trees in turns within one call (A, B, B, A): two calls may land on
-two cards.
+its decode-attention libraries, and prints one JSON line ``{"root",
+"card", "ms", "against"}``: each case's median device time per launch (50
+launches captured in a CUDA graph, 5 replays, caches rotated over enough
+layers to come from device memory). The cases:
+
+- the staged and inline row kernels at T 256, position 128;
+- the all-batch kernel (``flash_decode_q8_ab``, staged and inline) over a
+  4096-token cache at ragged positions, at the bench shape (T 256,
+  position 128) and over a 4096-token cache with every row at 128;
+- the paged kernel on 16- and 256-token pages over 2048 tokens per row at
+  ragged positions, and on 16-token pages at ~300 tokens per row in the
+  paged engine's 4096-token tables (256 pages a row);
+- the fused attention + o_proj kernel (f32).
+
+Every attention case runs in dots i8, f32 and bf16. The all-batch and paged
+kernels are launched through the tree's own entry (the public wrapper, and
+for the paged kernel the launcher without the page-id check, which reads the
+table back to the host). ``--out F`` writes each case's output digest
+(sha256 of its bytes, one launch on layer 1) to F; ``--against F``
+compares this run's digests with F's. Compare trees in turns within one
+call (A, B, B, A): two calls may land on two cards.
 """
 
 import argparse
+import hashlib
 import json
 import math
 import os
@@ -27,11 +41,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from chip_smoke import _card_line, _time_ms  # noqa: E402 (no port import)
 
+DOTS = ("i8", "f32", "bf16")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--out")
+    ap.add_argument("--against")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -40,14 +58,22 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         _build, attention as AT)
-    _build.build_all()
+    _build.build([n for n in ("flash_decode", "flash_decode_split",
+                              "attn_o") if n in _build.ENTRIES])
     if args.build_only:
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     B, KVH, G, D = 8, 32, 1, 128
-    ms = {}
+    ms, digests = {}, {}
+
+    def run(case, fn, iters=50):
+        out = fn(1)
+        torch.cuda.synchronize()
+        digests[case] = hashlib.sha256(
+            out.contiguous().cpu().numpy().tobytes()).hexdigest()
+        ms[case] = _time_ms(torch, fn, iters)
 
     def cache(Lk, rows, T):
         shape = (Lk, rows, KVH, T)
@@ -58,44 +84,67 @@ def main() -> int:
                 torch.rand(shape, generator=gen, device=dev) * 0.02,
                 torch.rand(shape, generator=gen, device=dev) * 0.02)
 
+    def layers(T):
+        return max(2, math.ceil(200e6 / (B * KVH * T * (2 * D + 8))))
+
     q = torch.randn((B, KVH, G, D), generator=gen, device=dev)
     kn = torch.randn((B, KVH, D), generator=gen, device=dev)
     vn = torch.randn((B, KVH, D), generator=gen, device=dev)
-    # row kernels at the bench shape, all-batch over a ragged 4096 cache
-    for T, pos, bt, entries in (
-            (256, [128] * 8, 256, (("staged", "flash_decode_staged_launch",
-                                    ()), ("inline",
-                                          "flash_decode_inline_launch", ()))),
-            (4096, [0, 700, 1300, 1900, 2300, 2700, 3400, 4095], 128,
-             (("ab staged", "flash_decode_ab_launch", (1,)),
-              ("ab inline", "flash_decode_ab_launch", (0,))))):
-        Lk = max(2, math.ceil(200e6 / (B * KVH * T * (2 * D + 8))))
+    # the row kernels at the bench shape
+    T = 256
+    Lk = layers(T)
+    k, v, ks, vs = cache(Lk, B, T)
+    p = torch.full((B,), 128, dtype=torch.int32, device=dev)
+    for name, entry, news in (("staged", "flash_decode_staged_launch",
+                               (kn, vn)),
+                              ("inline", "flash_decode_inline_launch",
+                               (None, None))):
+        for dots in DOTS:
+            run(f"{name} T={T} {dots}", lambda i: AT._launch_decode(
+                entry, q, k, v, ks, vs, *news, i % Lk, p, T, dots))
+    del k, v, ks, vs
+    # the all-batch kernel: ragged over 4096, the bench shape, and 4096
+    # with every row at 128
+    for T, pos, label in (
+            (4096, [0, 700, 1300, 1900, 2300, 2700, 3400, 4095], ""),
+            (256, [128] * 8, " pos 128"), (4096, [128] * 8, " pos 128")):
+        Lk = layers(T)
         k, v, ks, vs = cache(Lk, B, T)
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
-        for name, entry, flags in entries:
-            for dots in ("i8", "f32"):
-                news = ((None, None) if entry == "flash_decode_inline_launch"
-                        or flags == (0,) else (kn, vn))
-                ms[f"{name} T={T} {dots}"] = _time_ms(
-                    torch, lambda i: AT._launch_decode(
-                        entry, q, k, v, ks, vs, *news, i % Lk, p, bt, dots,
-                        *flags), 50)
+        for staged in (True, False):
+            for dots in DOTS:
+                run(f"ab {'staged' if staged else 'inline'} T={T}{label} "
+                    f"{dots}", lambda i: AT.flash_decode_q8_ab(
+                        q, k, v, ks, vs, kn, vn, i % Lk, p, staged=staged,
+                        dots=dots))
         del k, v, ks, vs
-    # paged: a permuted table over 2048 tokens per row
-    pos = [0, 300, 777, 1024, 1500, 1801, 2047, 2048]
-    p = torch.tensor(pos, dtype=torch.int32, device=dev)
-    for P in (16, 256):
-        max_pages = 2048 // P
-        NP = B * max_pages + 8
+    # paged: permuted tables over 2048 tokens a row, and the paged engine's
+    # 4096-token tables at ~300 tokens a row
+    for P, ctx, pos, label in (
+            (16, 2048, [0, 300, 777, 1024, 1500, 1801, 2047, 2048], ""),
+            (256, 2048, [0, 300, 777, 1024, 1500, 1801, 2047, 2048], ""),
+            (16, 4096, [272, 283, 290, 297, 301, 306, 311, 318],
+             " ctx 4096 pos ~300")):
+        max_pages = ctx // P
+        live_pages = -(-max(pos) // P)
+        NP = B * live_pages + 8
         k, v, ks, vs = cache(2, NP, P)
         perm = torch.randperm(NP, generator=torch.Generator().manual_seed(P))
-        tables = perm[:B * max_pages].reshape(B, max_pages).to(
-            device=dev, dtype=torch.int32)
-        for dots in ("i8", "f32"):
-            ms[f"paged page={P} {dots}"] = _time_ms(
-                torch, lambda i: AT._launch_decode(
-                    "flash_decode_paged_launch", q, k, v, ks, vs, kn, vn,
-                    i % 2, p, P, dots, page_tables=tables), 50)
+        tables = torch.zeros((B, max_pages), dtype=torch.int32)
+        tables[:, :live_pages] = perm[:B * live_pages].reshape(B, live_pages)
+        tables = tables.to(dev)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for dots in DOTS:
+            if hasattr(AT, "_flash_decode_q8_paged"):
+                def fn(i):
+                    return AT._flash_decode_q8_paged(
+                        q, k, v, ks, vs, kn, vn, i % 2, tables, p, dots=dots)
+            else:
+                def fn(i):
+                    return AT._launch_decode(
+                        "flash_decode_paged_launch", q, k, v, ks, vs, kn, vn,
+                        i % 2, p, P, dots, page_tables=tables)
+            run(f"paged page={P}{label} {dots}", fn)
         del k, v, ks, vs
     # attention + o_proj, f32 dots, staged and inline, T 256 at 128
     T, h, rank, Lk = 256, 4096, 128, 8
@@ -111,13 +160,23 @@ def main() -> int:
                        dtype=torch.int8, device=dev),
          torch.rand((Lk, h, 1), generator=gen, device=dev) * 1e-3)
     for staged in (True, False):
-        ms[f"attn_o {'staged' if staged else 'inline'}"] = _time_ms(
-            torch, lambda i: AT._launch_attn_o(
+        run(f"attn_o {'staged' if staged else 'inline'}",
+            lambda i: AT._launch_attn_o(
                 q, k, v, ks, vs, kn, vn, i % Lk, p, *o, 4, rank, staged,
-                256), 50)
-    print(json.dumps({"root": args.root, "card": _card_line(), "ms": ms}),
-          flush=True)
-    return 0
+                256)[0])
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(digests, f)
+    against = None
+    if args.against:
+        with open(args.against) as f:
+            ref = json.load(f)
+        against = {c: ref.get(c) == d for c, d in digests.items()}
+        print(f"against {args.against}: {sum(against.values())} of "
+              f"{len(against)} outputs equal bit for bit", flush=True)
+    print(json.dumps({"root": args.root, "card": _card_line(), "ms": ms,
+                      "against": against}), flush=True)
+    return 0 if against is None or all(against.values()) else 1
 
 
 if __name__ == "__main__":

@@ -1037,6 +1037,135 @@ def test_paged_kernel_rules(dev):
         _attn_close(out.cpu(), ref, dots)
 
 
+def _pool_of(cache, P):
+    """A contiguous (L, B, KVH, T, D[...]) cache as a pool of P-token pages
+    (L, B * T / P, KVH, P[, D]) whose row b holds pages b * T / P ... in
+    order: the identity page tables."""
+    L, B, KVH, T = cache.shape[:4]
+    n = T // P
+    return (cache.reshape(L, B, KVH, n, P, *cache.shape[4:])
+            .transpose(2, 3).reshape(L, B * n, KVH, P, *cache.shape[4:])
+            .contiguous())
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("P", [1, 16, 320, 512])
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 64), (7, 32)])
+def test_paged_split_equals_staged_kernel(dev, dots, P, G, D):
+    # identity tables with pages of the staged kernel's block: the
+    # block-parallel kernel computes the staged kernel's walk bit for bit.
+    # At pages of 1 and 16 tokens the tables hold 2048 tokens, so the last
+    # rows run several chunks, several windows and a combine over several
+    # stages (A, B and C items, not whole streams)
+    rng = np.random.default_rng(1200 + P + G)
+    B, KVH = 6, 2
+    max_pages = 2048 // P if P <= 16 else 2
+    T = P * max_pages
+    if P <= 16:
+        plan = AT._decode_split_plan(B, KVH, G, D, T, P, 132)
+        assert T - 1 > max(AT._SPLIT_CHUNK, plan["whole_tokens"])
+        assert -(-(T - 1) // P) > 2 * plan["nbw"]
+        # the combine reads a stream's blocks in stages of
+        # _SPLIT_WHOLE_BYTES / 4 words
+        assert plan["nblk"] * (G * D + 4 * G) > AT._SPLIT_WHOLE_BYTES // 2
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, T)]
+    q, k, v, ks, vs, kn, vn = args
+    pool = [_pool_of(t, P) for t in (k, v, ks, vs)]
+    tables = torch.arange(B * max_pages, dtype=torch.int32,
+                          device=dev).reshape(B, max_pages)
+    pos = torch.tensor([0, 1, P, P + 1, T - 1, T], dtype=torch.int32,
+                       device=dev)
+    out = AT.flash_decode_q8_paged(q, *pool, kn, vn, 1, tables, pos,
+                                   dots=dots)
+    row = AT.flash_decode_q8_staged(*args, 1, pos, block_t=P, dots=dots)
+    assert torch.equal(out, row)
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("T", [100, 256, 512, 320, 2000])
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 64), (7, 32)])
+def test_ab_split_equals_row_kernels(dev, dots, T, G, D):
+    # the all-batch kernel equals the staged and inline row kernels walking
+    # the same blocks (_ab_blocks: 128-token blocks, or one block of the
+    # whole T when T % 128 != 0, here up to 2000 tokens)
+    rng = np.random.default_rng(1300 + T + G)
+    B, KVH = 6, 2
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, T)]
+    bt = AT._ab_blocks(B, KVH, D, T, 64)[1]
+    for staged in (True, False):
+        pos = torch.tensor([0, 1, bt - 1, bt, T - 1, T if staged else T - 1],
+                           dtype=torch.int32, device=dev)
+        out = AT.flash_decode_q8_ab(*args, 1, pos, staged=staged, dots=dots)
+        row = (AT.flash_decode_q8_staged(*args, 1, pos, block_t=bt,
+                                         dots=dots) if staged else
+               AT.flash_decode_q8(*args[:5], 1, pos, block_t=bt, dots=dots))
+        assert torch.equal(out, row), staged
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+def test_split_over_128_rows_equals_row_kernels(dev, dots):
+    # the kernel takes its rows in tiles of 128: 260 rows (three tiles) at
+    # random positions, all-batch (128-token blocks, staged and inline) and
+    # paged (16-token pages, identity tables), each equal to the row
+    # kernels' walk bit for bit
+    rng = np.random.default_rng(1500)
+    B, KVH, G, D, T, P = 260, 2, 2, 64, 512, 16
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, T)]
+    pos = torch.from_numpy(rng.integers(0, T, size=B).astype(np.int32))
+    pos[:4] = torch.tensor([0, 1, T - 1, 200], dtype=torch.int32)
+    pos = pos.to(dev)
+    for staged in (True, False):
+        out = AT.flash_decode_q8_ab(*args, 1, pos, staged=staged, dots=dots)
+        row = (AT.flash_decode_q8_staged(*args, 1, pos, block_t=128,
+                                         dots=dots) if staged else
+               AT.flash_decode_q8(*args[:5], 1, pos, block_t=128, dots=dots))
+        assert torch.equal(out, row), staged
+    pool = [_pool_of(t, P) for t in args[1:5]]
+    tables = torch.arange(B * (T // P), dtype=torch.int32,
+                          device=dev).reshape(B, T // P)
+    out = AT.flash_decode_q8_paged(args[0], *pool, *args[5:], 1, tables, pos,
+                                   dots=dots)
+    row = AT.flash_decode_q8_staged(*args, 1, pos, block_t=P, dots=dots)
+    assert torch.equal(out, row)
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+def test_split_graph_replay_equals_eager(dev, dots):
+    # the paged and all-batch launches read nothing back to the host: each
+    # captures into a CUDA graph, and a replay gives the eager bits
+    rng = np.random.default_rng(1400)
+    B, KVH, G, D, P, max_pages = 4, 2, 2, 64, 16, 8
+    args, tables = _paged_inputs(rng, 2, B * max_pages + 2, KVH, P, G, D, B,
+                                 max_pages)
+    args, tables = [a.to(dev) for a in args], tables.to(dev)
+    pos = torch.tensor([0, 17, 100, 128], dtype=torch.int32, device=dev)
+    ab_args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, 512)]
+    ab_pos = torch.tensor([0, 129, 300, 511], dtype=torch.int32, device=dev)
+
+    def run():
+        return (AT._flash_decode_q8_paged(*args, 1, tables, pos, dots=dots),
+                AT.flash_decode_q8_ab(*ab_args, 1, ab_pos, staged=True,
+                                      dots=dots),
+                AT.flash_decode_q8_ab(*ab_args, 0, ab_pos, staged=False,
+                                      dots=dots))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for out in captured:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, ref in zip(captured, eager):
+        assert torch.equal(got, ref)
+
+
 def test_paged_engine_on_card_counts_launches(dev):
     # a tiny paged engine on the card: flash prefill and the paged decode
     # kernel per layer, exact counts, and the same greedy tokens as its
