@@ -53,7 +53,10 @@ caught):
    override at M 8; xr within rtol 1e-5 of the plain thin dot, the output
    on the kernel's own xr, a second launch bit-equal), the whole-MLP kernel and
    the attention + o_proj kernel (staged and inline; the flipped int8 codes
-   of their inner requantization counted against the plain version's); the
+   of their inner requantization counted against the plain version's; each
+   with its plan, a second launch bit-equal, and beside the unfused
+   yardstick timed in the same run: row 6's gate/up plus down, and the row
+   decode kernel in f32 plus row 6's o_proj); the
    decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
    persistent launch on o and down at M 8 (rowdot's persistent grid) and
    512 (the tile path), bit-equal to kernel 1 and timed beside it; ``bf16_matmul_stacked`` (TMA + wgmma, split-K at
@@ -1487,9 +1490,10 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
     y = K.quantized_matmul_w4a8_mlp_stacked(x, *mlp_args(1))
     parts = K._mlp_plain_parts(x, *mlp_args(1))
     xq, sx = K.quantize_activations_int8(x)
-    _, scratch = K._launch_mlp(xq, sx, xr, gu["packed"], gu["scales"], 1,
-                               *mlp_args(1)[4:])
+    y2, scratch = K._launch_mlp(xq, sx, xr, gu["packed"], gu["scales"], 1,
+                                *mlp_args(1)[4:])
     torch.cuda.synchronize()
+    same = bool(torch.equal(y, y2))
     flips = int((scratch["m8"] != parts["m8"]).sum())
     rel = _rel(torch, y, parts["out"])
     err = float((y - parts["out"]).abs().max())
@@ -1500,23 +1504,46 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
     plain_ms = _time_ms(
         torch, lambda i: K.quantized_matmul_w4a8_mlp_stacked_plain(
             x, *mlp_args(i % Lk)), 2, reps=3)
+    # the unfused yardstick, same weights: row 6's gate/up and down (the
+    # L-fused kernel at M 8) on the plain version's m, its codes and xrd
+    mq, sm = K.quantize_activations_int8(parts["m"])
+    xrd = K.thin_xr(parts["m"], dn["R"][1], dn["Rs"][1])
+    gu_ms = _time_ms(torch, lambda i: K._launch_l(
+        xq, sx, gu["packed"], gu["scales"], i % Lk, xr, gu["L"], gu["Ls"], 4,
+        rank, (im, im)), 20)
+    dn_ms = _time_ms(torch, lambda i: K._launch_l(
+        mq, sm, dn["packed"], dn["scales"], i % Lk, xrd, dn["L"], dn["Ls"],
+        4, rank, (h,)), 20)
+    gu_st, dn_st = K._mlp_plan(M, h, im, rank, 4)
+    grid = K._fused_grid("w4a8_mlp_grid", dev, M, 4)
+    plan = (f"{grid} CTAs x {K._MLP_WARPS} warps; gate/up "
+            f"{gu_st['groups']} groups of 16 gate + 16 up rows x "
+            f"({gu_st['nk']} code + {gu_st['nl']} L slabs), down "
+            f"{dn_st['groups']} groups of 32 rows x ({dn_st['nk']} + "
+            f"{dn_st['nl']}), {gu_st['mtiles']} tile(s) of {gu_st['MT']} "
+            f"rows")
     nbytes = (M * h + M * 4 + M * 2 * rank * 4 + layer_bytes
               + (2 * im + h) * 8 + rank * 4 + 8 + M * h * 4)
     ops = _ops_int8_units(i8=2 * M * 3 * im * h,
                           bf16=2 * M * (2 * im + h) * rank + 2 * M * rank * im)
     bound, by = _bound_ms(nbytes, ops)
-    print(f"w4a8_mlp_stacked M={M} h={h} im={im} rank {rank} 4-bit: "
-          f"rel-Frobenius {rel:.3e} (bound {KERN_REL:g}, max diff {err:.3e}),"
-          f" {flips} of {M * im} int8 codes of m differ from the plain "
-          f"version's; kernel {ms:.4f} ms (cooperative launch), plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-          f"{bound / ms:.1%} of bound)", flush=True)
-    if not (rel <= KERN_REL and _same_argmax(torch, y, parts["out"])):
-        raise AssertionError("w4a8_mlp_stacked disagrees with plain")
+    print(f"w4a8_mlp_stacked M={M} h={h} im={im} rank {rank} 4-bit ({plan}):"
+          f" rel-Frobenius {rel:.3e} (bound {KERN_REL:g}, max diff "
+          f"{err:.3e}), {flips} of {M * im} int8 codes of m differ from the "
+          f"plain version's, second launch bit-equal {same}; kernel "
+          f"{ms:.4f} ms (cooperative launch), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound); unfused "
+          f"yardstick (row 6 at M {M}) gate/up {gu_ms:.4f} + down "
+          f"{dn_ms:.4f} = {gu_ms + dn_ms:.4f} ms ({ms / (gu_ms + dn_ms):.2f}x"
+          f" of it)", flush=True)
+    if not (rel <= KERN_REL and _same_argmax(torch, y, parts["out"])
+            and same):
+        raise AssertionError("w4a8_mlp_stacked disagrees with plain, or a "
+                             "second launch with the first")
     record["quantized_matmul_w4a8_mlp_stacked"].update(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
         bound_by=by)
-    del gu, dn, scratch, parts
+    del gu, dn, scratch, parts, mq, xrd
     torch.cuda.empty_cache()
 
     # --- D: attention + o_proj, Llama-2-7B heads, batch 8, a 256-token
@@ -1535,15 +1562,17 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
     o = _lowrank_weights(torch, dev, gen, Lk, h, qdim, 1)
     ow = (o["packed"], o["scales"], o["R"], o["Rs"], o["L"], o["Ls"])
     pos = torch.full((B,), 128, dtype=torch.int32, device=dev)
+    (o_st,) = AT._attn_o_plan(B, qdim, h, rank, 4)
     for staged in (True, False):
         cache = (q, k, v, ks, vs, kn, vn)
         y = AT.flash_decode_attn_o(*cache, 1, pos, *ow, 4, rank,
                                    staged=staged)
         parts = AT._attn_o_plain_parts(*cache, 1, pos, *ow, 4, rank, staged,
                                        256)
-        _, scratch = AT._launch_attn_o(*cache, 1, pos, *ow, 4, rank, staged,
-                                       256)
+        y2, scratch = AT._launch_attn_o(*cache, 1, pos, *ow, 4, rank, staged,
+                                        256)
         torch.cuda.synchronize()
+        same = bool(torch.equal(y, y2))
         flips = int((scratch["xq8"] != parts["xq8"]).sum())
         rel = _rel(torch, y, parts["out"])
         err = float((y - parts["out"]).abs().max())
@@ -1553,6 +1582,23 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
         plain_ms = _time_ms(torch, lambda i: AT.flash_decode_attn_o_plain(
             q, k, v, ks, vs, kn, vn, i % Lk, pos, *ow, 4, rank, staged),
             2, reps=3)
+        # the unfused yardstick, same operands: row 11 (staged) or row 10
+        # (inline) with f32 dots, then row 6's o_proj at M B on the plain
+        # version's attention, its codes and xro
+        entry = ("flash_decode_staged_launch" if staged
+                 else "flash_decode_inline_launch")
+        attn_ms = _time_ms(torch, lambda i: AT._launch_decode(
+            entry, q, k, v, ks, vs, kn if staged else None,
+            vn if staged else None, i % Lk, pos, 256, "f32"), 20)
+        aq, asx = K.quantize_activations_int8(parts["attn"])
+        xro = K.thin_xr(parts["attn"], o["R"][1], o["Rs"][1])
+        o_ms = _time_ms(torch, lambda i: K._launch_l(
+            aq, asx, o["packed"], o["scales"], i % Lk, xro, o["L"], o["Ls"],
+            4, rank, (h,)), 20)
+        grid = K._fused_grid("attn_o_grid", dev, B, 4, int(staged))
+        plan = (f"{grid} CTAs x {K._ATTN_O_WARPS} warps; o_proj "
+                f"{o_st['groups']} groups of 32 rows x ({o_st['nk']} code + "
+                f"{o_st['nl']} L slabs), a tile of {o_st['MT']} rows")
         live = B * (128 if staged else 129)
         nbytes = (KVH * live * (2 * D + 8) + B * qdim * 4 + B * 4
                   + (2 * B * qdim * 4 if staged else 0) + h * qdim // 2
@@ -1564,14 +1610,19 @@ def _phase_kernels_lowrank(torch, dev, gen, record):
         bound, by = _bound_ms(nbytes, ops)
         print(f"flash_decode_attn_o {'staged' if staged else 'inline'} B={B}"
               f" KVH={KVH} D={D} T={T} pos 128, o_proj {h} x {qdim} rank "
-              f"{rank} 4-bit: rel-Frobenius {rel:.3e} (bound {KERN_REL:g}, "
-              f"max diff {err:.3e}), {flips} of {B * qdim} int8 codes of the "
-              f"attention differ from the plain version's; kernel "
-              f"{ms:.4f} ms (cooperative launch), plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of bound)",
-              flush=True)
-        if not (rel <= KERN_REL and _same_argmax(torch, y, parts["out"])):
-            raise AssertionError("flash_decode_attn_o disagrees with plain")
+              f"{rank} 4-bit ({plan}): rel-Frobenius {rel:.3e} (bound "
+              f"{KERN_REL:g}, max diff {err:.3e}), {flips} of {B * qdim} int8"
+              f" codes of the attention differ from the plain version's, "
+              f"second launch bit-equal {same}; kernel {ms:.4f} ms "
+              f"(cooperative launch), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound); unfused "
+              f"yardstick: row {11 if staged else 10} f32 {attn_ms:.4f} + row "
+              f"6 o_proj {o_ms:.4f} = {attn_ms + o_ms:.4f} ms "
+              f"({ms / (attn_ms + o_ms):.2f}x of it)", flush=True)
+        if not (rel <= KERN_REL and _same_argmax(torch, y, parts["out"])
+                and same):
+            raise AssertionError("flash_decode_attn_o disagrees with plain, "
+                                 "or a second launch with the first")
         rec = record["flash_decode_attn_o"]
         rec["max_abs_err"] = max(rec["max_abs_err"] or 0.0, err)
         if staged:
@@ -2884,7 +2935,7 @@ def phase_options(torch, dev, record):
             ("c inline", "l", dict(staged_kv=False, attn_dots="f32",
                                    mlp_kernel=True, attn_o_kernel=True),
              mega)]
-    counts = {}
+    counts, step_dev = {}, {}
     for run, fk, kw, per_step in runs:
         params = sets[fk]
         ref_kw = dict(staged_kv=kw["staged_kv"], attn_dots=kw["attn_dots"])
@@ -2931,12 +2982,17 @@ def phase_options(torch, dev, record):
         dev_ms = _time_ms(torch, lambda i: fused.decode_step_fused(
             params, tok, pos, crun, config, **kw), 1, reps=5)
         _STEP_MS[f"phase 8 ({run}), fused {fk!r} step {kw}"] = (med, dev_ms)
+        step_dev[run] = dev_ms
+        beside = (f"; the 'l' step (a) {step_dev['a']:.3f} ms, "
+                  f"{dev_ms / step_dev['a']:.3f}x of it"
+                  if run.startswith("c") else "")
         print(f"options ({run}): {steps} steps from position {P0 + 1}, exact "
               f"launches per step {dict(zip(names, per_step))}; median "
               f"{med:.3f} ms/step eager (min {min(times):.3f}, max "
               f"{max(times):.3f}), {1e3 * B / med:.1f} tok/s; device time of "
               f"one step as a CUDA graph {dev_ms:.3f} ms (card idle "
-              f"{1 - dev_ms / med:.1%} of the eager step)", flush=True)
+              f"{1 - dev_ms / med:.1%} of the eager step){beside}",
+              flush=True)
         del cx, cplain, crun
     # each kernel's main path: A on (a), B on (b), C and D on both (c)
     n = 1 + steps

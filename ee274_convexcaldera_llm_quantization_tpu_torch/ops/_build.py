@@ -114,15 +114,21 @@ ENTRIES = {
         # tensor-core xr of the LR-fused tile path
         "w4a8_lr_xr_launch": [_P] * 7 + [_I] * 7 + [_P],
         # xq, sx, xr_gu, gu packed, scales, L, L scales, global scales, dn
-        # packed, scales, R, R scales, L, L scales, scratch m, amax, m8, xrd,
-        # out, M, h, im, bits, layer, rank, stream
-        "w4a8_mlp_stacked_launch": [_P] * 19 + [_I] * 6 + [_P],
+        # packed, scales, R, R scales, L, L scales, scratch m, m8, amax,
+        # xpart, xrd, split partials, split counters, out, M, h, im, bits,
+        # layer, rank, CTAs (0: the cooperative grid), stream
+        "w4a8_mlp_stacked_launch": [_P] * 22 + [_I] * 7 + [_P],
+        # M, bits, int* (the cooperative grid's CTAs)
+        "w4a8_mlp_grid": [_I, _I, _P],
     },
     "attn_o": {
         # q, k, v, ks, vs, k_new, v_new, pos, o packed, scales, R, R scales,
-        # L, L scales, scratch attn, amax, xq8, xro, out, B, KVH, D, T,
-        # block_t, scale, staged, h, bits, layer, rank, stream
-        "attn_o_launch": [_P] * 19 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+        # L, L scales, scratch attn, amax, xpart, xq8, xro, split partials,
+        # split counters, out, B, KVH, D, T, block_t, scale, staged, h, bits,
+        # layer, rank, CTAs (0: the cooperative grid), stream
+        "attn_o_launch": [_P] * 22 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
+        # B, bits, staged, int* (the cooperative grid's CTAs)
+        "attn_o_grid": [_I, _I, _I, _P],
     },
     # the whole-step megakernel (megastep.cuh), one library per bit width
     "megastep": _MEGASTEP,

@@ -655,18 +655,21 @@ def flash_decode_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
 
 def _launch_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos, o_packed,
                    o_scales, o_R, o_R_scale, o_L, o_L_scale, num_bits: int,
-                   rank: int, staged: bool, bt: int):
+                   rank: int, staged: bool, bt: int, ctas: int = 0):
     """Check the operands and launch ``attn_o_launch`` on layer ``layer``
-    (blocks of ``bt`` tokens); returns the output and the kernel's scratch
-    (the flat attention ``attn`` and its int8 codes ``xq8`` among it)."""
+    (blocks of ``bt`` tokens, ``ctas`` CTAs; 0: the cooperative grid);
+    returns the output and the kernel's scratch (the flat attention
+    ``attn`` and its int8 codes ``xq8`` among it)."""
     B, KVH, _, D = q.shape
     T = k.shape[3]
     Lk, h = o_packed.shape[:2]
     qdim = KVH * D
     f = K._pack_factor(num_bits)
-    if D > 128 or D % 16 or num_bits not in (2, 4, 8) or qdim % (16 * f):
-        raise ValueError(f"the CUDA kernel takes D <= 128 with D % 16 == 0 "
-                         f"and 2/4/8-bit codes; got D={D}, {num_bits}-bit")
+    if (D != 128 or num_bits not in (2, 4, 8) or qdim % (16 * f)
+            or rank % K._FKC or h % 32):
+        raise ValueError(f"the CUDA kernel takes D 128, 2/4/8-bit codes, "
+                         f"rank % 128 == 0 and h % 32 == 0; got D={D}, "
+                         f"{num_bits}-bit, rank {rank}, h {h}")
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError("the KV cache must be int8")
     if o_R.dtype != torch.int8 or o_L.dtype != torch.int8:
@@ -697,11 +700,17 @@ def _launch_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos, o_packed,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous and on one device")
     dev = q.device
+    (st,) = _attn_o_plan(B, qdim, h, rank, num_bits)
+    grid = K._fused_grid("attn_o_grid", dev, B, num_bits, int(staged))
+    grid = min(ctas, grid) if ctas else grid
     scratch = dict(
         attn=torch.empty((B, qdim), dtype=torch.float32, device=dev),
         amax=torch.empty((B * KVH,), dtype=torch.float32, device=dev),
+        xpart=torch.empty((B * KVH, rank), dtype=torch.float32, device=dev),
         xq8=torch.empty((B, qdim), dtype=torch.int8, device=dev),
-        xro=torch.empty((B, rank), dtype=torch.float32, device=dev))
+        xro=torch.empty((B, rank), dtype=torch.float32, device=dev),
+        pws=K._fused_pws(dev, grid * K._ATTN_O_WARPS, st["MT"]),
+        cnt=K._split_counters(dev, st["groups"]))
     out = torch.empty((B, h), dtype=torch.float32, device=dev)
     layer_kv = k[0].numel()
     layer_s = ksf[0].numel() * 4
@@ -712,11 +721,19 @@ def _launch_attn_o(q, k, v, ks, vs, k_new, v_new, layer: int, pos, o_packed,
     err = _build.library("attn_o").attn_o_launch(
         *ptrs, pos32.data_ptr(), o_packed.data_ptr(), o_s.data_ptr(),
         o_R.data_ptr(), oRs.data_ptr(), o_L.data_ptr(), oLs.data_ptr(),
-        *(scratch[n].data_ptr() for n in ("attn", "amax", "xq8", "xro")),
+        *(scratch[n].data_ptr() for n in ("attn", "amax", "xpart", "xq8",
+                                          "xro", "pws", "cnt")),
         out.data_ptr(), B, KVH, D, T, bt, _scale_f32(D), int(staged), h,
-        num_bits, layer, rank, _build.stream_ptr(dev))
+        num_bits, layer, rank, grid, _build.stream_ptr(dev))
     _build.check(err, "attn_o")
     return out, scratch
+
+
+def _attn_o_plan(B: int, qdim: int, h: int, rank: int, num_bits: int):
+    """The fused attention + o_proj kernel's one projection stage (the
+    o_proj, ``attn_o_launch``'s plan): groups of 32 rows, one tile of B
+    activation rows."""
+    return (K._fused_stage(qdim, h, rank, num_bits, B),)
 
 
 flash_decode_attn_o.launches = 0

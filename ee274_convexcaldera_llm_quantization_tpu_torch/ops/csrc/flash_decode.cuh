@@ -1,7 +1,7 @@
 // The flash-decode attention of one (b, kv-head) stream, as a device
 // function of a CTA of NT threads: csrc/flash_decode.cu's kernels run it
 // with NT = 128 on one stream per CTA, csrc/attn_o.cu's cooperative kernel
-// with NT = 256 on a loop of streams. See flash_decode.cu for what it
+// with NT = 128 on a loop of streams. See flash_decode.cu for what it
 // computes and how.
 #pragma once
 

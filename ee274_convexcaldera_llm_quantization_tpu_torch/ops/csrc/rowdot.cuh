@@ -236,13 +236,14 @@ inline cudaError_t launch(const int8_t* xq, const float* sx, const uint8_t* w,
   return cudaGetLastError();
 }
 
-// Grid size of a cooperative or persistent launch: at most the CTAs that
-// fit on the card at once (occupancy query x SMs, asked once per kernel,
-// device and shared memory size, so that launches captured in a CUDA graph
-// query nothing), and no more than the work's units.
+// Grid size of a cooperative or persistent launch: at most the CTAs (of
+// `threads` threads) that fit on the card at once (occupancy query x SMs,
+// asked once per kernel, device and shared memory size, so that launches
+// captured in a CUDA graph query nothing), and no more than the work's
+// units.
 template <typename Kernel>
 inline cudaError_t coop_grid(Kernel kernel, size_t smem, int units,
-                             int* grid) {
+                             int* grid, int threads = kThreads) {
   static std::mutex mu;
   static std::map<std::tuple<const void*, int, size_t>, int> caps;
   int dev = 0;
@@ -260,7 +261,7 @@ inline cudaError_t coop_grid(Kernel kernel, size_t smem, int units,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kThreads, smem);
+                                                          threads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     cap = per_sm * sms;

@@ -1,46 +1,47 @@
 // W4A8 matmuls with the CALDERA low-rank factors fused in, against one layer
-// of stacked weights. Three entries, each replacing one TPU kernel of
-// ee274_convexcaldera_llm_quantization_tpu/ops/kernels.py:
+// of stacked weights. Three TPU kernels of
+// ee274_convexcaldera_llm_quantization_tpu/ops/kernels.py are replaced here:
 //
-// - w4a8_l_stacked_launch: quantized_matmul_w4a8_l_stacked
-//   (_qmm_w4a8_l_stacked_kernel). The stacked W4A8 matmul of w4a8_stacked.cu
-//   plus the L half of the factors, for a fusion group of same-input
-//   projections (qkv, gate/up; o and down as groups of one); the thin
-//   xr = (bf16(x) @ bf16(R[l]).T) * Rs comes in from the caller.
-// - w4a8_lr_stacked_launch: quantized_matmul_w4a8_lr_stacked
-//   (_qmm_w4a8_lr_stacked_kernel). The same with xr computed in the kernel.
-//   The TPU kernel computes xr at grid step j == 0 and carries it through
-//   its sequential grid; blocks of a GPU share nothing, and recomputing xr
-//   in each of the ~400 CTAs would read R (1.5 MB for Llama-2-7B's qkv) and
-//   x once per CTA. So it is a cooperative launch of as many CTAs as fit on
-//   the card at once: phase 1 writes xr (M x n_proj * rank f32) to scratch,
-//   one warp per R row, then a grid-wide barrier, then phase 2 is the l
-//   kernel's tile body in a loop over the output row tiles. It runs only
-//   when asked for: the same function as two launches, w4a8_lr_xr_launch
-//   (section D: xr on the tensor cores) and then w4a8_l_tile_launch on its
-//   xr, was faster at every M measured.
-// - w4a8_mlp_stacked_launch: quantized_matmul_w4a8_mlp_stacked
-//   (_qmm_w4a8_mlp_stacked_kernel). down(silu(gate(x)) * up(x)) in one
-//   cooperative launch, three phases split by two grid barriers:
-//   1. each tile of rows n computes gate rows n and up rows im + n (W4A8 +
-//      L epilogue, global scales applied), m = (g * sigmoid(g)) * u to a
-//      global f32 scratch (M x im, L2-resident), and its per-row absmax of
-//      |m| into a partial buffer (one slot per tile: no atomics);
-//   2. every CTA reduces the partials to the row scales sm = max(amax,
+// - quantized_matmul_w4a8_l_stacked (_qmm_w4a8_l_stacked_kernel):
+//   w4a8_l_stacked_launch (section A, l_kernel, M <= 8) and
+//   w4a8_l_tile_launch (the tile path of w4a8_tile.cuh with its L epilogue).
+//   The stacked W4A8 matmul plus the L half of the factors, for a fusion
+//   group of same-input projections (qkv, gate/up; o and down as groups of
+//   one); the thin xr = (bf16(x) @ bf16(R[l]).T) * Rs comes from the caller.
+// - quantized_matmul_w4a8_lr_stacked (_qmm_w4a8_lr_stacked_kernel): the same
+//   with xr computed in the kernel: w4a8_lr_xr_launch (section D, xr on the
+//   tensor cores) and then w4a8_l_tile_launch; w4a8_lr_stacked_launch
+//   (section B, a cooperative launch: xr in phase 1, a grid barrier, the l
+//   kernel's tiles) only for a rank or K the tile path cannot hold.
+// - quantized_matmul_w4a8_mlp_stacked (_qmm_w4a8_mlp_stacked_kernel):
+//   w4a8_mlp_stacked_launch (section C), down(silu(gate(x)) * up(x)) in one
+//   cooperative launch of three phases split by two grid barriers, returned
+//   before down's global scale as on the TPU.
+//
+// Section C at decode's M (<= 32 rows a tile) is a skinny GEMM bound by
+// bytes: gate/up's and down's packed codes and L factors (~71 MB for a
+// Llama-2-7B MLP at 4 bits, 21.7 us at 3.35 TB/s). Its parts:
+//   1. gate/up on fused_proj.cuh: int8 mma.sync products of 16 gate rows
+//      and the same 16 up rows of the unchanged gu_packed per group, with
+//      their L dots as bf16 mma.sync on L slabs of the same weight stream;
+//      the warp that finishes a group computes m = silu(gate) * up, writes
+//      it (f32 scratch, L2-resident), the group's row absmax of |m| into a
+//      slot of its own, and the thin R dot of down folded in: the group's
+//      16 columns of m are a K chunk of xrd = bf16(m) @ bf16(dnR).T, whose
+//      partial sums for every R row (one bf16 mma per 16 R rows) go to the
+//      group's own slot. The R rows were prefetched into L2 at the start.
+//   2. every CTA reduces the absmax slots to the row scales sm = max(amax,
 //      1e-12) / 127; the grid requantizes m to int8 (round half to even,
-//      clip 127) and computes xrd = (bf16(m) @ bf16(dnR).T) * dnRs;
-//   3. the down projection, W4A8 on the int8 m with the L epilogue on xrd.
-//   The result is returned before down's global scale, as on the TPU.
-//
-// Bound on an H100: the weight bytes at decode's M (4-bit packed codes plus
-// the int8 L factors: 4096 x 12288 / 2 + 12288 x 128 bytes for qkv; ~137 MB
-// for a Llama-2-7B MLP), since M <= 32 rows make every phase a skinny GEMM.
-// Each packed weight byte is read once (rowdot.cuh's design), each L byte
-// once per row tile; the cooperative kernels keep xr, m and its int8 codes
-// in global scratch that stays in the 50 MB L2 rather than recomputing per
-// CTA. Sums are deterministic: integer sums are exact, the factor sums a
-// fixed order, and the absmax partials are reduced by every CTA in the
-// same order (max does not depend on it).
+//      clip 127) and sums each xrd output's group partials in a fixed order
+//      (a CTA an output column, its warps over the groups, then in order).
+//   3. down on the int8 m with its L slabs on xrd. Each warp's first down
+//      slabs were issued into its ring right after its last gate/up slab,
+//      so they load across both barriers.
+// Deterministic for a given grid: integer sums are exact, every f32 sum has
+// a fixed order, and no partial goes through an atomic. xrd's order differs
+// from the reference's (a sum of per-group partials), as does the L dots'
+// (the tensor cores'), so an int8 code of m may round the other way.
+#include "fused_proj.cuh"
 #include "lowrank.cuh"
 #include "w4a8_tile.cuh"
 
@@ -181,136 +182,262 @@ cudaError_t launch_lr(const float* x, const int8_t* xq, const float* sx,
 }
 
 // ---------------------------------------------------------------------------
-// C. The whole-MLP megakernel: cooperative, three phases.
+// C. The whole-MLP kernel: cooperative, three phases on fused_proj.cuh
 // ---------------------------------------------------------------------------
 
 struct MlpArgs {
-  const int8_t* xq;      // (M, h) int8
-  const float* sx;       // (M) f32
-  const float* xr_gu;    // (M, 2 * rank) f32
-  const uint8_t* gu_w;   // (2 * im, h / F) of this layer
-  const float* gu_s;     // (2 * im)
-  const int8_t* gu_L;    // (2 * im, rank)
-  const float* gu_Ls;    // (2 * im)
-  const float* gu_gs;    // (2): gate, up global scales
-  const uint8_t* dn_w;   // (h, im / F)
-  const float* dn_s;     // (h)
-  const int8_t* dn_R;    // (rank, im)
-  const float* dn_Rs;    // (rank)
-  const int8_t* dn_L;    // (h, rank)
-  const float* dn_Ls;    // (h)
-  float* mbuf;           // scratch (M, im) f32: m
-  float* amax_part;      // scratch (ceil(im / RPB), M) f32
-  int8_t* m8;            // scratch (M, im) int8
-  float* xrd;            // scratch (M, rank) f32
-  float* out;            // (M, h) f32
-  int M, h, im, rank, jc_gu, jc_dn;
+  const float* sx;     // (M) row scales of the int8 x
+  const float* gu_gs;  // (2): gate, up global scales of the layer
+  const int8_t* dn_R;  // (rank, im) of the layer
+  const float* dn_Rs;  // (rank)
+  float* mbuf;         // scratch (M, im) f32: m
+  int8_t* m8;          // scratch (M, im) int8
+  float* amax;         // scratch (G, MT) f32: each gate/up group's absmax
+  float* xpart;        // scratch (G, rank, MT) f32: each group's xrd sums
+  float* xrd;          // scratch (M, rank) f32
+  int4* pws;           // split-group partial slots: 32 MT int4 a warp
+  int* cnt;            // split-group counters, zero (and zero again after)
+  float* out;          // (M, h) f32
+  int M, h, im, rank;
 };
 
-template <int BITS, int CODE, int MT>
-__global__ void __launch_bounds__(kThreads) mlp_kernel(MlpArgs a) {
-  constexpr int RPB = Tile<MT>::kRowsPerBlock;
-  extern __shared__ int smem[];
-  __shared__ float g_s[RPB * MT];  // gate values, then |m|, of a tile
-  __shared__ float srow[128];      // the row scales sm of m
-  const int act_words = kCoopSmemBytes / 4;
-  float* xrw = reinterpret_cast<float*>(smem + act_words);
-  const int M = a.M, h = a.h, im = a.im, rank = a.rank;
-  const int mtiles = (M + MT - 1) / MT;
-  const int n1 = (im + RPB - 1) / RPB;
-  const Splits one{1 << 30, 1 << 30, 1 << 30};
+// Shared memory for a stage's xr windows (bf16): gate/up's two at 32 rows
+// and rank 128; larger ones are read from global memory.
+constexpr int kMlpWin = 16 * 1024;
+
+// Stage 0 (gate/up) and 1 (down) of pl; G = mtiles x im / 16 gate/up groups.
+template <int BITS, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_kernel(const __grid_constant__ MlpArgs a,
+               const __grid_constant__ fproj::Plan pl) {
+  constexpr int NF = MT / 8;
+  __shared__ float srow[128];           // the row scales of m
+  __shared__ float red[kWarps][MT];     // the xrd reduce's warp sums
+  __shared__ __align__(16) __nv_bfloat16 tsc[kWarps][MT * 16];  // bf16(m)
+  uint8_t* ring = hopper::smem_1k();
+  auto* wsm = reinterpret_cast<uint16_t*>(ring + kWarps * fproj::kWarpRing);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t = lane & 3, ra = mproj::smem_row(g8);
+  const int M = a.M, im = a.im, rank = a.rank;
+  const fproj::Stage& gu = pl.st[0];
+  const fproj::Stage& dn = pl.st[1];
+  const int groups = gu.groups;
+  fproj::Ring rg;
+  fproj::Stream q;
+  // the first gate/up slabs load while R goes into L2 for the fold
+  fproj::stream_start(pl, ring, rg, q);
+  fproj::prefetch_grid(a.dn_R, (size_t)rank * im);
   const float gs_gate = a.gu_gs[0], gs_up = a.gu_gs[1];
 
-  // phase 1: gate and up rows of a tile, m = silu(gate) * up, row absmax
-  for (int u = blockIdx.x; u < n1 * mtiles; u += gridDim.x) {
-    const int t = u % n1;
-    const int m0 = (u / n1) * MT;
-    const int mt = min(MT, M - m0);
-    const int* x32 = reinterpret_cast<const int*>(a.xq) + (size_t)m0 * (h / 4);
-    LFactor fg{a.xr_gu + (size_t)m0 * 2 * rank, 2 * rank, a.gu_L, a.gu_Ls,
-               rank, one};
-    lowrank::lr_tile<BITS, CODE, MT, false, false>(
-        x32, a.sx + m0, mt, h, a.gu_w, a.gu_s, im, a.jc_gu, t, fg, smem, xrw,
-        [&](int m, int, int rl, float v) {
-          g_s[rl * MT + m] = __fmul_rn(v, gs_gate);
-        });
-    LFactor fu{a.xr_gu + (size_t)m0 * 2 * rank + rank, 2 * rank,
-               a.gu_L + (size_t)im * rank, a.gu_Ls + im, rank, one};
-    lowrank::lr_tile<BITS, CODE, MT, false, false>(
-        x32, a.sx + m0, mt, h, a.gu_w + (size_t)im * (h / (8 / BITS)),
-        a.gu_s + im, im, a.jc_gu, t, fu, smem, xrw,
-        [&](int m, int n, int rl, float v) {
-          const float g = g_s[rl * MT + m];
-          const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
-          const float mv = __fmul_rn(__fmul_rn(g, sig), __fmul_rn(v, gs_up));
-          a.mbuf[(size_t)(m0 + m) * im + n] = mv;
-          g_s[rl * MT + m] = fabsf(mv);
-        });
-    __syncthreads();
-    if ((int)threadIdx.x < mt) {
-      float amax = 0.f;
-      for (int rl = 0; rl < RPB && t * RPB + rl < im; ++rl)
-        amax = fmaxf(amax, g_s[rl * MT + threadIdx.x]);
-      a.amax_part[(size_t)t * M + m0 + threadIdx.x] = amax;
+  // phase 1: gate/up groups (16 gate rows, the same up rows), m = silu(gate)
+  // * up, each group's row absmax of |m| and its part of xrd
+  fproj::run_stage<BITS, MT, MT == 8>(
+      pl, 0, q, rg, a.pws, a.cnt, wsm, kMlpWin,
+      [&](int G, int mt, int g, int (&acc)[2][NF][4],
+          float (&accl)[2][NF][4]) {
+        const int rows = M - mt * MT, c0 = 16 * g;
+        __nv_bfloat16* T = tsc[warp];
+        float amax[NF][2];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) amax[f][0] = amax[f][1] = 0.f;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int i = ra + 8 * hi;  // m column c0 + i: gate row, up row
+          const float gw = __ldg(gu.ws + c0 + i), gl = __ldg(gu.Ls + c0 + i);
+          const float uw = __ldg(gu.ws + gu.half + c0 + i);
+          const float ul = __ldg(gu.Ls + gu.half + c0 + i);
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int m = 8 * f + 2 * t + e, k = 2 * hi + e;
+              float mv = 0.f;
+              if (m < rows) {
+                const float sxm = __ldg(a.sx + mt * MT + m);
+                const float gv = __fmul_rn(
+                    fproj::finish(acc[0][f][k], accl[0][f][k], gw, sxm, gl),
+                    gs_gate);
+                const float uv =
+                    fproj::finish(acc[1][f][k], accl[1][f][k], uw, sxm, ul);
+                const float sig =
+                    __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gv)));
+                mv = __fmul_rn(__fmul_rn(gv, sig), __fmul_rn(uv, gs_up));
+                a.mbuf[(size_t)(mt * MT + m) * im + c0 + i] = mv;
+              }
+              amax[f][e] = fmaxf(amax[f][e], fabsf(mv));
+              T[m * 16 + i] = __float2bfloat16_rn(mv);
+            }
+        }
+        // the group's absmax of each row: over the lanes of one t
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = amax[f][e];
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+            if (g8 == 0) a.amax[(size_t)G * MT + 8 * f + 2 * t + e] = v;
+          }
+        __syncwarp();  // T
+        // the fold: xpart[G, j, m] = sum_i bf16(m[m, c0 + i]) R[j, c0 + i],
+        // i < 16, for every R row j (mma m16n8k16: A = R rows, k = the
+        // group's columns, lane t's logical k (2t, 2t+1 | 2t+8, 2t+9) =
+        // columns 4t + (0, 1 | 2, 3); B = bf16(m) from T)
+        unsigned b[NF][2];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          const uint2 v =
+              *reinterpret_cast<const uint2*>(T + (8 * f + g8) * 16 + 4 * t);
+          b[f][0] = v.x;
+          b[f][1] = v.y;
+        }
+        __syncwarp();  // T read before the next group's epilogue writes it
+        for (int j0 = 0; j0 < rank; j0 += 128) {
+          unsigned rw[8][2];
+#pragma unroll
+          for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              rw[jt][r] = __ldg(reinterpret_cast<const unsigned*>(
+                  a.dn_R + (size_t)(j0 + 16 * jt + g8 + 8 * r) * im + c0 +
+                  4 * t));
+#pragma unroll
+          for (int jt = 0; jt < 8; ++jt) {
+            const unsigned a0 = fproj::widen2<0>(rw[jt][0]);
+            const unsigned a2 = fproj::widen2<2>(rw[jt][0]);
+            const unsigned a1 = fproj::widen2<0>(rw[jt][1]);
+            const unsigned a3 = fproj::widen2<2>(rw[jt][1]);
+#pragma unroll
+            for (int f = 0; f < NF; ++f) {
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              fproj::mma_bf16(d, a0, a1, a2, a3, b[f][0], b[f][1]);
+              const int j = j0 + 16 * jt + g8, m = 8 * f + 2 * t;
+              float* dst = a.xpart + ((size_t)G * rank + j) * MT + m;
+              *reinterpret_cast<float2*>(dst) = make_float2(d[0], d[1]);
+              *reinterpret_cast<float2*>(dst + 8 * MT) =
+                  make_float2(d[2], d[3]);
+            }
+          }
+        }
+      });
+  lowrank::grid_sync();
+
+  // phase 2: the row scales of m (every CTA, for phase 3), its int8 codes,
+  // and xrd[m, j] = (sum over the groups in order of xpart) * Rs[j]
+  for (int m = warp; m < M; m += kWarps) {
+    const int mt = m / MT, mm = m - mt * MT;
+    float amax = 0.f;
+    for (int gi = lane; gi < groups; gi += 32)
+      amax = fmaxf(amax, __ldcg(a.amax + ((size_t)mt * groups + gi) * MT + mm));
+    amax = lowrank::warp_max_f(amax);
+    if (lane == 0) srow[m] = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  }
+  __syncthreads();
+  for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < (size_t)M * im;
+       i += (size_t)gridDim.x * kThreads)
+    a.m8[i] = fproj::code8(__ldcg(a.mbuf + i), srow[i / im]);
+  {
+    // item (mt, j) a CTA; warp w sums groups [w G / 8, (w + 1) G / 8), lane
+    // (gs, mm) every (32 / MT)-th of them from gs, then the lanes of one mm
+    // by a butterfly and the warps in order
+    constexpr int GS = 32 / MT;
+    const int mm = lane % MT, gs = lane / MT;
+    const int glo = fproj::range_lo(groups, warp, kWarps);
+    const int ghi = fproj::range_lo(groups, warp + 1, kWarps);
+    for (int item = blockIdx.x; item < gu.mtiles * rank; item += gridDim.x) {
+      const int mt = item / rank, j = item - mt * rank;
+      const float* src = a.xpart + (size_t)mt * groups * rank * MT +
+                         (size_t)j * MT + mm;
+      float s = 0.f;
+#pragma unroll 8
+      for (int gi = glo + gs; gi < ghi; gi += GS)
+        s = __fadd_rn(s, __ldcg(src + (size_t)gi * rank * MT));
+#pragma unroll
+      for (int off = MT; off < 32; off <<= 1)
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+      if (gs == 0) red[warp][mm] = s;
+      __syncthreads();
+      if (tid < MT && mt * MT + tid < M) {
+        float tot = 0.f;
+        for (int ww = 0; ww < kWarps; ++ww) tot = __fadd_rn(tot, red[ww][tid]);
+        a.xrd[(size_t)(mt * MT + tid) * rank + j] =
+            __fmul_rn(tot, __ldg(a.dn_Rs + j));
+      }
+      __syncthreads();
     }
   }
   lowrank::grid_sync();
 
-  // phase 2: row scales, int8 m, xrd = (bf16(m) @ bf16(dnR).T) * dnRs
-  for (int m = threadIdx.x; m < M; m += kThreads) {
-    float amax = 0.f;
-    for (int t = 0; t < n1; ++t)
-      amax = fmaxf(amax, __ldcg(a.amax_part + (size_t)t * M + m));
-    srow[m] = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
-  }
-  __syncthreads();
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
-       i < (size_t)M * im; i += (size_t)gridDim.x * kThreads) {
-    const float q = rintf(__fdiv_rn(__ldcg(a.mbuf + i), srow[i / im]));
-    a.m8[i] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
-  }
-  const int rgroups = (rank + kWarps - 1) / kWarps;
-  for (int u = blockIdx.x; u < rgroups * mtiles; u += gridDim.x) {
-    const int m0 = (u / rgroups) * MT;
-    const int j0 = (u % rgroups) * kWarps;
-    lowrank::xr_rows<MT, true>(a.mbuf + (size_t)m0 * im, min(MT, M - m0), im,
-                               a.dn_R + (size_t)j0 * im, a.dn_Rs + j0,
-                               min(kWarps, rank - j0),
-                               a.xrd + (size_t)m0 * rank + j0, rank,
-                               reinterpret_cast<float*>(smem), act_words);
-  }
-  lowrank::grid_sync();
-
-  // phase 3: down on the int8 m with the L epilogue on xrd
-  const int n3 = (h + RPB - 1) / RPB;
-  for (int u = blockIdx.x; u < n3 * mtiles; u += gridDim.x) {
-    const int m0 = (u / n3) * MT;
-    LFactor fd{a.xrd + (size_t)m0 * rank, rank, a.dn_L, a.dn_Ls, rank, one};
-    lowrank::lr_tile<BITS, CODE, MT, true, true>(
-        reinterpret_cast<const int*>(a.m8) + (size_t)m0 * (im / 4),
-        srow + m0, min(MT, M - m0), im, a.dn_w, a.dn_s, h, a.jc_dn, u % n3,
-        fd, smem, xrw, [&](int m, int n, int, float v) {
-          a.out[(size_t)(m0 + m) * h + n] = v;
-        });
-  }
+  // phase 3: down on the int8 m with the L slabs on xrd (its first slabs
+  // have been in flight since each warp's last gate/up slab)
+  fproj::run_stage<BITS, MT, MT == 8>(
+      pl, 1, q, rg, a.pws, a.cnt, wsm, kMlpWin,
+      [&](int, int mt, int g, int (&acc)[2][NF][4],
+          float (&accl)[2][NF][4]) {
+        const int rows = M - mt * MT;
+#pragma unroll
+        for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int n = 32 * g + 16 * tl + ra + 8 * hi;
+            const float w = __ldg(dn.ws + n), l = __ldg(dn.Ls + n);
+#pragma unroll
+            for (int f = 0; f < NF; ++f)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int m = 8 * f + 2 * t + e;
+                if (m < rows)
+                  a.out[(size_t)(mt * MT + m) * a.h + n] = fproj::finish(
+                      acc[tl][f][2 * hi + e], accl[tl][f][2 * hi + e], w,
+                      srow[mt * MT + m], l);
+              }
+          }
+      });
 }
 
-template <int BITS, int CODE, int MT>
-cudaError_t launch_mlp(MlpArgs a, cudaStream_t st) {
-  constexpr int F = 8 / BITS;
-  constexpr int RPB = Tile<MT>::kRowsPerBlock;
-  auto kernel = mlp_kernel<BITS, CODE, MT>;
-  a.jc_gu = pick_jc<F>(kCoopSmemBytes, MT, a.h);
-  a.jc_dn = pick_jc<F>(kCoopSmemBytes, MT, a.im);
-  const size_t smem = kCoopSmemBytes + (size_t)MT * a.rank * 4;
-  static const cudaError_t attr = lowrank::allow_smem(kernel, 200 * 1024);
-  if (attr != cudaSuccess) return attr;
+// The plan of a launch (ops/kernels.py::_mlp_plan mirrors it): gate/up
+// groups of 16 gate rows and the same up rows of gu_w, down groups of 32
+// rows; each of mtiles tiles of MT activation rows walks every group.
+template <int BITS, int MT>
+fproj::Plan mlp_plan(const int8_t* xq, const float* xr_gu,
+                     const uint8_t* gu_w, const float* gu_s,
+                     const int8_t* gu_L, const float* gu_Ls,
+                     const uint8_t* dn_w, const float* dn_s,
+                     const int8_t* dn_L, const float* dn_Ls,
+                     const MlpArgs& a) {
+  constexpr int F = 8 / BITS, KC = fproj::kKC;
   const int mtiles = (a.M + MT - 1) / MT;
-  const int units = ((a.im + RPB - 1) / RPB) * mtiles;
-  int grid = 0;
-  cudaError_t err = lowrank::coop_grid(kernel, smem, units, &grid);
+  fproj::Plan pl{};
+  fproj::Stage& s0 = pl.st[0];
+  s0 = {gu_w, gu_L, gu_s, gu_Ls, xq, xr_gu, a.h / F, (a.h / F + KC - 1) / KC,
+        a.rank / KC, a.im / 16, a.im, mtiles, a.M, a.h, 2 * a.rank, a.rank, 0};
+  fproj::Stage& s1 = pl.st[1];
+  s1 = {dn_w, dn_L, dn_s, dn_Ls, a.m8, a.xrd, a.im / F,
+        (a.im / F + KC - 1) / KC, a.rank / KC, a.h / 32, 0, mtiles, a.M,
+        a.im, a.rank, a.rank, 1};
+  pl.nst = 2;
+  return pl;
+}
+
+template <int BITS, int MT>
+cudaError_t launch_mlp(const fproj::Plan& pl, const MlpArgs& a, int ctas,
+                       cudaStream_t st, int* grid_only) {
+  auto kernel = mlp_kernel<BITS, MT>;
+  constexpr int smem = fproj::smem_bytes(kWarps, kMlpWin);
+  cudaError_t err = hopper::allow_smem<mlp_kernel<BITS, MT>>(smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {(void*)&a};
+  int grid = 0;
+  err = lowrank::coop_grid(kernel, smem, 1 << 30, &grid, kThreads);
+  if (err != cudaSuccess) return err;
+  if (grid_only != nullptr) {
+    *grid_only = grid;
+    return cudaSuccess;
+  }
+  if (ctas > 0 && ctas < grid) grid = ctas;
+  if (!fproj::fits32(pl, (long long)grid * kWarps))
+    return cudaErrorInvalidValue;
+  void* args[] = {(void*)&a, (void*)&pl};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
                                     dim3(kThreads), args, smem, st);
   return err != cudaSuccess ? err : cudaGetLastError();
@@ -726,55 +853,91 @@ extern "C" int w4a8_lr_xr_launch(const void* xb, const void* R,
 // L (layers, 2 im, rank), L scales (layers, 2 im), global scales (layers,
 // 2)); dn_* the down tensors (packed (layers, h, im / f), scales (layers,
 // h), R (layers, rank, im), R scales (layers, rank), L (layers, h, rank),
-// L scales (layers, h)); scratch m (M, im) f32, amax (ceil(im / tile), M)
-// f32 with tile = 32 rows when M <= 8 else 8, m8 (M, im) int8, xrd (M,
-// rank) f32; out (M, h) f32. M <= 128.
+// L scales (layers, h)); scratch m (M, im) f32, m8 (M, im) int8, amax (G,
+// MT) f32, xpart (G, rank, MT) f32, xrd (M, rank) f32, with MT = 8 when M
+// <= 8 else 32 and G = ceil(M / MT) im / 16; pws 2 x 2 x 2 x (MT / 8) x
+// 32 int4 per warp of the grid (8 a CTA: two split slots of i32 and f32
+// partials); cnt G zeroed ints (left zeroed);
+// out (M, h) f32. M <= 128, rank % 128 == 0, h % 32 == 0, im % 16 == 0.
+// ctas: the CTAs of the launch, at most w4a8_mlp_grid's (0: that many).
 extern "C" int w4a8_mlp_stacked_launch(
     const void* xq, const void* sx, const void* xr_gu, const void* gu_packed,
     const void* gu_scales, const void* gu_L, const void* gu_Ls,
     const void* gu_gs, const void* dn_packed, const void* dn_scales,
     const void* dn_R, const void* dn_Rs, const void* dn_L, const void* dn_Ls,
-    void* mbuf, void* amax_part, void* m8, void* xrd, void* out, int M, int h,
-    int im, int bits, int layer, int rank, void* stream) {
-  if (!valid_bits(bits) || M < 1 || M > 128 || rank < 1 ||
-      h % (16 * (8 / bits)) != 0 || im % (16 * (8 / bits)) != 0)
+    void* mbuf, void* m8, void* amax, void* xpart, void* xrd, void* pws,
+    void* cnt, void* out, int M, int h, int im, int bits, int layer,
+    int rank, int ctas, void* stream) {
+  if (!valid_bits(bits) || M < 1 || M > 128 || rank < 128 ||
+      rank % 128 != 0 || h % 32 != 0 || im % 16 != 0 ||
+      h % (16 * (8 / bits)) != 0 || im % (16 * (8 / bits)) != 0 || ctas < 0)
     return (int)cudaErrorInvalidValue;
   const int f = 8 / bits;
   const size_t l = layer;
   MlpArgs a{};
-  a.xq = static_cast<const int8_t*>(xq);
   a.sx = static_cast<const float*>(sx);
-  a.xr_gu = static_cast<const float*>(xr_gu);
-  a.gu_w = static_cast<const uint8_t*>(gu_packed) + l * 2 * im * (h / f);
-  a.gu_s = static_cast<const float*>(gu_scales) + l * 2 * im;
-  a.gu_L = static_cast<const int8_t*>(gu_L) + l * 2 * im * rank;
-  a.gu_Ls = static_cast<const float*>(gu_Ls) + l * 2 * im;
   a.gu_gs = static_cast<const float*>(gu_gs) + l * 2;
-  a.dn_w = static_cast<const uint8_t*>(dn_packed) + l * h * (im / f);
-  a.dn_s = static_cast<const float*>(dn_scales) + l * h;
   a.dn_R = static_cast<const int8_t*>(dn_R) + l * rank * im;
   a.dn_Rs = static_cast<const float*>(dn_Rs) + l * rank;
-  a.dn_L = static_cast<const int8_t*>(dn_L) + l * h * rank;
-  a.dn_Ls = static_cast<const float*>(dn_Ls) + l * h;
   a.mbuf = static_cast<float*>(mbuf);
-  a.amax_part = static_cast<float*>(amax_part);
   a.m8 = static_cast<int8_t*>(m8);
+  a.amax = static_cast<float*>(amax);
+  a.xpart = static_cast<float*>(xpart);
   a.xrd = static_cast<float*>(xrd);
+  a.pws = static_cast<int4*>(pws);
+  a.cnt = static_cast<int*>(cnt);
   a.out = static_cast<float*>(out);
   a.M = M;
   a.h = h;
   a.im = im;
   a.rank = rank;
+  const auto* x8 = static_cast<const int8_t*>(xq);
+  const auto* xr = static_cast<const float*>(xr_gu);
+  const auto* gw = static_cast<const uint8_t*>(gu_packed) + l * 2 * im * (h / f);
+  const auto* gs = static_cast<const float*>(gu_scales) + l * 2 * im;
+  const auto* gL = static_cast<const int8_t*>(gu_L) + l * 2 * im * rank;
+  const auto* gLs = static_cast<const float*>(gu_Ls) + l * 2 * im;
+  const auto* dw = static_cast<const uint8_t*>(dn_packed) + l * h * (im / f);
+  const auto* ds = static_cast<const float*>(dn_scales) + l * h;
+  const auto* dL = static_cast<const int8_t*>(dn_L) + l * h * rank;
+  const auto* dLs = static_cast<const float*>(dn_Ls) + l * h;
   auto st = static_cast<cudaStream_t>(stream);
+#define MLP_LAUNCH(B)                                                        \
+  (M <= 8 ? launch_mlp<B, 8>(mlp_plan<B, 8>(x8, xr, gw, gs, gL, gLs, dw, ds, \
+                                             dL, dLs, a),                    \
+                             a, ctas, st, nullptr)                           \
+          : launch_mlp<B, 32>(mlp_plan<B, 32>(x8, xr, gw, gs, gL, gLs, dw,   \
+                                               ds, dL, dLs, a),              \
+                              a, ctas, st, nullptr))
   cudaError_t err;
-#define MLP_LAUNCH(B, C) \
-  (M <= 8 ? launch_mlp<B, C, 8>(a, st) : launch_mlp<B, C, 32>(a, st))
   if (bits == 2)
-    err = MLP_LAUNCH(2, rowdot::kOffsetPacked);
+    err = MLP_LAUNCH(2);
   else if (bits == 4)
-    err = MLP_LAUNCH(4, rowdot::kOffsetPacked);
+    err = MLP_LAUNCH(4);
   else
-    err = MLP_LAUNCH(8, rowdot::kOffset8);
+    err = MLP_LAUNCH(8);
 #undef MLP_LAUNCH
+  return (int)err;
+}
+
+// The most CTAs a w4a8_mlp_stacked_launch of M rows at `bits` runs (the
+// cooperative grid: CTAs an SM x SMs), into *ctas.
+extern "C" int w4a8_mlp_grid(int M, int bits, void* ctas) {
+  if (!valid_bits(bits) || M < 1 || M > 128 || ctas == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int* out = static_cast<int*>(ctas);
+  const fproj::Plan pl{};
+  const MlpArgs a{};
+#define MLP_GRID(B)                                                       \
+  (M <= 8 ? launch_mlp<B, 8>(pl, a, 0, nullptr, out)                      \
+          : launch_mlp<B, 32>(pl, a, 0, nullptr, out))
+  cudaError_t err;
+  if (bits == 2)
+    err = MLP_GRID(2);
+  else if (bits == 4)
+    err = MLP_GRID(4);
+  else
+    err = MLP_GRID(8);
+#undef MLP_GRID
   return (int)err;
 }

@@ -1231,6 +1231,10 @@ def quantized_matmul_w4a8_mlp_stacked(
     if gu_L_cat.dtype != torch.int8 or dn_R.dtype != torch.int8 \
             or dn_L.dtype != torch.int8:
         raise TypeError("the L and R factors must be int8 codes")
+    if rank % _FKC or h % 32 or im % 16:
+        raise ValueError(f"the CUDA kernel takes rank % 128 == 0, h % 32 == "
+                         f"0 and im % 16 == 0; got rank {rank}, h {h}, "
+                         f"im {im}")
     xq, sx = quantize_activations_int8(x)
     out, _ = _launch_mlp(xq, sx, xr_gu, gu_packed, gu_scales, layer,
                          gu_L_cat, gu_L_scale, gu_gs, dn_packed, dn_scales,
@@ -1239,12 +1243,119 @@ def quantized_matmul_w4a8_mlp_stacked(
     return out
 
 
+# The projection stages of the cooperative fusion kernels (the whole-MLP
+# kernel, attention + o_proj: csrc/fused_proj.cuh): packed bytes a slab,
+# int4s of a warp's two split-group partial slots per 8 activation rows,
+# warps of the whole-MLP kernel's CTAs and of attention + o_proj's.
+_FKC, _FUSED_SLOT = 128, 2 * 2 * 2 * 32
+_MLP_WARPS, _ATTN_O_WARPS = 8, 4
+
+
+def _fused_rows(M: int) -> int:
+    """Activation rows of a tile of the fusion kernels (``MT``): 8 up to 8
+    rows, else 32 (several tiles above 32)."""
+    return 8 if M <= 8 else 32
+
+
+def _fused_stage(K: int, N: int, rank: int, num_bits: int, rows: int,
+                 gate_up: bool = False) -> dict:
+    """A projection stage as ``fused_proj.cuh``'s ``Stage`` holds it: rows
+    of ``P`` packed bytes in ``nk`` code slabs of 128 bytes and ``nl`` L
+    slabs a group; ``groups`` groups of two 16-row tiles (32 consecutive
+    rows of N, or for gate/up (N = im) 16 gate rows and the same up rows,
+    ``half`` = im apart) for each of ``mtiles`` activation tiles of ``MT``
+    rows."""
+    P = K // _pack_factor(num_bits)
+    MT = _fused_rows(rows)
+    return dict(P=P, nk=-(-P // _FKC), nl=rank // _FKC,
+                groups=N // 16 if gate_up else N // 32,
+                half=N if gate_up else 0, mtiles=-(-rows // MT), rows=rows,
+                MT=MT)
+
+
+def _fused_group_rows(st: dict, g: int):
+    """The first rows of group ``g``'s two 16-row tiles (``group_rows``)."""
+    if st["half"]:
+        return 16 * g, st["half"] + 16 * g
+    return 32 * g, 32 * g + 16
+
+
+def _fused_slabs(st: dict) -> int:
+    return st["mtiles"] * st["groups"] * (st["nk"] + st["nl"])
+
+
+def _fused_range(S: int, w: int, W: int):
+    """Warp ``w``'s slabs ``[lo, hi)`` of a stage's ``S`` cut ``W`` ways."""
+    return S * w // W, S * (w + 1) // W
+
+
+def _fused_owner(s: int, S: int, W: int) -> int:
+    """The warp whose range holds slab ``s``."""
+    return ((s + 1) * W - 1) // S
+
+
+def _fused_contributors(G: int, per: int, S: int, W: int):
+    """The warps whose slabs make up group ``G`` in the order ``split_sum``
+    sums their partials: the owner of its first slab, then the owner of
+    the slab after each one's range."""
+    out, s = [], G * per
+    while s < (G + 1) * per:
+        out.append(_fused_owner(s, S, W))
+        s = _fused_range(S, out[-1] + 1, W)[0]
+    return out
+
+
+def _mlp_plan(M: int, h: int, im: int, rank: int, num_bits: int):
+    """The whole-MLP kernel's two stages (``mlp_plan``): gate/up, then
+    down."""
+    return (_fused_stage(h, im, rank, num_bits, M, gate_up=True),
+            _fused_stage(im, h, rank, num_bits, M))
+
+
+def _mlp_xrd_terms(groups: int, MT: int):
+    """The order in which the whole-MLP kernel's phase 2 sums one xrd
+    output's group partials (the same for every output column and tile):
+    warp ``w`` of the CTA takes groups ``[w G / 8, (w + 1) G / 8)``, its
+    lanes of one row every ``32 / MT``-th of them (lane ``gs`` from the
+    range's start + gs), each lane a chain in that order; then the lanes by
+    a butterfly over ``gs`` and the warps in order. Returns, per warp, the
+    lane chains: ``[[[g, ...] for gs] for w]``."""
+    GS = 32 // MT
+    out = []
+    for w in range(_MLP_WARPS):
+        lo, hi = _fused_range(groups, w, _MLP_WARPS)
+        out.append([list(range(lo + gs, hi, GS)) for gs in range(GS)])
+    return out
+
+
+_FUSED_GRIDS: dict = {}
+
+
+def _fused_grid(entry: str, device: torch.device, *key) -> int:
+    """The most CTAs of a cooperative launch of the fusion kernels (the C
+    entry ``entry`` of ``key``: occupancy x SMs), once per device and key."""
+    k = (entry, device.index, *key)
+    if k not in _FUSED_GRIDS:
+        lib = "w4a8_lowrank" if entry == "w4a8_mlp_grid" else "attn_o"
+        n = ctypes.c_int(0)
+        _build.check(getattr(_build.library(lib), entry)(
+            *key, ctypes.byref(n)), entry)
+        _FUSED_GRIDS[k] = n.value
+    return _FUSED_GRIDS[k]
+
+
+def _fused_pws(device: torch.device, warps: int, MT: int) -> torch.Tensor:
+    """Split-group partial slots of a launch of ``warps`` warps (int32)."""
+    return torch.empty((warps * _FUSED_SLOT * (MT // 8) * 4,),
+                       dtype=torch.int32, device=device)
+
+
 def _launch_mlp(xq, sx, xr_gu, gu_packed, gu_scales, layer: int, gu_L_cat,
                 gu_L_scale, gu_gs, dn_packed, dn_scales, dn_R, dn_R_scale,
-                dn_L, dn_L_scale, num_bits: int, rank: int):
-    """Launch ``w4a8_mlp_stacked_launch`` on quantized activations; returns
-    the output and the kernel's scratch (``m`` and its int8 codes ``m8``
-    among it)."""
+                dn_L, dn_L_scale, num_bits: int, rank: int, ctas: int = 0):
+    """Launch ``w4a8_mlp_stacked_launch`` on quantized activations (on
+    ``ctas`` CTAs; 0: the cooperative grid); returns the output and the
+    kernel's scratch (``m`` and its int8 codes ``m8`` among it)."""
     M = xq.shape[0]
     im, h = gu_packed.shape[1] // 2, dn_packed.shape[1]
     sx = sx.contiguous()
@@ -1255,21 +1366,27 @@ def _launch_mlp(xq, sx, xr_gu, gu_packed, gu_scales, layer: int, gu_L_cat,
     _check_cuda_operands(xq, sx, gu_packed, gu_L_cat, dn_packed, dn_R, dn_L,
                          *fl)
     dev = xq.device
-    rpb = 32 if M <= 8 else 8          # output rows per tile (rowdot.cuh)
+    gu, dn = _mlp_plan(M, h, im, rank, num_bits)
+    MT, G = gu["MT"], gu["mtiles"] * gu["groups"]
+    grid = _fused_grid("w4a8_mlp_grid", dev, M, num_bits)
+    grid = min(ctas, grid) if ctas else grid
     scratch = dict(
         m=torch.empty((M, im), dtype=torch.float32, device=dev),
-        amax=torch.empty(((im + rpb - 1) // rpb, M), dtype=torch.float32,
-                         device=dev),
         m8=torch.empty((M, im), dtype=torch.int8, device=dev),
-        xrd=torch.empty((M, rank), dtype=torch.float32, device=dev))
+        amax=torch.empty((G, MT), dtype=torch.float32, device=dev),
+        xpart=torch.empty((G, rank, MT), dtype=torch.float32, device=dev),
+        xrd=torch.empty((M, rank), dtype=torch.float32, device=dev),
+        pws=_fused_pws(dev, grid * _MLP_WARPS, MT),
+        cnt=_split_counters(dev, max(G, dn["mtiles"] * dn["groups"])))
     out = torch.empty((M, h), dtype=torch.float32, device=dev)
     err = _build.library("w4a8_lowrank").w4a8_mlp_stacked_launch(
         xq.data_ptr(), sx.data_ptr(), xr_f.data_ptr(), gu_packed.data_ptr(),
         gu_s.data_ptr(), gu_L_cat.data_ptr(), gu_Ls.data_ptr(),
         gs.data_ptr(), dn_packed.data_ptr(), dn_s.data_ptr(),
         dn_R.data_ptr(), dn_Rs.data_ptr(), dn_L.data_ptr(), dn_Ls.data_ptr(),
-        *(scratch[k].data_ptr() for k in ("m", "amax", "m8", "xrd")),
-        out.data_ptr(), M, h, im, num_bits, layer, rank,
+        *(scratch[k].data_ptr() for k in ("m", "m8", "amax", "xpart", "xrd",
+                                          "pws", "cnt")),
+        out.data_ptr(), M, h, im, num_bits, layer, rank, grid,
         _build.stream_ptr(dev))
     _build.check(err, "w4a8_mlp_stacked")
     return out, scratch

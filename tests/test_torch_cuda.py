@@ -1551,6 +1551,139 @@ def test_attn_o_kernel_matches_plain(dev, staged, B):
     assert _rel(y, ref) <= 1e-3, _rel(y, ref)
 
 
+# Llama-2-7B widths of the two fusion kernels (csrc/fused_proj.cuh): the
+# MLP (h 4096, im 11008) and attention + o_proj (32 heads of 128, o_proj
+# 4096 x 4096), rank 128, weights on the card from a seeded generator
+_FUSION_7B = {}
+
+
+def _mlp_7b(dev, bits):
+    if ("mlp", bits) not in _FUSION_7B:
+        _FUSION_7B.clear()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1100 + bits)
+        h, im, rank, L, f = 4096, 11008, 128, 2, 8 // bits
+
+        def codes(*shape, lo=-127, hi=128, dtype=torch.int8):
+            return torch.randint(lo, hi, shape, generator=gen, dtype=dtype,
+                                 device=dev)
+
+        def scales(*shape, lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                               device=dev)
+        w = [codes(L, 2 * im, h // f, lo=0, hi=256, dtype=torch.uint8),
+             scales(L, 2 * im, 1, lo=1e-3, hi=1e-2)]
+        gu_R = codes(L, 2 * rank, h)
+        gu_Rs = scales(L, 2 * rank, 1, lo=1e-4, hi=1e-3)
+        rest = [codes(L, 2 * im, rank), scales(L, 2 * im, 1, lo=1e-4, hi=1e-3),
+                scales(L, 2, lo=0.5, hi=2.0),
+                codes(L, h, im // f, lo=0, hi=256, dtype=torch.uint8),
+                scales(L, h, 1, lo=1e-3, hi=1e-2), codes(L, rank, im),
+                scales(L, rank, 1, lo=1e-4, hi=1e-3), codes(L, h, rank),
+                scales(L, h, 1, lo=1e-4, hi=1e-3)]
+        _FUSION_7B["mlp", bits] = (w, gu_R, gu_Rs, rest)
+    return _FUSION_7B["mlp", bits]
+
+
+def _mlp_7b_call(dev, bits, M, seed=0):
+    """(launch(ctas), plain output) of the whole-MLP kernel at Llama-2-7B
+    widths, layer 1, M rows."""
+    w, gu_R, gu_Rs, rest = _mlp_7b(dev, bits)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1200 + M + seed)
+    x = torch.randn((M, 4096), generator=gen, device=dev)
+    xr = K.thin_xr(x, gu_R[1], gu_Rs[1])
+    xq, sx = K.quantize_activations_int8(x)
+
+    def launch(ctas=0):
+        return K._launch_mlp(xq, sx, xr, *w, 1, *rest, bits, 128, ctas)[0]
+    ref = K.quantized_matmul_w4a8_mlp_stacked_plain(x, *w, 1, xr, *rest,
+                                                    bits, 128)
+    return launch, ref
+
+
+def _attn_o_7b_call(dev, B, staged, T=256):
+    """(launch(ctas), plain output) of attention + o_proj at Llama-2-7B
+    heads, layer 1, rows at seeded positions below T (row 0 at 0)."""
+    rng = np.random.default_rng(1300 + B + T)
+    L, KVH, D, h, rank = 2, 32, 128, 4096, 128
+    pos = torch.from_numpy(rng.integers(0, T, size=B).astype(np.int32))
+    pos[0] = 0
+    args = [a.to(dev) for a in _decode_inputs(rng, L, B, KVH, 1, D, T)]
+    o = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, size=(L, h, KVH * D // 2), dtype=np.uint8),
+        rng.uniform(1e-3, 1e-2, (L, h, 1)).astype(np.float32),
+        rng.integers(-127, 128, size=(L, rank, KVH * D), dtype=np.int8),
+        rng.uniform(1e-4, 1e-3, (L, rank, 1)).astype(np.float32),
+        rng.integers(-127, 128, size=(L, h, rank), dtype=np.int8),
+        rng.uniform(1e-4, 1e-3, (L, h, 1)).astype(np.float32))]
+    pos = pos.to(dev)
+
+    def launch(ctas=0):
+        return AT._launch_attn_o(*args, 1, pos, *o, 4, rank, staged, 256,
+                                 ctas)[0]
+    ref = AT.flash_decode_attn_o_plain(*args, 1, pos, *o, 4, rank,
+                                       staged=staged)
+    return launch, ref
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 33, 128])
+def test_mlp_kernel_7b_matches_plain(dev, bits, M):
+    # the kernel's own requantization of m may round a code the other way
+    # (the L dots' and xrd's sums run in other orders), hence the
+    # rel-Frobenius bound of test_mlp_kernel_matches_plain
+    launch, ref = _mlp_7b_call(dev, bits, M)
+    assert _rel(launch(), ref) <= 1e-3, _rel(launch(), ref)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_attn_o_kernel_7b_matches_plain(dev, staged, B):
+    launch, ref = _attn_o_7b_call(dev, B, staged)
+    assert _rel(launch(), ref) <= 1e-3, _rel(launch(), ref)
+
+
+@pytest.mark.parametrize("kernel", ["mlp M=8", "mlp M=33", "attn_o B=8"])
+def test_fusion_kernels_repeat_graph_stream(dev, kernel):
+    # a second launch, a CUDA-graph replay and a launch on a second stream
+    # give the first launch's bits (fixed-order sums, counters left zeroed,
+    # the counters of another stream and of a capture their own)
+    launch, _ = (_attn_o_7b_call(dev, 8, True) if kernel.startswith("attn")
+                 else _mlp_7b_call(dev, 4, int(kernel.split("=")[1])))
+    first = launch()
+    assert torch.equal(launch(), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = launch()
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(other, first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("kernel", ["mlp", "attn_o"])
+@pytest.mark.parametrize("ctas", [1, 7])
+def test_fusion_kernels_small_grid(dev, kernel, ctas):
+    # a small grid cuts every stage over few warps (down to one CTA that
+    # walks every slab); each group's integer sums are exact, its one L
+    # slab's sum does not depend on the warp, and the folds and reduces
+    # have fixed orders, so the outputs equal the full grid's bit for bit
+    launch, ref = (_attn_o_7b_call(dev, 8, False) if kernel == "attn_o"
+                   else _mlp_7b_call(dev, 4, 8, seed=1))
+    full = launch()
+    small = launch(ctas)
+    assert torch.equal(small, full)
+    assert _rel(small, ref) <= 1e-3
+
+
 @pytest.mark.parametrize("flags", [
     dict(fk="l", staged_kv="uniform", attn_dots="i8"),
     dict(fk="lr", staged_kv="uniform", attn_dots="i8"),
