@@ -58,8 +58,10 @@ caught):
    yardstick timed in the same run: row 6's gate/up plus down, and the row
    decode kernel in f32 plus row 6's o_proj); the
    decode kernels in dots bf16 beside f32 and i8; the W4A8 kernel's
-   persistent launch on o and down at M 8 (rowdot's persistent grid) and
-   512 (the tile path), bit-equal to kernel 1 and timed beside it; ``bf16_matmul_stacked`` (TMA + wgmma, split-K at
+   persistent launch on o and down at M 8 (the tensor-core weight stream of
+   ``w4a8_stream.cuh``, with its plan) and 512 (the tile path), bit-equal
+   to kernel 1 and timed beside it and, at M 8, beside kernel 1's tile
+   path; ``bf16_matmul_stacked`` (TMA + wgmma, split-K at
    M <= 16) at rank-128 factor shapes and 4096 x 4096 beside one bf16
    torch.matmul, with its plan, the M 16/17 edge and a repeated split-K
    launch equal bit for bit; decode blocks over 256
@@ -133,7 +135,8 @@ caught):
    on phase 4's params (``phase_proj_dots``, run before phase 8): batch 8,
    a cache of eight 128-token prompts, from position 128: (a)
    ``proj_kernel="persistent"`` against the grid step (identical logits and
-   K/V codes, 64 persistent and 64 kernel-1 launches per step); (b)
+   K/V codes, 64 persistent and 64 kernel-1 launches per step; both steps'
+   device times side by side); (b)
    ``attn_dots="bf16"`` staged, inline and all-batch against the f32 step
    and the plain versions; each with ms/step and the device time of one
    step as a CUDA graph; (c) the paged step at dots bf16 against the staged
@@ -458,8 +461,11 @@ def _phase_kernels_proj(torch, dev, gen, record):
     """The W4A8 kernel's persistent launch against kernel 1 (its grid
     launch, bit for bit) and the plain version: Llama-2-7B's o (4096 x
     4096) and down (4096 x 11008), 4-bit, at M 8 and 512, each timed beside
-    kernel 1 in this run; M 1, 7 and 33 and bits 2 and 8 checked too. The
-    record takes M 8, the mean of o and down (a layer's two launches of it).
+    kernel 1 in this run (at M 8 beside kernel 1's tile path too, forced);
+    M 1, 7 and 33 and bits 2 and 8 checked too; at M <= 8 each case prints
+    its stream plan (CTAs, warps, slabs a warp, the most warps sharing a
+    group). The record takes M 8, the mean of o and down (a layer's two
+    launches of it).
     Then ``bf16_matmul_stacked`` at the rank-128 factor shapes (R: 128 x
     4096, L: 4096 x 128) and 4096 x 4096, M 8 and 512, beside one bf16
     ``torch.matmul`` on the same operands, against the last layer of the
@@ -472,6 +478,7 @@ def _phase_kernels_proj(torch, dev, gen, record):
         kernels as K)
 
     rec = record["quantized_matmul_w4a8_stacked_persistent"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main = []
     cases = [("o", 4096, 4096, 4, M, True) for M in (8, 512)]
     cases += [("down", 4096, 11008, 4, M, True) for M in (8, 512)]
@@ -503,6 +510,12 @@ def _phase_kernels_proj(torch, dev, gen, record):
         line = (f"w4a8 persistent {name} M={M} N={N} K={Kd} {bits}-bit: "
                 f"equal to kernel 1 bit for bit, max diff vs plain "
                 f"{err:.3e} (bound rtol 1e-6, atol {tol:.3e})")
+        if M <= 8:
+            sp = K._w4a8_stream_plan(M, N, Kd, bits, sms)
+            line += (f"; stream plan {sp['ctas']} CTAs x {sp['warps']} "
+                     f"warps, {sp['slabs']} slabs, {sp['per_warp'][0]}-"
+                     f"{sp['per_warp'][1]} a warp, up to "
+                     f"{sp['contributors']} warps a group")
         if timed:
             xq, sx = K.quantize_activations_int8(x)
             iters = 50 if M == 8 else 5
@@ -511,6 +524,11 @@ def _phase_kernels_proj(torch, dev, gen, record):
                 iters)
             ms1 = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
                 xq, sx, packed, scales, i % Lk, bits), iters)
+            tile_ms = None
+            if M == 8:
+                tile_ms = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
+                    xq, sx, packed, scales, i % Lk, bits, path="tile"),
+                    iters)
             plain_ms = _time_ms(
                 torch, lambda i: K.quantized_matmul_w4a8_stacked_plain(
                     x, packed, scales, i % Lk, bits), 2, reps=3)
@@ -522,25 +540,30 @@ def _phase_kernels_proj(torch, dev, gen, record):
                 lib_ms = _int_mm_ms(
                     torch, xq, _unpacked_int8(torch, K, packed, bits),
                     [scales[i].reshape(1, -1) for i in range(Lk)], sx, iters)
+            if tile_ms is not None:
+                line += (f"; kernel 1's tile path {tile_ms:.4f} ms "
+                         f"({ms / tile_ms:.2f}x)")
             line += (f"; persistent {ms:.4f} ms, kernel 1 {ms1:.4f} ms "
                      f"({ms / ms1:.2f}x), plain {plain_ms:.4f} ms, "
                      f"torch._int_mm {_ms_txt(lib_ms, ms)}, bound "
                      f"{bound:.4f} ms ({by}; {bound / ms:.1%} of bound)")
             if M == 8:
-                main.append((ms, plain_ms, nbytes, ops, ms1, lib_ms))
+                main.append((ms, plain_ms, nbytes, ops, ms1, tile_ms,
+                             lib_ms))
         print(line, flush=True)
         del packed
     torch.cuda.empty_cache()
-    mean = [statistics.fmean(t[j] for t in main) for j in range(5)]
+    mean = [statistics.fmean(t[j] for t in main) for j in range(6)]
     bound, by = _bound_ms(mean[2], mean[3])
     print(f"w4a8 persistent M=8: mean of o and down {mean[0]:.4f} ms, "
-          f"kernel 1 {mean[4]:.4f} ms, bound {bound:.4f} ms", flush=True)
+          f"kernel 1 {mean[4]:.4f} ms, kernel 1's tile path {mean[5]:.4f} "
+          f"ms, bound {bound:.4f} ms ({bound / mean[0]:.1%} of it)",
+          flush=True)
     rec.update(ms=mean[0], plain_ms=mean[1], bound_ms=bound, bound_by=by,
-               library_ms=_mean_or_none([t[5] for t in main]))
+               library_ms=_mean_or_none([t[6] for t in main]))
 
     rec = record["bf16_matmul_stacked"]
     K.bf16_matmul_stacked.launches = 0
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     main = []
     cases = [(name, N, Kd, M, True) for name, N, Kd in (
         ("R", 128, 4096), ("L", 4096, 128), ("4096^2", 4096, 4096))
@@ -2722,7 +2745,7 @@ def phase_proj_dots(torch, dev, params, record):
             ("b ab bf16", dict(staged_kv=True, attn_kernel="ab",
                                attn_dots="bf16"),
              (4 * L, 0, 0, 0, L, 1))]
-    counts = {}
+    counts, step_ms = {}, {}
     for run, kw, per_step in runs:
         if kw["attn_dots"] == "bf16":
             f32_kw = dict(kw, attn_dots="f32")
@@ -2770,6 +2793,7 @@ def phase_proj_dots(torch, dev, params, record):
         med = statistics.median(times)
         dev_ms = _time_ms(torch, lambda i: fused.decode_step_fused(
             params, tok, pos, crun, config, **kw), 1, reps=5)
+        step_ms[run] = dev_ms
         print(f"proj ({run}): {steps} steps from position {P0 + 1}, exact "
               f"launches per step {dict(zip(names, per_step))}; median "
               f"{med:.3f} ms/step eager (min {min(times):.3f}, max "
@@ -2777,6 +2801,11 @@ def phase_proj_dots(torch, dev, params, record):
               f"one step as a CUDA graph {dev_ms:.3f} ms (card idle "
               f"{1 - dev_ms / med:.1%} of the eager step)", flush=True)
         del crun
+    print(f"proj (a): device time of one step as a CUDA graph, "
+          f"proj_kernel='persistent' {step_ms['a persistent']:.3f} ms, the "
+          f"grid step {step_ms['a grid']:.3f} ms (persistent - grid "
+          f"{step_ms['a persistent'] - step_ms['a grid']:+.3f} ms over "
+          f"{2 * L} launches of each)", flush=True)
     record["quantized_matmul_w4a8_stacked_persistent"].update(
         launches=counts["a persistent"]["persistent"],
         launches_per_step=2 * L, steps=1 + steps)

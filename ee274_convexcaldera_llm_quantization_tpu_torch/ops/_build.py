@@ -49,9 +49,10 @@ ENTRIES = {
     "w4a8_stacked": {
         # xq, sx, packed, scales, out, M, N, K, bits, layer, stream
         "w4a8_stacked_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # the same arguments, persistent grid
-        "w4a8_stacked_persistent_launch": [_P, _P, _P, _P, _P, _I, _I, _I,
-                                           _I, _I, _P],
+        # xq, sx, packed, scales, out, split counters and sums, M, N, K,
+        # bits, layer, CTAs, warps a CTA, stream: the persistent launch at
+        # M <= 8 (w4a8_stream.cuh)
+        "w4a8_stacked_persistent_launch": [_P] * 6 + [_I] * 7 + [_P],
         # xq, sx, packed, scales, out, M, N, K, bits, stream
         "w4a8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # xq, sx, packed, scales, out, M, N, K, bits, layer, rows (64 or

@@ -282,203 +282,4 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-
-// ---------------------------------------------------------------------------
-// The persistent launch: the same tiles and the same arithmetic as
-// rowdot_kernel at MT = 8 (four weight rows per warp, 32 per tile), on a
-// grid of as many CTAs as fit on the card at once. Each CTA walks the row
-// tiles tile = blockIdx.x, blockIdx.x + gridDim.x, ... of each 8-row M tile
-// in turn and
-// - stages the M tile's int8 activations (the whole of K, dynamic shared
-//   memory) and their row sums once per M tile, not once per row tile;
-// - streams each row tile's packed bytes through two shared-memory buffers
-//   in stages of kPersistChunk bytes of each of the 32 rows: while one
-//   stage's __dp4a loop runs, the next stage (of this tile or of the CTA's
-//   next tile) lands with 16-byte cp.async.cg copies, one commit group per
-//   stage (a whole 32-row tile of down_proj, 32 x 5504 bytes, would not fit
-//   twice beside its activations).
-// The i32 sums are exact and the epilogue is rowdot_kernel's ((acc * ws[n])
-// * sx[m]), so the output equals the grid launch's bit for bit.
-// ---------------------------------------------------------------------------
-
-constexpr int kPersistChunk = 1024;  // packed bytes of each row per stage
-constexpr int kPersistRows = Tile<8>::kRowsPerBlock;
-// dynamic shared memory a persistent CTA may take: sm_90's 227 KB opt-in
-// limit, less room for the static rowsum
-constexpr int kMaxSmemBytes = 226 * 1024;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most one commit group of this thread is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Shared memory of a persistent launch: the activations of mrows rows of K
-// int8 and two weight stages.
-inline size_t persistent_smem(int mrows, int K) {
-  return (size_t)mrows * K + 2 * (size_t)kPersistRows * kPersistChunk;
-}
-
-// xq (M, K) int8, sx (M) f32, w (N, K / F) uint8 (16-byte aligned), ws (N)
-// f32, out (M, N) f32. K % (16 * F) == 0.
-template <int BITS, int CODE>
-__global__ void __launch_bounds__(kThreads)
-rowdot_persistent_kernel(const int8_t* __restrict__ xq,
-                         const float* __restrict__ sx,
-                         const uint8_t* __restrict__ w,
-                         const float* __restrict__ ws,
-                         float* __restrict__ out, int M, int N, int K) {
-  constexpr int F = 8 / BITS;
-  constexpr int MAXQ = (1 << (BITS - 1)) - 1;
-  constexpr int MT = 8;
-  constexpr int RPW = Tile<MT>::kRowsPerWarp;
-  constexpr int RPB = kPersistRows;
-  extern __shared__ __align__(16) int smem[];
-  __shared__ int rowsum[MT];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int P = K / F;        // packed bytes per weight row
-  const int pw = P / 4;       // 32-bit words per packed weight row
-  const int kw = K / 4;       // 32-bit words per activation row
-  const int mrows = min(M, MT);
-  int* xs = smem;             // [mt][kw] words: plane p of row m at p * pw
-  uint8_t* wbuf = reinterpret_cast<uint8_t*>(smem + (size_t)mrows * kw);
-  const int ntiles = (N + RPB - 1) / RPB;
-  const int nm = (M + MT - 1) / MT;
-  const int nchunk = (P + kPersistChunk - 1) / kPersistChunk;
-  // this CTA's row tiles, chunks of each, and the stages of all M tiles
-  const int mine = blockIdx.x < ntiles
-                       ? (ntiles - 1 - (int)blockIdx.x) / gridDim.x + 1
-                       : 0;
-  const int per_m = mine * nchunk;
-  const int nstage = nm * per_m;
-
-  // stage s: M tile s / per_m, row tile blockIdx.x + gridDim.x * i, chunk c
-  auto load_stage = [&](int s) {
-    if (s < nstage) {
-      const int r = s % per_m;
-      const int n0 = (blockIdx.x + gridDim.x * (r / nchunk)) * RPB;
-      const int j0 = (r % nchunk) * kPersistChunk;
-      const int v16 = min(kPersistChunk, P - j0) / 16;
-      uint8_t* dst = wbuf + (s & 1) * RPB * kPersistChunk;
-      for (int i = threadIdx.x; i < RPB * v16; i += kThreads) {
-        const int row = i / v16, v = i - row * v16;
-        if (n0 + row < N)
-          cp_async16(dst + row * kPersistChunk + 16 * v,
-                     w + (size_t)(n0 + row) * P + j0 + 16 * v);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  int acc[RPW][MT];
-  load_stage(0);
-  for (int s = 0; s < nstage; ++s) {
-    const int mi = s / per_m, r = s % per_m;
-    const int c = r % nchunk;
-    const int n_first = (blockIdx.x + gridDim.x * (r / nchunk)) * RPB +
-                        warp * RPW;
-    const int m0 = mi * MT;
-    const int mt = min(MT, M - m0);
-    if (r == 0) {
-      // a new M tile: its activations, once (the previous stage ended with
-      // a barrier, so no warp still reads the old ones)
-      const int* x32 = reinterpret_cast<const int*>(xq) + (size_t)m0 * kw;
-      for (int i = threadIdx.x; i < mt * kw; i += kThreads) xs[i] = x32[i];
-      if (CODE == kOffsetPacked) tile_rowsum(x32, mt, kw, rowsum);
-    }
-    if (c == 0) {
-#pragma unroll
-      for (int q = 0; q < RPW; ++q)
-#pragma unroll
-        for (int m = 0; m < MT; ++m) acc[q][m] = 0;
-    }
-    load_stage(s + 1);
-    cp_async_wait_one();  // stage s has landed (this thread's copies)
-    __syncthreads();      // ... and every thread's
-
-    const int j0 = c * kPersistChunk;
-    const int cw = min(kPersistChunk, P - j0) / 4;  // words of each row
-    const uint8_t* buf = wbuf + (s & 1) * RPB * kPersistChunk;
-    for (int v4 = lane; v4 < cw / 4; v4 += 32) {
-      unsigned words[RPW][4];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) {
-        const uint4 wv = reinterpret_cast<const uint4*>(
-            buf + (warp * RPW + q) * kPersistChunk)[v4];
-        words[q][0] = wv.x;
-        words[q][1] = wv.y;
-        words[q][2] = wv.z;
-        words[q][3] = wv.w;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int p = 0; p < F; ++p) {
-          const int* xp = xs + p * pw + j0 / 4 + 4 * v4 + e;
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m < mt) {
-              const int xw = xp[m * kw];
-#pragma unroll
-              for (int q = 0; q < RPW; ++q)
-                acc[q][m] = dot_word<BITS, CODE>(words[q][e], p, xw,
-                                                 acc[q][m]);
-            }
-          }
-        }
-      }
-    }
-
-    if (c == nchunk - 1) {
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) {
-        const int n = n_first + q;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          int v = warp_sum_int(acc[q][m]);
-          if (m < mt && n < N && lane == (m & 31)) {
-            if (CODE == kOffsetPacked) v -= MAXQ * rowsum[m];
-            out[(size_t)(m0 + m) * N + n] = ((float)v * ws[n]) * sx[m0 + m];
-          }
-        }
-      }
-    }
-    __syncthreads();  // stage s's buffer is refilled by load_stage(s + 2)
-  }
-}
-
-template <int BITS, int CODE>
-inline cudaError_t launch_persistent(const int8_t* xq, const float* sx,
-                                     const uint8_t* w, const float* ws,
-                                     float* out, int M, int N, int K,
-                                     cudaStream_t stream) {
-  constexpr int F = 8 / BITS;
-  if (M <= 0 || N <= 0 || K <= 0 || K % (16 * F) != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(xq) % 4 != 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = persistent_smem(M < 8 ? M : 8, K);
-  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
-  auto kernel = rowdot_persistent_kernel<BITS, CODE>;
-  static const cudaError_t attr = allow_smem(kernel, kMaxSmemBytes);
-  if (attr != cudaSuccess) return attr;
-  int grid = 0;
-  const cudaError_t err =
-      coop_grid(kernel, smem, (N + kPersistRows - 1) / kPersistRows, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(xq, sx, w, ws, out, M, N, K);
-  return cudaGetLastError();
-}
-
 }  // namespace rowdot

@@ -510,14 +510,16 @@ def _w4a8_plan(M: int, N: int, K: int, bits: int, sms: int = 132,
 def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
                          num_bits: int, persistent: bool = False,
                          path: Optional[str] = None,
-                         rows: Optional[int] = None):
+                         rows: Optional[int] = None,
+                         ctas: Optional[int] = None):
     """Launch ``csrc/w4a8_stacked.cu`` on quantized activations against
     layer ``layer`` of a stacked (L, N, K/f) tensor, or a flat (N, K/f)
     tensor when ``layer`` is None (the flat entry point), on the plan of
     :func:`_w4a8_plan` (``path`` and ``rows`` passed on to it); where the
-    plan is ``rowdot`` and ``persistent`` is set, on rowdot's persistent
-    grid (rowdot.cuh); the tile path's CTAs are persistent already. A failed
-    launch raises: neither design stands in for the other."""
+    plan is ``rowdot`` and ``persistent`` is set, the weight stream of
+    ``w4a8_stream.cuh`` on the plan of :func:`_w4a8_stream_plan` (``ctas``
+    passed on to it); the tile path's CTAs are persistent already. A failed
+    launch raises: no design stands in for another."""
     M, K = xq.shape
     N = packed.shape[-2]
     sx = sx.contiguous()
@@ -529,12 +531,13 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
     if index is None:
         index = torch.cuda.current_device()
     plan = _w4a8_plan(M, N, K, num_bits, _sm_count(index), path, rows)
-    if plan["path"] == "tile":
-        # TMA reads x and the layer's bytes from 16-byte aligned bases: a
-        # layer of a stacked slab is read in place, a view off that
-        # alignment is copied
+    if plan["path"] == "tile" or (persistent and layer is not None):
+        # TMA reads x and the layer's bytes from 16-byte aligned bases (the
+        # tile path and the stream alike): a layer of a stacked slab is read
+        # in place, a view off that alignment is copied
         xq, packed = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (xq, packed))
+    if plan["path"] == "tile":
         err = lib.w4a8_tile_launch(
             xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
             scales.data_ptr(), out.data_ptr(), M, N, K, num_bits,
@@ -543,13 +546,18 @@ def _launch_w4a8_stacked(xq, sx, packed, scales, layer: Optional[int],
         _build.check(err, "w4a8_tile")
         return out
     args = (xq.data_ptr(), sx.data_ptr(), packed.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), M, N, K, num_bits)
+            scales.data_ptr(), out.data_ptr())
     if layer is None:
-        err = lib.w4a8_launch(*args, stream)
+        err = lib.w4a8_launch(*args, M, N, K, num_bits, stream)
     elif persistent:
-        err = lib.w4a8_stacked_persistent_launch(*args, layer, stream)
+        sp = _w4a8_stream_plan(M, N, K, num_bits, _sm_count(index), ctas)
+        cnt = _split_counters(xq.device, sp["counters"])
+        err = lib.w4a8_stacked_persistent_launch(
+            *args, cnt.data_ptr(), M, N, K, num_bits, layer, sp["ctas"],
+            sp["warps"], stream)
     else:
-        err = lib.w4a8_stacked_launch(*args, layer, stream)
+        err = lib.w4a8_stacked_launch(*args, M, N, K, num_bits, layer,
+                                      stream)
     _build.check(err, "w4a8_stacked")
     return out
 
@@ -558,14 +566,64 @@ quantized_matmul_w4a8_stacked.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# W4A8 stacked matmul on a persistent grid (replaces the TPU kernel #4)
+# W4A8 stacked matmul, persistent launch (replaces the TPU kernel #4)
 # ---------------------------------------------------------------------------
 
-# dynamic shared memory of a persistent rowdot CTA (csrc/rowdot.cuh, M <= 8):
-# the int8 activations of the M rows of K and two 32-row stages of 1024
-# packed bytes, within 226 KB
-_PERSIST_SMEM = 226 * 1024
-_PERSIST_STAGES = 2 * 32 * 1024
+# The persistent launch at M <= 8 (csrc/w4a8_stream.cuh): slabs of 32 weight
+# rows x 128 packed bytes (group-major: every chunk of a group of 32 rows,
+# then the next group), cut into equal contiguous ranges, one a warp, over
+# CTAs of 8 warps, one CTA an SM; a split group's partials are added into
+# its 256 i32 sums (8 a lane), zero before and after a launch.
+_STREAM_KC = 128
+_STREAM_ROWS = 32
+_STREAM_WARPS = 8
+_STREAM_SUMS = 8 * 32
+# the stream's i32 sums hold while K * 127 * 128 < 2^31
+_STREAM_MAX_K = (2 ** 31 - 1) // (127 * 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _w4a8_stream_plan(M: int, N: int, K: int, bits: int, sms: int = 132,
+                      ctas: Optional[int] = None) -> dict:
+    """How ``csrc/w4a8_stream.cuh`` runs the persistent launch at 1 <= M <=
+    8: each row of ``P`` packed bytes in ``nk`` chunks of 128, ``groups``
+    groups of 32 rows (the last ragged), ``slabs`` = groups x nk slabs of
+    (group, chunk), group-major, cut over ``ctas`` CTAs of ``warps`` warps
+    (``W`` warps in all; warp ``w`` takes slabs ``[S w / W, S (w + 1) /
+    W)``: between ``per_warp`` slabs). One CTA an SM, of 8 warps or as many
+    as the layer has slabs an SM, and fewer CTAs where it has fewer slabs
+    than SMs, so that every warp has a slab (``S >= W``); ``ctas`` takes the
+    place of the SM count (for tests). ``counters``: the zeroed int32s of
+    the split (a counter a group, then each group's 256 sums);
+    ``contributors``: the most warps that share a group. Raises where M is
+    out of range, where the i32 sums could overflow (K over 132104) or
+    where the kernel's 32-bit range math would not hold (S x W >=
+    2^32)."""
+    if not 1 <= M <= 8:
+        raise ValueError(f"the W4A8 stream kernel takes 1 to 8 activation "
+                         f"rows, got M={M}")
+    if K > _STREAM_MAX_K:
+        raise ValueError(f"the W4A8 stream kernel's i32 sums hold K <= "
+                         f"{_STREAM_MAX_K} (127 x 128 per product), got "
+                         f"K={K}")
+    P = K // (8 // bits)
+    nk, groups = -(-P // _STREAM_KC), -(-N // _STREAM_ROWS)
+    S = groups * nk
+    ctas = sms if ctas is None else ctas
+    warps = max(1, min(_STREAM_WARPS, S // ctas))
+    ctas = min(ctas, S // warps)
+    W = ctas * warps
+    if S * W >= 2 ** 32:
+        raise ValueError(f"the W4A8 stream kernel's range math holds S x W "
+                         f"< 2^32, got {S} slabs x {W} warps")
+    contributors = max(
+        _fused_owner((g + 1) * nk - 1, S, W) - _fused_owner(g * nk, S, W) + 1
+        for g in range(groups))
+    return dict(P=P, nk=nk, groups=groups, slabs=S, warps=warps, ctas=ctas,
+                W=W, per_warp=(S // W, -(-S // W)),
+                counters=groups * (1 + _STREAM_SUMS),
+                contributors=contributors)
+
 
 # the persistent kernel's function is kernel 1's, bit for bit
 quantized_matmul_w4a8_stacked_persistent_plain = \
@@ -577,26 +635,20 @@ def quantized_matmul_w4a8_stacked_persistent(
         layer: int, num_bits: int,
         act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`quantized_matmul_w4a8_stacked` on persistent CTAs. At M <= 8
-    (decode) the rowdot kernel on a persistent grid: as many CTAs as fit on
-    the card, each walking its row tiles with the next weight stage loading
-    (``cp.async``) while the current one computes, and the activations
-    staged once per CTA (``w4a8_stacked_persistent_launch`` of
-    ``csrc/w4a8_stacked.cu``); there ``M * K`` bytes of activations must fit
-    beside the weight stages (K <= 20992 at M 8). Above M 8 the grid
-    launch's int8 ``wgmma`` tile path (:func:`_w4a8_plan`), whose CTAs are
-    persistent, one an SM. Same arguments; the output equals the grid
-    kernel's bit for bit. CPU tensors go through its plain version.
+    (decode) the weight stream of ``csrc/w4a8_stream.cuh``
+    (``w4a8_stacked_persistent_launch`` of ``csrc/w4a8_stacked.cu``, on the
+    plan of :func:`_w4a8_stream_plan`): one CTA of 8 warps an SM, each warp
+    streaming its equal share of the layer's (32-row group, 128-byte chunk)
+    slabs and their activations through a ring of TMA boxes into int8
+    ``mma.sync``, split groups summed exactly by their last warp. Above M 8
+    the grid launch's int8 ``wgmma`` tile path (:func:`_w4a8_plan`), whose
+    CTAs are persistent, one an SM. Same arguments; the output equals the
+    grid kernel's bit for bit. CPU tensors go through its plain version.
     """
     _check_w4a8_stacked(x, packed, row_scales, layer, num_bits)
     if x.device.type == "cpu":
         return quantized_matmul_w4a8_stacked_persistent_plain(
             x, packed, row_scales, layer, num_bits, act_scale)
-    M, K = x.shape
-    if (M <= _W4A8_ROWDOT_MAX_M
-            and M * K + _PERSIST_STAGES > _PERSIST_SMEM):
-        raise ValueError(f"the persistent rowdot kernel stages M x K int8 "
-                         f"activations in shared memory; M={M} K={K} is "
-                         f"over its {_PERSIST_SMEM - _PERSIST_STAGES} bytes")
     xq, sx = quantize_activations_int8(x, act_scale)
     out = _launch_w4a8_stacked(xq, sx, packed, row_scales.float(), layer,
                                num_bits, persistent=True)

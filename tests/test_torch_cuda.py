@@ -71,9 +71,9 @@ def test_w4a8_kernel_matches_plain(dev, bits, M):
     for M in (1, 7, 8, 9, 33, 128)] + [
     (4, M, 4096, 11008) for M in (1, 8, 33)])
 def test_persistent_kernel_equals_grid_kernel(dev, bits, M, N, Kd):
-    # the same exact i32 sums and epilogue: bit for bit, at M tiles of 8
-    # (ragged ones too), N not a multiple of the 32-row tile, and
-    # down_proj's K (88 KB of activations at M >= 8, six weight stages)
+    # the same exact i32 sums and epilogue: bit for bit, at decode M (the
+    # weight stream) and above it (the tile path), N not a multiple of the
+    # 32-row group, and down_proj's K (86 chunks of 128 packed bytes)
     rng = np.random.default_rng(450 + bits + M)
     f = 8 // bits
     x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
@@ -111,16 +111,103 @@ def test_persistent_launch_above_m8_equals_row3(dev, M, N, Kd):
 
 
 def test_persistent_kernel_rules(dev):
-    x = torch.zeros((8, 24576), device=dev)
-    packed = torch.zeros((1, 64, 12288), dtype=torch.uint8, device=dev)
-    scales = torch.ones((1, 64, 1), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.quantized_matmul_w4a8_stacked_persistent(x, packed, scales, 0, 4)
+    # K 24576 at M 8: the old persistent kernel staged M x K activations in
+    # shared memory and refused it; the weight stream takes any K the i32
+    # sums hold, and gives row 3's launch bit for bit
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(size=(8, 24576)).astype(np.float32))
+    packed = torch.from_numpy(
+        rng.integers(0, 256, size=(1, 64, 12288), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(1, 64, 1)).astype(np.float32))
+    args = (x.to(dev), packed.to(dev), scales.to(dev), 0, 4)
+    y = K.quantized_matmul_w4a8_stacked_persistent(*args)
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked(*args))
+    _close(y, K.quantized_matmul_w4a8_stacked_plain(x, packed, scales, 0, 4))
     # above M 8 the tile path takes the same K
     x9 = torch.randn((9, 24576), device=dev)
     assert torch.equal(
-        K.quantized_matmul_w4a8_stacked_persistent(x9, packed, scales, 0, 4),
-        K.quantized_matmul_w4a8_stacked(x9, packed, scales, 0, 4))
+        K.quantized_matmul_w4a8_stacked_persistent(x9, *args[1:]),
+        K.quantized_matmul_w4a8_stacked(x9, *args[1:]))
+
+
+def _stream_inputs(seed, M, N, Kd, bits, layers=2):
+    rng = np.random.default_rng(seed)
+    f = 8 // bits
+    x = torch.from_numpy(rng.normal(size=(M, Kd)).astype(np.float32))
+    packed = torch.from_numpy(
+        rng.integers(0, 256, size=(layers, N, Kd // f), dtype=np.uint8))
+    scales = torch.from_numpy(
+        rng.uniform(0.001, 0.02, size=(layers, N, 1)).astype(np.float32))
+    return x, packed, scales
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("N,Kd", [(200, 512), (1000, 4096), (4096, 11008)])
+def test_stream_kernel_equals_grid_kernel(dev, bits, M, N, Kd):
+    # the persistent launch's weight stream at every decode M and bit
+    # width: row 3's grid launch bit for bit, N not a multiple of 16, and
+    # the plain version within its bound
+    x, packed, scales = _stream_inputs(530 + 9 * bits + M + N, M, N, Kd,
+                                       bits)
+    args = (x.to(dev), packed.to(dev), scales.to(dev), 1, bits)
+    before = K.quantized_matmul_w4a8_stacked_persistent.launches
+    y = K.quantized_matmul_w4a8_stacked_persistent(*args)
+    assert K.quantized_matmul_w4a8_stacked_persistent.launches == before + 1
+    assert torch.equal(y, K.quantized_matmul_w4a8_stacked(*args))
+    _close(y, K.quantized_matmul_w4a8_stacked_plain(x, packed, scales, 1,
+                                                    bits))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("ctas", [1, 7, 40])
+def test_stream_kernel_smaller_grids(dev, bits, ctas):
+    # the same bits on a grid of 1, 7 or 40 CTAs (each warp's range, and so
+    # every split group's contributors, differs)
+    x, packed, scales = _stream_inputs(560 + bits + ctas, 8, 1000, 4096,
+                                       bits)
+    xq, sx = K.quantize_activations_int8(x.to(dev))
+    p, s = packed.to(dev), scales.to(dev)
+    full = K._launch_w4a8_stacked(xq, sx, p, s, 1, bits, persistent=True)
+    some = K._launch_w4a8_stacked(xq, sx, p, s, 1, bits, persistent=True,
+                                  ctas=ctas)
+    assert K._w4a8_stream_plan(8, 1000, 4096, bits, 132, ctas)["ctas"] \
+        == ctas
+    assert torch.equal(full, some)
+    assert torch.equal(full, K._launch_w4a8_stacked(xq, sx, p, s, 1, bits))
+
+
+@pytest.mark.parametrize("M,N,Kd", [(8, 4096, 4096), (3, 4096, 11008),
+                                    (8, 200, 512)])
+def test_stream_kernel_repeats_and_graph(dev, M, N, Kd):
+    # launches repeat bit for bit (the counters are zero again after each),
+    # a second stream has counters of its own, and a CUDA graph's replays
+    # equal the eager launch
+    x, packed, scales = _stream_inputs(570 + M + N, M, N, Kd, 4, layers=3)
+    xq, sx = K.quantize_activations_int8(x.to(dev))
+    p, s = packed.to(dev), scales.to(dev)
+
+    def launch(layer):
+        return K._launch_w4a8_stacked(xq, sx, p, s, layer, 4,
+                                      persistent=True)
+    eager = [launch(i) for i in range(3)]
+    assert all(torch.equal(eager[i], launch(i)) for i in range(3))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = [launch(i) for i in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, other))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [launch(i) for i in (0, 1, 2, 1)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, eager[i])
+                   for o, i in zip(outs, (0, 1, 2, 1)))
 
 
 def _bf16_inputs(seed, M, N, Kd, layers=3):

@@ -183,8 +183,9 @@ def test_int8_launch_takes_the_plan(fake_lib, M, N, rows):
 @pytest.mark.parametrize("persistent", [False, True])
 def test_w4a8_persistent_launch_above_m8_takes_the_tile_path(
         fake_lib, M, persistent):
-    # row 4: the persistent launch runs rowdot's persistent grid at decode M
-    # and the grid launch's tile plan above it (bit-equal outputs)
+    # row 4: the persistent launch runs the weight stream on its plan at
+    # decode M and the grid launch's tile plan above it (bit-equal outputs);
+    # the stream's split counters ask the capture id first
     N, Kd, bits = 4096, 4096, 4
     xq = torch.zeros((M, Kd), dtype=torch.int8)
     sx = torch.ones((M, 1))
@@ -192,12 +193,17 @@ def test_w4a8_persistent_launch_above_m8_takes_the_tile_path(
     scales = torch.ones((2, N, 1))
     K._launch_w4a8_stacked(xq, sx, packed, scales, 1, bits,
                            persistent=persistent)
-    (name, args), = fake_lib.calls
+    (name, args), = [c for c in fake_lib.calls
+                     if c[0] != "grouped_capture_id"]
     plan = K._w4a8_plan(M, N, Kd, bits)
     if M <= K._W4A8_ROWDOT_MAX_M:
         assert plan["path"] == "rowdot"
         assert name == ("w4a8_stacked_persistent_launch" if persistent
                         else "w4a8_stacked_launch")
+        if persistent:
+            sp = K._w4a8_stream_plan(M, N, Kd, bits, 132)
+            assert args[6:13] == (M, N, Kd, bits, 1, sp["ctas"],
+                                  sp["warps"])
     else:
         assert name == "w4a8_tile_launch"
         assert args[5:12] == (M, N, Kd, bits, 1, plan["rows"],
