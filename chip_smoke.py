@@ -29,9 +29,14 @@ caught):
    1.25x the plain version's error against a float64 attention; the
    all-batch decode kernel (the block-parallel kernel), staged and inline,
    over a 4096-token cache at ragged positions, each output equal bit for
-   bit to the staged or inline row kernel's at the same block; the inline
-   and staged row decode kernels at the bench
-   shape; the int8 head (32000 x 4096) on its int8 wgmma tile path, swapped
+   bit to the staged or inline row kernel's at the same block; the staged
+   row decode kernel (``flash_decode.cu``'s cluster-split ``row_kernel``)
+   at the bench shape, mixed positions, Llama-2-7B and Llama-3-8B GQA over
+   2048 tokens and Qwen2-0.5B's heads, and the inline one at the bench
+   shape and over 2048 tokens (Llama-2-7B and GQA), each with its plan
+   (cluster, slots, grid), equal bit for bit to the block-parallel
+   kernel on the same operands and block, whose time is printed beside
+   it; the int8 head (32000 x 4096) on its int8 wgmma tile path, swapped
    at M 8 and 32 and in 128 x 256 tiles at M 1024 and 2048, each bit-equal
    to the plain version, timed beside torch._int_mm plus the rescale and
    the bound (the kernel table's ``at_m``); the
@@ -79,7 +84,11 @@ caught):
    prompts fed from position 0, then 20 greedy tokens each, with the launch
    count of every kernel checked per step; then the bench shape, 32 steps
    from position 128, and the median ms/step, beside the device time of
-   one step replayed as a CUDA graph.
+   one step replayed as a CUDA graph. (b) ``phase_gqa``: the same fused
+   step at Llama-3-8B widths (32 layers, GQA), batch 8, a 2048-token cache
+   from position 1024, staged "uniform", dots i8: the first step against
+   the plain versions on the card, exact launches over 9 steps, one step's
+   device time as a CUDA graph beside its 32 attention launches alone.
 5. Serving, Llama-2-7B, 32 layers, on ``FastServingEngine(flash_attn=True,
    max_slots=8)``: 16 seeded requests (16 to 1500 prompt tokens, 32 new
    tokens, greedy and sampled rows) at max_seq_len 4096, which decodes with
@@ -279,6 +288,32 @@ def _map_tensors(obj, fn):
     return obj
 
 
+def _row_beside_split(torch, AT, args, Lk, p, T, dots, staged, out):
+    """The row decode kernel's plan for a case, and the block-parallel
+    kernel (``AT._launch_split``) on the same operands and block: its
+    median time, and whether ``out`` (the row kernel's output on layer 1)
+    equals its output bit for bit (raises if not). ``args``: q, k, v, ks,
+    vs, k_new, v_new."""
+    q, k = args[0], args[1]
+    B, KVH, G, D = q.shape
+    bt = AT.resolve_block_t(256, T)
+    plan = AT._row_decode_plan(B, KVH, G, D, T, bt,
+                               torch.cuda.get_device_properties(
+                                   q.device).multi_processor_count)
+    split = AT._launch_split(*args, 1, p, bt, dots, staged)
+    if not torch.equal(out, split):
+        raise AssertionError(f"row kernel (B={B} KVH={KVH} G={G} D={D} "
+                             f"T={T} {dots} staged={staged}): not equal to "
+                             f"the split kernel at block {bt}")
+    split_ms = _time_ms(torch, lambda i: AT._launch_split(
+        q, k, *args[2:], i % Lk, p, bt, dots, staged), 50)
+    txt = (f"plan {plan['route']} cluster {plan['cluster']} slots "
+           f"{plan['slots']} grid {plan['grid']}; "
+           f"equal to the split kernel at block {bt}, which takes "
+           f"{split_ms:.4f} ms")
+    return txt, split_ms
+
+
 def phase_kernels(torch, dev, record):
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
         attention as AT, kernels as K)
@@ -359,7 +394,9 @@ def phase_kernels(torch, dev, record):
             ("llama3-8b GQA", 8, 8, 4, 128, 2048,
              [0, 1, 300, 511, 512, 1999, 2047, 2048], "i8", False),
             ("llama3-8b GQA", 8, 8, 4, 128, 2048,
-             [0, 1, 300, 511, 512, 1999, 2047, 2048], "f32", False)]:
+             [0, 1, 300, 511, 512, 1999, 2047, 2048], "f32", False),
+            ("qwen2-0.5b heads", 8, 2, 7, 64, 2048,
+             [0, 255, 256, 700, 1024, 1500, 2047, 2048], "i8", False)]:
         layer_bytes = B * KVH * T * (2 * D + 8)
         Lk = max(2, math.ceil(200e6 / layer_bytes))
         q = torch.randn((B, KVH, G, D), generator=gen, device=dev)
@@ -381,6 +418,8 @@ def phase_kernels(torch, dev, record):
         ok, bound_txt = _attn_ok(torch, out, ref, dots)
         ms = _time_ms(torch, lambda i: AT.flash_decode_q8_staged(
             q, k, v, ks, vs, kn, vn, i % Lk, p, dots=dots), 50)
+        split_txt, _ = _row_beside_split(torch, AT, (q, k, v, ks, vs, kn, vn),
+                                         Lk, p, T, dots, True, out)
         plain_ms = _time_ms(torch, lambda i: AT.flash_decode_q8_staged_plain(
             q, k, v, ks, vs, kn, vn, i % Lk, p, dots=dots), 3, reps=3)
         live = sum(min(x, T) for x in pos)
@@ -391,7 +430,7 @@ def phase_kernels(torch, dev, record):
         print(f"flash_decode_q8_staged {name} dots={dots} B={B} KVH={KVH} "
               f"G={G} D={D} T={T}: max diff {err:.3e} ({bound_txt}) kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({bound / ms:.1%} of bound)", flush=True)
+              f"({bound / ms:.1%} of bound); {split_txt}", flush=True)
         if not ok:
             raise AssertionError(f"flash_decode_q8_staged {name} {dots} "
                                  "disagrees with plain")
@@ -1127,8 +1166,15 @@ def _phase_kernels_decode(torch, dev, gen, record):
              for st in (True, False) for dots in ("f32", "i8", "bf16")]
     cases += [("row", "7b bench pos 128", 256, [128] * 8, False, dots,
                dots == "i8") for dots in ("i8", "f32", "bf16")]
+    # the inline row kernel at T 2048: Llama-2-7B's and Llama-3-8B's heads
+    mixed = [0, 1, 300, 511, 512, 1999, 2047, 2048]
+    cases += [("row", "7b T=2048 mixed", 2048, mixed, False, "i8", False),
+              ("row", "llama3-8b GQA T=2048", 2048, mixed, False, "i8",
+               False),
+              ("row", "llama3-8b GQA T=2048", 2048, mixed, False, "f32",
+               False)]
     for kind, name, T, pos, staged, dots, main in cases:
-        B, KVH, G, D = 8, 32, 1, 128
+        B, KVH, G, D = (8, 8, 4, 128) if "GQA" in name else (8, 32, 1, 128)
         layer_bytes = B * KVH * T * (2 * D + 8)
         Lk = max(2, math.ceil(200e6 / layer_bytes))
         q = torch.randn((B, KVH, G, D), generator=gen, device=dev)
@@ -1167,6 +1213,10 @@ def _phase_kernels_decode(torch, dev, gen, record):
                                      f"the row kernel at block {bt}")
             same = (f"equal to the {'staged' if staged else 'inline'} row "
                     f"kernel at block {bt}; ")
+        else:
+            txt, _ = _row_beside_split(torch, AT, (q, k, v, ks, vs, kn, vn),
+                                       Lk, p, T, dots, False, out)
+            same = f"{txt}; "
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         ok, bound_txt = _attn_ok(torch, out, ref, dots)
@@ -2020,6 +2070,122 @@ def phase_full(torch, dev, record):
           f"{1 - dev_ms / med:.1%} of the eager step", flush=True)
     _STEP_MS["phase 4, fused 'xla' step (i8 dots)"] = (med, dev_ms)
     return params
+
+
+def phase_gqa(torch, dev):
+    """Phase 4 (b): the fused W4A8 step at Llama-3-8B widths (GQA: 8 kv
+    heads of 4 query heads, 128k vocab; 32 layers, synthetic 4-bit weights
+    from ``bench_params``, seed 0), batch 8, a 2048-token cache whose
+    positions < 1024 hold seeded K/V codes and scales, from position 1024,
+    staged "uniform", dots i8. The first step against the same step through
+    the plain versions on the card (from copies of the cache), then 8 steps
+    with exact launches per step; the device time of one step as a CUDA
+    graph, and of its 32 attention launches (the row kernel on the step's
+    own arguments) alone, with the attention's plan."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA3_8B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+
+    t_phase = time.perf_counter()
+    config = LLAMA3_8B
+    L = config.num_layers
+    B, T, P0, steps = 8, 2048, 1024, 8
+    params = _build_fused(config, dev, seed=0)
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    for name in ("k", "v"):
+        t = getattr(cache, name)
+        t[:, :, :, :P0] = torch.randint(-127, 128, t[:, :, :, :P0].shape,
+                                        generator=gen, dtype=torch.int8,
+                                        device=dev)
+        sc = getattr(cache, name + "_scale")
+        sc[:, :, :, :P0] = torch.rand(sc[:, :, :, :P0].shape, generator=gen,
+                                      device=dev) * 0.02 + 1e-3
+    tok0 = torch.randint(0, config.vocab_size, (B,), generator=gen,
+                         device=dev)
+    pos0 = torch.full((B,), P0, dtype=torch.int32, device=dev)
+    kw = dict(staged_kv="uniform", attn_dots="i8")
+    torch.cuda.synchronize()
+    print(f"llama3-8b (GQA {config.num_heads} / {config.num_kv_heads} heads, "
+          f"vocab {config.vocab_size}): params and a {T}-token cache filled "
+          f"to {P0} on the card in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    counters = (K.quantized_matmul_w4a8_stacked, AT.flash_decode_q8_staged,
+                K.int8_matmul)
+    per_step = (4 * L, L, 1)
+    cplain, crun = (_copy_cache(cache, dev) for _ in range(2))
+    del cache
+    with _PlainKernels():
+        lplain, _ = fused.decode_step_fused(params, tok0, pos0, cplain,
+                                            config, **kw)
+    del cplain
+    times = []
+    tok, pos = tok0, pos0
+    for i in range(1 + steps):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, _ = fused.decode_step_fused(params, tok, pos, crun, config,
+                                            **kw)
+        torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t1))
+        delta = tuple(c.launches - b for c, b in zip(counters, before))
+        if delta != per_step:
+            raise AssertionError(f"llama3-8b step {i}: launches {delta}, "
+                                 f"expected {per_step}")
+        if i == 0:
+            e_p = _rel(torch, logits, lplain)
+            print(f"llama3-8b first step against the plain versions on the "
+                  f"card: logits rel-Frobenius {e_p:.3e} (bound "
+                  f"{KERN_REL:g}), argmax equal "
+                  f"{_same_argmax(torch, logits, lplain)}", flush=True)
+            if not (e_p <= KERN_REL and _same_argmax(torch, logits, lplain)):
+                raise AssertionError("llama3-8b: the step disagrees with "
+                                     "the plain versions")
+        tok = logits.argmax(-1)
+        pos = pos + 1
+    med = statistics.median(times)
+    dev_ms = _time_ms(torch, lambda i: fused.decode_step_fused(
+        params, tok, pos, crun, config, **kw), 1, reps=5)
+    # the step's attention launches, recorded from one more step and
+    # replayed alone on their own arguments
+    fn, calls = AT.flash_decode_q8_staged, []
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+
+    record.launches = 0
+    AT.flash_decode_q8_staged = record
+    try:
+        fused.decode_step_fused(params, tok, pos, crun, config, **kw)
+    finally:
+        AT.flash_decode_q8_staged = fn
+    attn_ms = _time_ms(torch, lambda i: [fn(*a, **k) for a, k in calls], 1,
+                       reps=5)
+    q = calls[0][0][0]
+    bt = AT.resolve_block_t(256, T)
+    plan = AT._row_decode_plan(B, config.num_kv_heads, q.shape[2],
+                               config.head_dim, T, bt,
+                               torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+    _STEP_MS["phase 4 (b), llama3-8b fused step at 1024 of 2048"] = (med,
+                                                                     dev_ms)
+    print(f"llama3-8b B={B} ctx {T} from pos {P0 + 1}: {steps} steps, exact "
+          f"launches per step w4a8 {per_step[0]}, attention {per_step[1]}, "
+          f"int8 head {per_step[2]}; median {med:.3f} ms/step eager (min "
+          f"{min(times):.3f}, max {max(times):.3f}); device time of one "
+          f"step as a CUDA graph {dev_ms:.3f} ms (card idle "
+          f"{1 - dev_ms / med:.1%} of the eager step), its {len(calls)} "
+          f"attention launches alone {attn_ms:.3f} ms "
+          f"({attn_ms / len(calls):.4f} a launch; plan {plan})", flush=True)
+    del params, crun
+    torch.cuda.empty_cache()
 
 
 class _Watch:
@@ -3864,6 +4030,7 @@ def main() -> int:
     phase_kernels(torch, dev, record)
     phase_width(torch, dev)
     params = phase_full(torch, dev, record)
+    phase_gqa(torch, dev)
     phase_serving(torch, dev, params, record)
     phase_paged(torch, dev, params, record)
     phase_proj_dots(torch, dev, params, record)

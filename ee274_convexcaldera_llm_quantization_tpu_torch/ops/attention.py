@@ -209,17 +209,18 @@ def flash_decode_q8_ab_plain(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
 # Decode kernel wrappers (CUDA: csrc/flash_decode.cu, csrc/flash_decode_split.cu)
 # ---------------------------------------------------------------------------
 
-def _decode_operands(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
-                     page_tables=None):
-    """Check the operands of a decode kernel and return the pointers its C
-    entry takes: q, layer ``layer`` of k, v, ks, vs (a pointer offset, never
-    a copy), k_new and v_new (None when absent), pos and the page tables
-    (None for a contiguous cache); and the operands kept alive meanwhile."""
+def _decode_operands(kernel: str, q, k, v, ks, vs, k_new, v_new,
+                     layer: int, pos, page_tables=None):
+    """Check the operands of the decode kernel ``kernel`` (its source, for
+    the messages) and return the pointers its C entry takes: q, layer
+    ``layer`` of k, v, ks, vs (a pointer offset, never a copy), k_new and
+    v_new (None when absent), pos and the page tables (None for a contiguous
+    cache); and the operands kept alive meanwhile."""
     B, KVH, G, D = q.shape
     if G > 8 or D > 128 or D % 16:
         raise ValueError(
-            f"the CUDA decode kernel takes G <= 8, D <= 128 with D % 16 == 0; "
-            f"got G={G} D={D}")
+            f"{kernel} takes G <= 8, D <= 128 with D % 16 == 0; got G={G} "
+            f"D={D}")
     if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise TypeError("the KV cache must be int8")
     qf = q.float().contiguous()
@@ -261,20 +262,125 @@ def _decode_operands(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
     return ptrs, (qf, ksf, vsf, pos32, *news, *tables)
 
 
+# tokens of a window; (block, head) pairs of a window and of a CTA; CTAs of
+# a stream (a cluster); ring slots; dynamic shared memory of a CTA (the row
+# kernel's kWin, kWinPairs, kMaxPairs, kMaxCluster, kMaxSlots, kMaxSmem)
+_ROW_WIN = 256
+_ROW_WIN_PAIRS = 16
+_ROW_MAX_PAIRS = 128
+_ROW_MAX_CLUSTER = 8
+_ROW_MAX_SLOTS = 8
+_ROW_MAX_SMEM = 232448
+# the plan's choices: CTAs a launch aims at per SM, ring slots
+_ROW_COVER = 2
+_ROW_SLOTS = 1
+
+
+def _row_smem(G: int, D: int, bt: int, maxb: int, nbw: int, slots: int,
+              cluster: int) -> int:
+    """Dynamic shared memory of the row kernel's plan, in bytes: a mirror of
+    ``row_layout`` in ``csrc/flash_decode.cu`` (each part on 128 bytes; the
+    slots also stage a cluster's blocks for the chain)."""
+    def part(n):
+        return -(-n // 128) * 128
+    span = maxb * bt
+    stage = cluster * maxb * G * (16 + 4 * D) if cluster > 1 else 0
+    return (part(max(slots * part(nbw * bt * D), stage)) + 2 * part(4 * span)
+            + part(4 * G * span) + part(G * span) + part(16 * nbw * G * D)
+            + part(4 * maxb * G * D) + part(16 * maxb * G)
+            + part(4 * maxb * G) + part(32) + part(4 * G * D) + part(G * D)
+            + 2 * part(32) + part(4 * (G + 2) * D))
+
+
+def _row_decode_plan(B: int, KVH: int, G: int, D: int, T: int, bt: int,
+                     sms: int, cluster: int | None = None,
+                     slots: int | None = None) -> dict:
+    """The launch of ``csrc/flash_decode.cu`` for B rows of KVH streams, G
+    query heads of D columns, a T-token cache in blocks of ``bt`` tokens, on
+    ``sms`` SMs. Shapes only: the kernel finds each row's live blocks from
+    ``pos`` on the device, so the launch can be captured in a CUDA graph.
+
+    - ``route`` "row": the row kernel. Each stream's blocks go to a
+      thread-block ``cluster`` of 1-8 CTAs (enough CTAs to cover
+      ``_ROW_COVER`` x ``sms``, at most one a block), each CTA a contiguous
+      range of at most ``maxb`` = ceil(T / bt / cluster) blocks; the CTA
+      copies its blocks in windows of ``nbw`` whole blocks (at most 256
+      tokens and 16 (block, head) pairs), K windows then V windows, through
+      a ring of ``slots`` window slots; ``smem`` bytes of dynamic shared
+      memory; ``grid`` CTAs.
+    - ``route`` "walk": a block over 256 tokens, or a cache too long for
+      eight CTAs' shared memory: the sequential walk of
+      ``csrc/flash_decode.cuh``, one CTA a stream (``grid`` B * KVH).
+
+    ``cluster`` and ``slots`` force those choices (tests, ablations); a
+    forced plan that does not fit raises."""
+    if bt < 1 or T < bt or T % bt or min(B, KVH, G, D, sms) < 1:
+        raise ValueError(f"no plan for T={T} in blocks of {bt}")
+    streams = B * KVH
+    walk = dict(route="walk", cluster=0, slots=0, nbw=0, maxb=0, smem=0,
+                grid=streams)
+    if bt > _ROW_WIN and cluster is None and slots is None:
+        return walk
+    nblk = T // bt
+    nbw = max(1, min(_ROW_WIN // bt, _ROW_WIN_PAIRS // G))
+    # enough CTAs to cover the SMs, then as few as take that many blocks
+    # each (no CTA of the cluster idle on the longest row)
+    want = max(1, min(_ROW_MAX_CLUSTER, nblk,
+                      -(-_ROW_COVER * sms // streams)))
+    want = -(-nblk // -(-nblk // want))
+    for C in ([cluster] if cluster is not None
+              else range(want, _ROW_MAX_CLUSTER + 1)):
+        maxb = -(-nblk // C)
+        R = slots if slots is not None else _ROW_SLOTS
+        smem = _row_smem(G, D, bt, maxb, nbw, R, C)
+        if (bt <= _ROW_WIN and 1 <= C <= _ROW_MAX_CLUSTER
+                and 1 <= R <= _ROW_MAX_SLOTS and maxb * G <= _ROW_MAX_PAIRS
+                and smem <= _ROW_MAX_SMEM):
+            return dict(route="row", cluster=C, slots=R, nbw=nbw, maxb=maxb,
+                        smem=smem, grid=streams * C)
+        if cluster is not None or slots is not None:
+            raise ValueError(
+                f"the row kernel cannot take cluster={C}, slots={R} at "
+                f"G={G} D={D} T={T} block {bt} ({smem} bytes of shared "
+                f"memory)")
+    return walk
+
+
+def _row_ranges(plan: dict, nb: int) -> list:
+    """The blocks [lo, hi) each CTA of a stream with ``nb`` live blocks
+    takes under ``plan`` (a mirror of ``row_kernel``): ceil(nb / cluster)
+    a CTA, contiguous, in rank order."""
+    C = plan["cluster"]
+    per = -(-nb // C)
+    return [(min(r * per, nb), min(min(r * per, nb) + per, nb))
+            for r in range(C)]
+
+
 def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
-                   pos, bt: int, dots: str) -> torch.Tensor:
+                   pos, bt: int, dots: str, cluster: int | None = None,
+                   slots: int | None = None) -> torch.Tensor:
     """Check the operands and launch ``flash_decode_staged_launch`` or
     ``flash_decode_inline_launch`` of ``csrc/flash_decode.cu`` on layer
-    ``layer`` of the cache, in blocks of ``bt`` tokens."""
+    ``layer`` of the cache, in blocks of ``bt`` tokens, on the plan of
+    :func:`_row_decode_plan` (``cluster``, ``slots`` force its choices)."""
     B, KVH, G, D = q.shape
-    ptrs, _keep = _decode_operands(q, k, v, ks, vs, k_new, v_new, layer, pos)
+    ptrs, _keep = _decode_operands("csrc/flash_decode.cu", q, k, v, ks, vs,
+                                   k_new, v_new, layer, pos)
     ptrs.pop()                              # no page tables
     if entry == "flash_decode_inline_launch":
         ptrs = ptrs[:5] + ptrs[7:]          # no current token
+    T = k.shape[3]
+    index = q.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    plan = _row_decode_plan(B, KVH, G, D, T, bt, K._sm_count(index),
+                            cluster, slots)
     out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
     fn = getattr(_build.library("flash_decode"), entry)
-    err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, k.shape[3], bt,
-             _scale_f32(D), _DOTS[dots], _build.stream_ptr(q.device))
+    err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, T, bt, _scale_f32(D),
+             _DOTS[dots], *(plan[n] for n in ("cluster", "slots", "nbw",
+                                              "maxb")),
+             _build.stream_ptr(q.device))
     _build.check(err, entry)
     return out
 
@@ -348,7 +454,8 @@ def _launch_split(q, k, v, ks, vs, k_new, v_new, layer: int, pos, bt: int,
     stream and CUDA-graph capture, which the kernel leaves zeroed); nothing
     is read back to the host."""
     B, KVH, G, D = q.shape
-    ptrs, _keep = _decode_operands(q, k, v, ks, vs, k_new if staged else None,
+    ptrs, _keep = _decode_operands("csrc/flash_decode_split.cu", q, k, v,
+                                   ks, vs, k_new if staged else None,
                                    v_new if staged else None, layer, pos,
                                    page_tables)
     max_pages = 0 if page_tables is None else page_tables.shape[1]

@@ -12,7 +12,15 @@ its decode-attention libraries, and prints one JSON line ``{"root",
 launches captured in a CUDA graph, 5 replays, caches rotated over enough
 layers to come from device memory). The cases:
 
-- the staged and inline row kernels at T 256, position 128;
+- the staged and inline row kernels (rows 11 and 10) at the bench shape
+  (T 256, every row at 128) and at mixed positions 0-256 of T 256; the
+  staged kernel at Llama-2-7B T 2048 (mixed positions, also inline), one
+  row over a 4096-token cache at position 4095, 32 rows at the bench shape,
+  Llama-3-8B's GQA heads (KVH 8, G 4) at T 2048 (mixed positions, also
+  inline) and Qwen2-0.5B's (KVH 2, G 7, D 64) at T 2048; beside each, the
+  block-parallel kernel (``AT._launch_split``) on the same operands and
+  block (``split`` in the case's name), whose output the row kernel's must
+  equal bit for bit (``row_vs_split``);
 - the all-batch kernel (``flash_decode_q8_ab``, staged and inline) over a
   4096-token cache at ragged positions, at the bench shape (T 256,
   position 128) and over a 4096-token cache with every row at 128;
@@ -87,22 +95,54 @@ def main() -> int:
     def layers(T):
         return max(2, math.ceil(200e6 / (B * KVH * T * (2 * D + 8))))
 
+    row_vs_split = {}
+    mixed = [0, 1, 100, 128, 129, 200, 255, 256]
+    mixed_2048 = [0, 255, 256, 700, 1024, 1500, 2047, 2048]
+    # the row kernels: (label, rows, kv heads, G, D, T, positions, staged
+    # and/or inline); the bench shape's labels are the parent's
+    for label, rows, kvh, g, d, T, pos, kinds in (
+            ("", B, KVH, G, D, 256, [128] * 8, ("staged", "inline")),
+            (" mixed", B, KVH, G, D, 256, mixed, ("staged", "inline")),
+            (" 7b mixed", B, KVH, G, D, 2048, mixed_2048,
+             ("staged", "inline")),
+            (" B=1 pos 4095", 1, KVH, G, D, 4096, [4095], ("staged",)),
+            (" B=32", 32, KVH, G, D, 256, [128] * 32, ("staged",)),
+            (" llama3-8b GQA", B, 8, 4, D, 2048,
+             [0, 1, 300, 511, 512, 1999, 2047, 2048], ("staged", "inline")),
+            (" qwen2-0.5b", B, 2, 7, 64, 2048, mixed_2048, ("staged",))):
+        Lk = max(2, math.ceil(200e6 / (rows * kvh * T * (2 * d + 8))))
+        shape = (Lk, rows, kvh, T)
+        k = torch.randint(-127, 128, shape + (d,), generator=gen,
+                          dtype=torch.int8, device=dev)
+        v = torch.randint(-127, 128, shape + (d,), generator=gen,
+                          dtype=torch.int8, device=dev)
+        ks = torch.rand(shape, generator=gen, device=dev) * 0.02
+        vs = torch.rand(shape, generator=gen, device=dev) * 0.02
+        qr = torch.randn((rows, kvh, g, d), generator=gen, device=dev)
+        knr = torch.randn((rows, kvh, d), generator=gen, device=dev)
+        vnr = torch.randn((rows, kvh, d), generator=gen, device=dev)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        bt = AT.resolve_block_t(256, T)
+        for kind in kinds:
+            staged = kind == "staged"
+            entry = f"flash_decode_{kind}_launch"
+            news = (knr, vnr) if staged else (None, None)
+            for dots in DOTS:
+                case = f"{kind} T={T}{label} {dots}"
+                run(case, lambda i: AT._launch_decode(
+                    entry, qr, k, v, ks, vs, *news, i % Lk, p, bt, dots))
+                split = AT._launch_split(qr, k, v, ks, vs, knr, vnr, 1, p,
+                                         bt, dots, staged)
+                row_vs_split[case] = bool(torch.equal(
+                    AT._launch_decode(entry, qr, k, v, ks, vs, *news, 1, p,
+                                      bt, dots), split))
+                ms[f"{case} split"] = _time_ms(torch, lambda i: AT._launch_split(
+                    qr, k, v, ks, vs, knr, vnr, i % Lk, p, bt, dots, staged),
+                    50)
+        del k, v, ks, vs
     q = torch.randn((B, KVH, G, D), generator=gen, device=dev)
     kn = torch.randn((B, KVH, D), generator=gen, device=dev)
     vn = torch.randn((B, KVH, D), generator=gen, device=dev)
-    # the row kernels at the bench shape
-    T = 256
-    Lk = layers(T)
-    k, v, ks, vs = cache(Lk, B, T)
-    p = torch.full((B,), 128, dtype=torch.int32, device=dev)
-    for name, entry, news in (("staged", "flash_decode_staged_launch",
-                               (kn, vn)),
-                              ("inline", "flash_decode_inline_launch",
-                               (None, None))):
-        for dots in DOTS:
-            run(f"{name} T={T} {dots}", lambda i: AT._launch_decode(
-                entry, q, k, v, ks, vs, *news, i % Lk, p, T, dots))
-    del k, v, ks, vs
     # the all-batch kernel: ragged over 4096, the bench shape, and 4096
     # with every row at 128
     for T, pos, label in (
@@ -174,9 +214,13 @@ def main() -> int:
         against = {c: ref.get(c) == d for c, d in digests.items()}
         print(f"against {args.against}: {sum(against.values())} of "
               f"{len(against)} outputs equal bit for bit", flush=True)
+    print(f"row kernel equal to the split kernel: "
+          f"{sum(row_vs_split.values())} of {len(row_vs_split)}", flush=True)
     print(json.dumps({"root": args.root, "card": _card_line(), "ms": ms,
-                      "against": against}), flush=True)
-    return 0 if against is None or all(against.values()) else 1
+                      "against": against, "row_vs_split": row_vs_split}),
+          flush=True)
+    return 0 if ((against is None or all(against.values()))
+                 and all(row_vs_split.values())) else 1
 
 
 if __name__ == "__main__":

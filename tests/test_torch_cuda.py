@@ -19,6 +19,7 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
     fused, llama, persistent)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
     LLAMA2_7B, TINY, TINY_MHA)
+from ee274_convexcaldera_llm_quantization_tpu_torch.ops import _build
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import attention as AT
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import megastep as MS
@@ -1251,6 +1252,132 @@ def test_split_graph_replay_equals_eager(dev, dots):
     torch.cuda.synchronize()
     for got, ref in zip(captured, eager):
         assert torch.equal(got, ref)
+
+
+# the row kernel (csrc/flash_decode.cu) against the block-parallel kernel
+# at the same block: both compute the walk's function bit for bit.
+# (B, KVH, T, attended positions): one row over 4096 tokens at its last
+# position (clusters of 8 CTAs, two blocks each), mixed positions over 2048,
+# the bench shape, 260 rows, one 2000-token block (the walk) and 4-token
+# blocks (T 300)
+_ROW_SHAPES = [
+    (1, 2, 4096, [4095]),
+    (8, 2, 2048, [0, 1, 255, 256, 700, 1999, 2047, 2048]),
+    (8, 4, 256, [128, 128, 0, 1, 255, 256, 200, 129]),
+    (260, 1, 512, None),
+    (4, 2, 2000, [0, 1, 1000, 2000]),
+    (3, 2, 300, [0, 150, 300]),
+]
+
+
+def _row_and_split(dev, seed, B, KVH, G, D, T, pos, dots, bt=None, **kw):
+    """(row kernel, split kernel) outputs, staged then inline, at the
+    wrappers' block (resolve_block_t(256, T)) unless ``bt``."""
+    rng = np.random.default_rng(seed)
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, T)]
+    if pos is None:
+        pos = rng.integers(0, T + 1, size=B).tolist()
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    bt = bt or AT.resolve_block_t(256, T)
+    got = []
+    for staged in (True, False):
+        entry = ("flash_decode_staged_launch" if staged
+                 else "flash_decode_inline_launch")
+        news = args[5:] if staged else (None, None)
+        out = AT._launch_decode(entry, *args[:5], *news, 1, p, bt, dots, **kw)
+        ref = AT._launch_split(*args, 1, p, bt, dots, staged)
+        got.append((out, ref))
+    return got
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32", "bf16"])
+@pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (7, 64), (8, 64)])
+@pytest.mark.parametrize("shape", range(len(_ROW_SHAPES)))
+def test_row_kernel_equals_split_kernel(dev, dots, G, D, shape):
+    B, KVH, T, pos = _ROW_SHAPES[shape]
+    for out, ref in _row_and_split(dev, 2000 + 10 * shape + G, B, KVH, G, D,
+                                   T, pos, dots):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dots", ["i8", "f32"])
+@pytest.mark.parametrize("cluster,slots", [(1, 1), (1, 2), (2, 2), (3, 2),
+                                           (4, 1), (4, 3), (8, 2), (8, 4)])
+def test_row_kernel_forced_plans(dev, dots, cluster, slots):
+    # any cluster size and ring depth gives the same bits: GQA heads over
+    # 2048 tokens at mixed positions, and 16-token blocks (a window of 16
+    # blocks, several windows a CTA)
+    for G, T, bt in ((4, 2048, 256), (1, 512, 16)):
+        pos = [0, 1, 17, 300, 511, T - 1, T, 256]
+        for out, ref in _row_and_split(dev, 2100 + cluster, 8, 2, G, 128, T,
+                                       pos, dots, bt=bt, cluster=cluster,
+                                       slots=slots):
+            assert torch.equal(out, ref), G
+
+
+def test_row_kernel_graph_and_second_stream(dev):
+    # the launch reads nothing back to the host: a CUDA-graph replay and a
+    # launch on a second stream give the eager bits
+    rng = np.random.default_rng(2200)
+    B, KVH, G, D, T = 8, 8, 4, 128, 2048
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, T)]
+    pos = torch.tensor([0, 1, 300, 511, 512, 1999, 2047, 2048],
+                       dtype=torch.int32, device=dev)
+
+    def run():
+        return [AT.flash_decode_q8_staged(*args, 1, pos, dots=dots)
+                for dots in ("i8", "f32", "bf16")] + [
+            AT.flash_decode_q8(*args[:5], 0, pos, dots="i8")]
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for got, ref in zip(other, eager):
+        assert torch.equal(got, ref)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for out in captured:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, ref in zip(captured, eager):
+        assert torch.equal(got, ref)
+
+
+def test_row_plan_shared_memory_mirror(dev):
+    # the plan's shared memory is the kernel's layout, and the default plans
+    # of the main paths' shapes take the row kernel
+    lib = _build.library("flash_decode")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, KVH, G, D, T in ((8, 32, 1, 128, 256), (8, 8, 4, 128, 2048),
+                            (1, 32, 1, 128, 4096), (8, 2, 7, 64, 2048),
+                            (3, 2, 8, 64, 300), (2, 1, 8, 16, 64)):
+        bt = AT.resolve_block_t(256, T)
+        plan = AT._row_decode_plan(B, KVH, G, D, T, bt, sms)
+        assert plan["route"] == "row", (B, KVH, G, D, T)
+        assert plan["smem"] == lib.flash_decode_row_smem(
+            G, D, bt, plan["maxb"], plan["nbw"], plan["slots"],
+            plan["cluster"])
+
+
+def test_row_kernel_rules(dev):
+    rng = np.random.default_rng(2300)
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, 2, 2, 9, 64, 256)]
+    pos = torch.tensor([10, 20], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="csrc/flash_decode.cu takes G <= 8"):
+        AT.flash_decode_q8_staged(*args, 1, pos)
+    with pytest.raises(ValueError, match="csrc/flash_decode_split.cu takes"):
+        AT.flash_decode_q8_ab(*args, 1, pos, staged=True)
+    args = [a.to(dev) for a in _decode_inputs(rng, 2, 2, 2, 1, 64, 512)]
+    # a forced plan that does not fit raises; the wrapper never launches one
+    with pytest.raises(ValueError, match="cannot take"):
+        AT._launch_decode("flash_decode_inline_launch", *args[:5], None,
+                          None, 1, pos, 512, "i8", cluster=1)
 
 
 def test_paged_engine_on_card_counts_launches(dev):
