@@ -34,7 +34,7 @@ caught):
    at the bench shape, mixed positions, Llama-2-7B and Llama-3-8B GQA over
    2048 tokens and Qwen2-0.5B's heads, and the inline one at the bench
    shape and over 2048 tokens (Llama-2-7B and GQA), each with its plan
-   (cluster, slots, grid), equal bit for bit to the block-parallel
+   (cluster, grid), equal bit for bit to the block-parallel
    kernel on the same operands and block, whose time is printed beside
    it; the int8 head (32000 x 4096) on its int8 wgmma tile path, swapped
    at M 8 and 32 and in 128 x 256 tiles at M 1024 and 2048, each bit-equal
@@ -307,8 +307,8 @@ def _row_beside_split(torch, AT, args, Lk, p, T, dots, staged, out):
                              f"the split kernel at block {bt}")
     split_ms = _time_ms(torch, lambda i: AT._launch_split(
         q, k, *args[2:], i % Lk, p, bt, dots, staged), 50)
-    txt = (f"plan {plan['route']} cluster {plan['cluster']} slots "
-           f"{plan['slots']} grid {plan['grid']}; "
+    txt = (f"plan {plan['route']} cluster {plan['cluster']} grid "
+           f"{plan['grid']}; "
            f"equal to the split kernel at block {bt}, which takes "
            f"{split_ms:.4f} ms")
     return txt, split_ms

@@ -78,16 +78,13 @@ ENTRIES = {
     },
     "flash_decode": {
         # q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
-        # block_t, scale, dots (0 f32, 1 bf16, 2 i8), the plan's cluster (0:
-        # the walk), slots, nbw, maxb, stream
+        # block_t, scale, dots (0 f32, 1 bf16, 2 i8), the plan's cluster,
+        # nbw, maxb, smem, stream
         "flash_decode_staged_launch": [_P] * 9 + [_I] * 6 + [_F] + [_I] * 5
                                       + [_P],
         # q, k, v, ks, vs, pos, out, then as the staged entry
         "flash_decode_inline_launch": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 5
                                       + [_P],
-        # G, D, block_t, maxb, nbw, slots, cluster: the plan's shared
-        # memory
-        "flash_decode_row_smem": [_I] * 7,
     },
     "flash_decode_split": {
         # q, k, v, ks, vs, k_new, v_new, pos, page_tables, out, scratch

@@ -264,28 +264,30 @@ def _decode_operands(kernel: str, q, k, v, ks, vs, k_new, v_new,
 
 # tokens of a window; (block, head) pairs of a window and of a CTA; CTAs of
 # a stream (a cluster); ring slots; dynamic shared memory of a CTA (the row
-# kernel's kWin, kWinPairs, kMaxPairs, kMaxCluster, kMaxSlots, kMaxSmem)
+# kernel's kWin, kWinPairs, kMaxPairs, kMaxCluster, kSlots, kMaxSmem)
 _ROW_WIN = 256
 _ROW_WIN_PAIRS = 16
 _ROW_MAX_PAIRS = 128
 _ROW_MAX_CLUSTER = 8
-_ROW_MAX_SLOTS = 8
-_ROW_MAX_SMEM = 232448
-# the plan's choices: CTAs a launch aims at per SM, ring slots
-_ROW_COVER = 2
 _ROW_SLOTS = 1
+_ROW_MAX_SMEM = 232448
+# CTAs a launch aims at per SM
+_ROW_COVER = 2
 
 
-def _row_smem(G: int, D: int, bt: int, maxb: int, nbw: int, slots: int,
+def _row_smem(G: int, D: int, bt: int, maxb: int, nbw: int,
               cluster: int) -> int:
     """Dynamic shared memory of the row kernel's plan, in bytes: a mirror of
-    ``row_layout`` in ``csrc/flash_decode.cu`` (each part on 128 bytes; the
-    slots also stage a cluster's blocks for the chain)."""
+    ``row_layout`` in ``csrc/flash_decode.cu``, which owns the layout (each
+    part on 128 bytes; the slots also stage a cluster's blocks for the
+    chain). The launch refuses a plan whose bytes differ from the kernel's
+    own count."""
     def part(n):
         return -(-n // 128) * 128
     span = maxb * bt
     stage = cluster * maxb * G * (16 + 4 * D) if cluster > 1 else 0
-    return (part(max(slots * part(nbw * bt * D), stage)) + 2 * part(4 * span)
+    return (part(max(_ROW_SLOTS * part(nbw * bt * D), stage))
+            + 2 * part(4 * span)
             + part(4 * G * span) + part(G * span) + part(16 * nbw * G * D)
             + part(4 * maxb * G * D) + part(16 * maxb * G)
             + part(4 * maxb * G) + part(32) + part(4 * G * D) + part(G * D)
@@ -293,8 +295,7 @@ def _row_smem(G: int, D: int, bt: int, maxb: int, nbw: int, slots: int,
 
 
 def _row_decode_plan(B: int, KVH: int, G: int, D: int, T: int, bt: int,
-                     sms: int, cluster: int | None = None,
-                     slots: int | None = None) -> dict:
+                     sms: int) -> dict:
     """The launch of ``csrc/flash_decode.cu`` for B rows of KVH streams, G
     query heads of D columns, a T-token cache in blocks of ``bt`` tokens, on
     ``sms`` SMs. Shapes only: the kernel finds each row's live blocks from
@@ -306,21 +307,22 @@ def _row_decode_plan(B: int, KVH: int, G: int, D: int, T: int, bt: int,
       range of at most ``maxb`` = ceil(T / bt / cluster) blocks; the CTA
       copies its blocks in windows of ``nbw`` whole blocks (at most 256
       tokens and 16 (block, head) pairs), K windows then V windows, through
-      a ring of ``slots`` window slots; ``smem`` bytes of dynamic shared
-      memory; ``grid`` CTAs.
-    - ``route`` "walk": a block over 256 tokens, or a cache too long for
-      eight CTAs' shared memory: the sequential walk of
-      ``csrc/flash_decode.cuh``, one CTA a stream (``grid`` B * KVH).
-
-    ``cluster`` and ``slots`` force those choices (tests, ablations); a
-    forced plan that does not fit raises."""
+      its ring's window slot; ``smem`` bytes of dynamic shared memory;
+      ``grid`` CTAs.
+    - ``route`` "walk": a block over 256 tokens: the sequential walk of
+      ``csrc/flash_decode.cuh`` in sub-tile passes, one CTA a stream
+      (``grid`` B * KVH).
+    - ``route`` "split": a cache of shorter blocks too long for eight CTAs'
+      shared memory (at B 8 on 132 SMs: over 57344 tokens for Llama-2-7B's
+      heads, 16384 for Llama-3-8B's, 14336 for Qwen2-0.5B's): the wrappers
+      launch the block-parallel kernel of ``csrc/flash_decode_split.cu``
+      instead, whose outputs are the same bits."""
     if bt < 1 or T < bt or T % bt or min(B, KVH, G, D, sms) < 1:
         raise ValueError(f"no plan for T={T} in blocks of {bt}")
     streams = B * KVH
-    walk = dict(route="walk", cluster=0, slots=0, nbw=0, maxb=0, smem=0,
-                grid=streams)
-    if bt > _ROW_WIN and cluster is None and slots is None:
-        return walk
+    if bt > _ROW_WIN:
+        return dict(route="walk", cluster=0, nbw=0, maxb=0, smem=0,
+                    grid=streams)
     nblk = T // bt
     nbw = max(1, min(_ROW_WIN // bt, _ROW_WIN_PAIRS // G))
     # enough CTAs to cover the SMs, then as few as take that many blocks
@@ -328,22 +330,13 @@ def _row_decode_plan(B: int, KVH: int, G: int, D: int, T: int, bt: int,
     want = max(1, min(_ROW_MAX_CLUSTER, nblk,
                       -(-_ROW_COVER * sms // streams)))
     want = -(-nblk // -(-nblk // want))
-    for C in ([cluster] if cluster is not None
-              else range(want, _ROW_MAX_CLUSTER + 1)):
+    for C in range(want, _ROW_MAX_CLUSTER + 1):
         maxb = -(-nblk // C)
-        R = slots if slots is not None else _ROW_SLOTS
-        smem = _row_smem(G, D, bt, maxb, nbw, R, C)
-        if (bt <= _ROW_WIN and 1 <= C <= _ROW_MAX_CLUSTER
-                and 1 <= R <= _ROW_MAX_SLOTS and maxb * G <= _ROW_MAX_PAIRS
-                and smem <= _ROW_MAX_SMEM):
-            return dict(route="row", cluster=C, slots=R, nbw=nbw, maxb=maxb,
+        smem = _row_smem(G, D, bt, maxb, nbw, C)
+        if maxb * G <= _ROW_MAX_PAIRS and smem <= _ROW_MAX_SMEM:
+            return dict(route="row", cluster=C, nbw=nbw, maxb=maxb,
                         smem=smem, grid=streams * C)
-        if cluster is not None or slots is not None:
-            raise ValueError(
-                f"the row kernel cannot take cluster={C}, slots={R} at "
-                f"G={G} D={D} T={T} block {bt} ({smem} bytes of shared "
-                f"memory)")
-    return walk
+    return dict(route="split", cluster=0, nbw=0, maxb=0, smem=0, grid=0)
 
 
 def _row_ranges(plan: dict, nb: int) -> list:
@@ -357,29 +350,32 @@ def _row_ranges(plan: dict, nb: int) -> list:
 
 
 def _launch_decode(entry: str, q, k, v, ks, vs, k_new, v_new, layer: int,
-                   pos, bt: int, dots: str, cluster: int | None = None,
-                   slots: int | None = None) -> torch.Tensor:
+                   pos, bt: int, dots: str) -> torch.Tensor:
     """Check the operands and launch ``flash_decode_staged_launch`` or
     ``flash_decode_inline_launch`` of ``csrc/flash_decode.cu`` on layer
     ``layer`` of the cache, in blocks of ``bt`` tokens, on the plan of
-    :func:`_row_decode_plan` (``cluster``, ``slots`` force its choices)."""
+    :func:`_row_decode_plan`; on a plan of route "split", the block-parallel
+    kernel (:func:`_launch_split`) on the same block."""
     B, KVH, G, D = q.shape
-    ptrs, _keep = _decode_operands("csrc/flash_decode.cu", q, k, v, ks, vs,
-                                   k_new, v_new, layer, pos)
-    ptrs.pop()                              # no page tables
-    if entry == "flash_decode_inline_launch":
-        ptrs = ptrs[:5] + ptrs[7:]          # no current token
     T = k.shape[3]
     index = q.device.index
     if index is None:
         index = torch.cuda.current_device()
-    plan = _row_decode_plan(B, KVH, G, D, T, bt, K._sm_count(index),
-                            cluster, slots)
+    plan = _row_decode_plan(B, KVH, G, D, T, bt, K._sm_count(index))
+    staged = entry == "flash_decode_staged_launch"
+    if plan["route"] == "split":
+        return _launch_split(q, k, v, ks, vs, k_new, v_new, layer, pos, bt,
+                             dots, staged)
+    ptrs, _keep = _decode_operands("csrc/flash_decode.cu", q, k, v, ks, vs,
+                                   k_new, v_new, layer, pos)
+    ptrs.pop()                              # no page tables
+    if not staged:
+        ptrs = ptrs[:5] + ptrs[7:]          # no current token
     out = torch.empty((B, KVH, G, D), dtype=torch.float32, device=q.device)
     fn = getattr(_build.library("flash_decode"), entry)
     err = fn(*ptrs, out.data_ptr(), B, KVH, G, D, T, bt, _scale_f32(D),
-             _DOTS[dots], *(plan[n] for n in ("cluster", "slots", "nbw",
-                                              "maxb")),
+             _DOTS[dots], *(plan[n] for n in ("cluster", "nbw", "maxb",
+                                              "smem")),
              _build.stream_ptr(q.device))
     _build.check(err, entry)
     return out
@@ -500,8 +496,10 @@ def flash_decode_q8_staged(q, k, v, ks, vs, k_new, v_new, layer: int, pos,
     (B,) int32, the cache holding tokens ``< pos[b]``; ``dots`` "i8" (int8
     q and p * v_scale, exact integer dots), "bf16" (both rounded to bf16,
     f32 sums) or "f32"; the current token's dot is f32 in every mode. Any
-    ``block_t``: the CUDA kernel walks a block longer than its shared
-    memory in passes (``csrc/flash_decode.cuh``). Returns (B, KVH, G, D)
+    ``block_t``: the CUDA kernel walks a block over 256 tokens in passes
+    (``csrc/flash_decode.cuh``); a cache of shorter blocks longer than its
+    shared memory takes runs the block-parallel kernel of
+    ``csrc/flash_decode_split.cu`` (the same bits). Returns (B, KVH, G, D)
     f32.
     """
     _check_dots(dots)

@@ -46,11 +46,11 @@
 //   contiguous range of ceil(live / C) blocks found from pos on the device;
 // - each CTA asks for its q and scales at its start, and for its windows'
 //   K rows and then V rows (a window: whole blocks of at most 256 tokens)
-//   with 16-byte cp.async through a ring of R slots (the plan's R is 1:
-//   shared memory and registers per CTA, which set how many CTAs an SM
-//   holds, weigh more than a second slot). A window's K slot is given to
-//   the next copy (its V rows) as soon as each thread holds its token's K
-//   row in registers, so V lands while the logits run;
+//   with 16-byte cp.async through a ring of kSlots slots (one: shared
+//   memory and registers per CTA, which set how many CTAs an SM holds,
+//   weigh more than a second slot). A window's K slot is given to the next
+//   copy (its V rows) as soon as each thread holds its token's K row in
+//   registers, so V lands while the logits run;
 // - every thread takes part in each phase: logits one token a thread, each
 //   int8 code converted to f32 once for every head (byte_f32); each
 //   (block, head)'s softmax pieces one warp; p @ V from shared memory, f32
@@ -64,9 +64,12 @@
 //   others go, chains the blocks in order, then runs the current token and
 //   the normalization. No global scratch, no counters: the launch can be
 //   captured in a CUDA graph.
-// A block over 256 tokens (and a plan whose shared memory would not fit)
-// runs the walk itself, walk_kernel: decode_attend in sub-tile passes that
-// recompute the logits, one CTA a stream (see flash_decode.cuh).
+// A block over 256 tokens runs the walk itself, walk_kernel: decode_attend
+// in sub-tile passes that recompute the logits, one CTA a stream (see
+// flash_decode.cuh). A cache of shorter blocks too long for a cluster's
+// shared memory is not taken here: the wrappers
+// (ops/attention.py::_launch_decode) launch flash_decode_split.cu on it,
+// whose outputs are the same bits.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -90,7 +93,7 @@ constexpr int kWalkThreads = 128;
 constexpr int kWin = 256;        // tokens of a window
 constexpr int kWinPairs = 16;    // (block, head) pairs of a window
 constexpr int kMaxCluster = 8;   // CTAs of a stream (portable cluster size)
-constexpr int kMaxSlots = 8;     // ring slots
+constexpr int kSlots = 1;        // ring slots (2, 3: slower, PERF.md)
 constexpr int kMaxPairs = 128;   // (block, head) pairs of a CTA
 constexpr int kMaxSmem = 232448; // dynamic shared memory of a CTA
 constexpr int kCtas = 3;         // CTAs an SM the registers leave room for
@@ -129,7 +132,6 @@ struct RowArgs {
   float* out;        // (B, KVH, G, D)
   int KVH, G, D, T, bt;
   int C;      // CTAs of a stream (the cluster)
-  int R;      // ring slots
   int nbw;    // blocks of a window
   int maxb;   // blocks of a CTA at most: ceil(T / bt / C)
   int incl;   // 1: inline (tokens <= pos), 0: staged
@@ -156,8 +158,7 @@ __host__ __device__ inline int take(int& at, int bytes) {
 }
 
 __host__ __device__ inline RowLayout row_layout(int G, int D, int bt,
-                                                int maxb, int nbw, int R,
-                                                int C) {
+                                                int maxb, int nbw, int C) {
   RowLayout L;
   int at = 0;
   const int span = maxb * bt;
@@ -165,7 +166,7 @@ __host__ __device__ inline RowLayout row_layout(int G, int D, int bt,
   // the first CTA of a cluster stages every block's state and contribution
   // in the ring's slots (consumed by then) before it chains them
   const int stage = C > 1 ? C * maxb * G * (16 + 4 * D) : 0;
-  L.slots = take(at, R * L.slot > stage ? R * L.slot : stage);
+  L.slots = take(at, kSlots * L.slot > stage ? kSlots * L.slot : stage);
   L.ks = take(at, 4 * span);
   L.vs = take(at, 4 * span);
   L.lg = take(at, 4 * G * span);
@@ -200,19 +201,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait until at most n of this thread's newest commit groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    case 7: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 8;\n" ::: "memory"); break;
-  }
+// wait until at most N of this thread's newest commit groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // every thread of every CTA of the cluster (C > 1) or of the CTA; the
@@ -468,7 +460,7 @@ row_kernel(const RowArgs a) {
   constexpr int kWarps = NT / 32;
   constexpr int kE = (kMaxG * kMaxD + NT - 1) / NT;  // (g, d) a thread
   constexpr int kTPT = kWin / NT;                     // tokens a thread
-  const RowLayout L = row_layout(a.G, a.D, a.bt, a.maxb, a.nbw, a.R, a.C);
+  const RowLayout L = row_layout(a.G, a.D, a.bt, a.maxb, a.nbw, a.C);
   int8_t* slots = reinterpret_cast<int8_t*>(smem + L.slots);
   float* ks_s = reinterpret_cast<float*>(smem + L.ks);
   float* vs_s = reinterpret_cast<float*>(smem + L.vs);
@@ -486,7 +478,7 @@ row_kernel(const RowArgs a) {
   float* cur = reinterpret_cast<float*>(smem + L.cur);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = a.G, D = a.D, bt = a.bt, C = a.C, R = a.R, nbw = a.nbw;
+  const int G = a.G, D = a.D, bt = a.bt, C = a.C, nbw = a.nbw;
   const int bh = blockIdx.x / C, rank = blockIdx.x - bh * C;
   const int b = bh / a.KVH;
   const int span = a.maxb * bt;
@@ -522,20 +514,20 @@ row_kernel(const RowArgs a) {
   cp_async_commit();
   // copy s of the ring (one commit group each, empty past the last): the K
   // rows of window s < nwin, else the V rows of window s - nwin, into slot
-  // s % R
+  // s % kSlots
   auto issue = [&](int s) {
     if (s < 2 * nwin) {
       const bool isv = s >= nwin;
       const int t0 = (isv ? s - nwin : s) * nbw * bt;
       const int pieces = min(nbw * bt, ntok - t0) * D / 16;
       const int8_t* src = (isv ? a.v : a.k) + (row0 + t0) * D;
-      int8_t* dst = slots + (s % R) * L.slot;
+      int8_t* dst = slots + (s % kSlots) * L.slot;
       for (int r = tid; r < pieces; r += NT)
         cp_async16(dst + 16 * (isv ? r : swz(r)), src + 16 * r);
     }
     cp_async_commit();
   };
-  for (int s = 0; s < R; ++s) issue(s);
+  for (int s = 0; s < kSlots; ++s) issue(s);
 
   // the i8 sums of this CTA's blocks start at zero
   if (quad)
@@ -543,7 +535,7 @@ row_kernel(const RowArgs a) {
       reinterpret_cast<int*>(contrib)[i] = 0;
 
   // q as the cache dots take it: i8 its codes per head over D, bf16 rounded
-  cp_async_wait(R);
+  cp_async_wait<kSlots>();
   __syncthreads();
   if (DOTS == kDotsBF16)
     for (int i = tid; i < G * D; i += NT) qf[i] = bf16_round(qf[i]);
@@ -564,11 +556,11 @@ row_kernel(const RowArgs a) {
   //    one slot), then the dots
   const int pieces = D / 16;
   for (int w = 0; w < nwin; ++w) {
-    cp_async_wait(R - 1);
+    cp_async_wait<kSlots - 1>();
     __syncthreads();
     const int t0 = w * nbw * bt;
     const int wn = min(nbw * bt, ntok - t0);
-    const int8_t* kt = slots + (w % R) * L.slot;
+    const int8_t* kt = slots + (w % kSlots) * L.slot;
     uint4 kv[kTPT][kMaxD / 16];
 #pragma unroll
     for (int r = 0; r < kTPT; ++r) {
@@ -580,7 +572,7 @@ row_kernel(const RowArgs a) {
               kt + (swz(i * pieces + j) << 4));
     }
     __syncthreads();
-    issue(w + R);
+    issue(w + kSlots);
 #pragma unroll
     for (int r = 0; r < kTPT; ++r) {
       const int i = tid + NT * r;
@@ -656,10 +648,10 @@ row_kernel(const RowArgs a) {
   // 3. (p * vs) @ v of each window's blocks; f32, bf16 (and i8 with blocks
   //    of other lengths): each pair's four chains then added in a fixed order
   for (int w = 0; w < nwin; ++w) {
-    cp_async_wait(R - 1);
+    cp_async_wait<kSlots - 1>();
     __syncthreads();
     const int j0 = w * nbw, nbk = min(nbw, nbc - j0);
-    const int8_t* vt = slots + ((nwin + w) % R) * L.slot;
+    const int8_t* vt = slots + ((nwin + w) % kSlots) * L.slot;
     if (quad) {
       pv_i8<NT>(tid, nbk, G, D, bt, j0, ntok, span, vt, pq,
                 reinterpret_cast<int*>(contrib));
@@ -676,7 +668,7 @@ row_kernel(const RowArgs a) {
                     min(G, NT / (nbk * D)), vt, lg, part);
     }
     __syncthreads();
-    issue(nwin + w + R);
+    issue(nwin + w + kSlots);
     if (!quad) {
       for (int e = tid; e < nbk * G * D; e += NT) {
         const int k = e / D, d = e - k * D;
@@ -820,13 +812,15 @@ void launch_walk(int streams, cudaStream_t st, const RowArgs& a) {
       a.T, a.bt, a.scale);
 }
 
-// cluster 0: the walk; else the row kernel on the plan (cluster, slots,
-// nbw, maxb) of ops/attention.py::_row_decode_plan
+// cluster 0: the walk; else the row kernel on the plan (cluster, nbw, maxb,
+// smem) of ops/attention.py::_row_decode_plan. row_layout owns the shared
+// memory's layout; the plan's smem is a mirror of it, and a plan whose smem
+// differs is refused.
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* k_new, const void* v_new,
            const void* pos, void* out, int B, int KVH, int G, int D, int T,
-           int block_t, float scale, int dots, int cluster, int slots,
-           int nbw, int maxb, bool staged, void* stream) {
+           int block_t, float scale, int dots, int cluster, int nbw,
+           int maxb, int smem, bool staged, void* stream) {
   if (B < 1 || KVH < 1 || G < 1 || G > kMaxG || D < 16 || D > kMaxD ||
       D % 16 != 0 || block_t < 1 || T % block_t != 0 ||
       dots < kDotsF32 || dots > kDotsI8 ||
@@ -851,7 +845,6 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   a.T = T;
   a.bt = block_t;
   a.C = cluster;
-  a.R = slots;
   a.nbw = nbw;
   a.maxb = maxb;
   a.incl = staged ? 0 : 1;
@@ -871,12 +864,11 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     return (int)cudaGetLastError();
   }
   const int nblk = T / block_t;
-  const RowLayout L = row_layout(G, D, block_t, maxb, nbw, slots, cluster);
-  if (block_t > kWin || cluster < 1 || cluster > kMaxCluster ||
-      slots < 1 || slots > kMaxSlots || nbw < 1 || nbw * block_t > kWin ||
-      nbw * G > kWinPairs || maxb != (nblk + cluster - 1) / cluster ||
-      maxb * G > kMaxPairs ||
-      L.total > kMaxSmem)
+  if (block_t > kWin || cluster < 1 || cluster > kMaxCluster || nbw < 1 ||
+      nbw * block_t > kWin || nbw * G > kWinPairs ||
+      maxb != (nblk + cluster - 1) / cluster || maxb * G > kMaxPairs ||
+      smem != row_layout(G, D, block_t, maxb, nbw, cluster).total ||
+      smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const auto fn =
       dots == kDotsI8
@@ -886,36 +878,31 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
                     : launch_row<kDotsBF16, false>)
           : (staged ? launch_row<kDotsF32, true>
                     : launch_row<kDotsF32, false>);
-  return fn(a, streams, L.total, st);
+  return fn(a, streams, smem, st);
 }
 
 }  // namespace
 
 // q (B, KVH, G, D) f32; k, v one layer of the cache (B, KVH, T, D) int8; ks,
 // vs its (B, KVH, T) f32 scales; k_new, v_new (B, KVH, D) f32 (staged);
-// pos (B) int32; out (B, KVH, G, D) f32. cluster, slots, nbw, maxb:
-// the plan of ops/attention.py::_row_decode_plan (cluster 0: the walk).
+// pos (B) int32; out (B, KVH, G, D) f32. cluster, nbw, maxb, smem: the
+// plan of ops/attention.py::_row_decode_plan (cluster 0: the walk).
 extern "C" int flash_decode_staged_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* k_new, const void* v_new, const void* pos,
     void* out, int B, int KVH, int G, int D, int T, int block_t, float scale,
-    int dots, int cluster, int slots, int nbw, int maxb, void* stream) {
+    int dots, int cluster, int nbw, int maxb, int smem, void* stream) {
   return launch(q, k, v, ks, vs, k_new, v_new, pos, out, B, KVH, G, D, T,
-                block_t, scale, dots, cluster, slots, nbw, maxb, true, stream);
+                block_t, scale, dots, cluster, nbw, maxb, smem, true, stream);
 }
 
 extern "C" int flash_decode_inline_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, void* out, int B, int KVH, int G, int D,
-    int T, int block_t, float scale, int dots, int cluster, int slots,
-    int nbw, int maxb, void* stream) {
+    int T, int block_t, float scale, int dots, int cluster, int nbw,
+    int maxb, int smem, void* stream) {
   return launch(q, k, v, ks, vs, nullptr, nullptr, pos, out, B, KVH, G, D, T,
-                block_t, scale, dots, cluster, slots, nbw, maxb, false, stream);
+                block_t, scale, dots, cluster, nbw, maxb, smem, false,
+                stream);
 }
 
-// the dynamic shared memory a plan of the row kernel takes, in bytes (the
-// plan's mirror is checked against it)
-extern "C" int flash_decode_row_smem(int G, int D, int block_t, int maxb,
-                                     int nbw, int slots, int cluster) {
-  return row_layout(G, D, block_t, maxb, nbw, slots, cluster).total;
-}

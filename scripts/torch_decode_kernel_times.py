@@ -17,10 +17,14 @@ layers to come from device memory). The cases:
   staged kernel at Llama-2-7B T 2048 (mixed positions, also inline), one
   row over a 4096-token cache at position 4095, 32 rows at the bench shape,
   Llama-3-8B's GQA heads (KVH 8, G 4) at T 2048 (mixed positions, also
-  inline) and Qwen2-0.5B's (KVH 2, G 7, D 64) at T 2048; beside each, the
-  block-parallel kernel (``AT._launch_split``) on the same operands and
-  block (``split`` in the case's name), whose output the row kernel's must
-  equal bit for bit (``row_vs_split``);
+  inline) and Qwen2-0.5B's (KVH 2, G 7, D 64) at T 2048 and at T 16384
+  (mixed positions; a cache longer than the row kernel's shared memory
+  takes, which the wrappers give to the block-parallel kernel); beside
+  each, the block-parallel kernel (``AT._launch_split``) on the same
+  operands and block (``split`` in the case's name), whose output the row
+  kernel's must equal bit for bit (``row_vs_split``); and, for each head
+  shape, the longest cache of 256-token blocks the row kernel takes at B 8
+  on this card (``row_limit``);
 - the all-batch kernel (``flash_decode_q8_ab``, staged and inline) over a
   4096-token cache at ragged positions, at the bench shape (T 256,
   position 128) and over a 4096-token cache with every row at 128;
@@ -109,7 +113,9 @@ def main() -> int:
             (" B=32", 32, KVH, G, D, 256, [128] * 32, ("staged",)),
             (" llama3-8b GQA", B, 8, 4, D, 2048,
              [0, 1, 300, 511, 512, 1999, 2047, 2048], ("staged", "inline")),
-            (" qwen2-0.5b", B, 2, 7, 64, 2048, mixed_2048, ("staged",))):
+            (" qwen2-0.5b", B, 2, 7, 64, 2048, mixed_2048, ("staged",)),
+            (" qwen2-0.5b", B, 2, 7, 64, 16384,
+             [0, 1, 2047, 4096, 8191, 12000, 16383, 16384], ("staged",))):
         Lk = max(2, math.ceil(200e6 / (rows * kvh * T * (2 * d + 8))))
         shape = (Lk, rows, kvh, T)
         k = torch.randint(-127, 128, shape + (d,), generator=gen,
@@ -216,8 +222,22 @@ def main() -> int:
               f"{len(against)} outputs equal bit for bit", flush=True)
     print(f"row kernel equal to the split kernel: "
           f"{sum(row_vs_split.values())} of {len(row_vs_split)}", flush=True)
+    row_limit = {}
+    if hasattr(AT, "_row_decode_plan"):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for name, (kvh, g, d) in {"llama2-7b": (KVH, G, D),
+                                  "llama3-8b": (8, 4, D),
+                                  "qwen2-0.5b": (2, 7, 64)}.items():
+            T = 256
+            while AT._row_decode_plan(B, kvh, g, d, T + 256, 256,
+                                      sms)["route"] == "row":
+                T += 256
+            row_limit[name] = T
+        print(f"longest cache of the row kernel at B {B}: {row_limit}",
+              flush=True)
     print(json.dumps({"root": args.root, "card": _card_line(), "ms": ms,
-                      "against": against, "row_vs_split": row_vs_split}),
+                      "against": against, "row_vs_split": row_vs_split,
+                      "row_limit": row_limit}),
           flush=True)
     return 0 if ((against is None or all(against.values()))
                  and all(row_vs_split.values())) else 1

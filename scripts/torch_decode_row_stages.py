@@ -36,10 +36,10 @@ stamped copy's graph time a launch, the span of the last of a CUDA graph of
 the bytes' bound, each stage's mean over the CTAs that had work and its
 largest (means over the 20 launches), and the stamped copy's output against
 the tree's (bit for bit). ``--ablate`` (a tree with ``row_kernel``) also
-times the tree's kernel with one part of its plan changed (``ABLATIONS``:
-no cluster split and other cluster sizes, deeper rings) and a copy with 4
-warps a CTA in place of 8 (``SOURCE_ABLATIONS``) beside the tree's build,
-each output against the tree's. Last line:
+times the tree's kernel with its cluster size forced (``ABLATIONS``: no
+cluster split and other cluster sizes) and copies with one constant changed
+(``SOURCE_ABLATIONS``: 4 warps a CTA in place of 8, rings of 2 and 3 slots)
+beside the tree's build, each output against the tree's. Last line:
 one JSON object ``{"root", "card", "kernel", "cases"}``.
 """
 
@@ -204,10 +204,10 @@ def stamp_row(src):
          "tokens' K\n",
          "  WS_LAP(0)\n  // 1. the logits of each window's tokens: each thread "
          "takes its tokens' K\n"),
-        ("    cp_async_wait(R - 1);\n    __syncthreads();\n"
+        ("    cp_async_wait<kSlots - 1>();\n    __syncthreads();\n"
          "    const int t0 = w * nbw * bt;\n",
-         "    cp_async_wait(R - 1);\n    __syncthreads();\n    WS_LAP(1)\n"
-         "    const int t0 = w * nbw * bt;\n"),
+         "    cp_async_wait<kSlots - 1>();\n    __syncthreads();\n"
+         "    WS_LAP(1)\n    const int t0 = w * nbw * bt;\n"),
         ("                           lg + t0 + i, span);\n    }\n  }\n",
          "                           lg + t0 + i, span);\n    }\n"
          "    WS_LAP(2)\n  }\n"),
@@ -217,10 +217,10 @@ def stamp_row(src):
          "  WS_LAP(3)\n  // 2. each block's probabilities"),
         ("  // 3. (p * vs) @ v of each window's blocks",
          "  WS_LAP(4)\n  // 3. (p * vs) @ v of each window's blocks"),
-        ("    cp_async_wait(R - 1);\n    __syncthreads();\n"
+        ("    cp_async_wait<kSlots - 1>();\n    __syncthreads();\n"
          "    const int j0 = w * nbw, nbk = min(nbw, nbc - j0);\n",
-         "    cp_async_wait(R - 1);\n    __syncthreads();\n    WS_LAP(5)\n"
-         "    const int j0 = w * nbw, nbk = min(nbw, nbc - j0);\n"),
+         "    cp_async_wait<kSlots - 1>();\n    __syncthreads();\n"
+         "    WS_LAP(5)\n    const int j0 = w * nbw, nbk = min(nbw, nbc - j0);\n"),
         ("        contrib[(j0 * G + k) * D + d] = cv;\n      }\n    }\n  }\n",
          "        contrib[(j0 * G + k) * D + d] = cv;\n      }\n    }\n"
          "    WS_LAP(6)\n  }\n"),
@@ -235,37 +235,53 @@ def stamp_row(src):
     ], "flash_decode.cu"), ROW_PARTS
 
 
-# --ablate: plan overrides of _launch_decode, each one part of the design
-# changed: no cluster split (one CTA a stream) or other cluster sizes;
-# deeper rings (2 slots: a window's K and V copied at once)
-ABLATIONS = {
-    "cluster 1": dict(cluster=1),
-    "cluster 2": dict(cluster=2),
-    "cluster 4": dict(cluster=4),
-    "cluster 8": dict(cluster=8),
-    "2 slots": dict(slots=2),
-    "3 slots": dict(slots=3),
-}
+# --ablate: the cluster size forced (no cluster split: one CTA a stream;
+# other sizes), by a plan of the tree's own choice with that size
+ABLATIONS = {"cluster 1": 1, "cluster 2": 2, "cluster 4": 4, "cluster 8": 8}
 # ... and copies of flash_decode.cu with one constant changed, each built as
-# a library of its own: 4 warps a CTA in place of 8
+# a library of its own, with the plan's mirror of that constant: 4 warps a
+# CTA in place of 8; rings of 2 and 3 slots (a window's K and V copied at
+# once)
 SOURCE_ABLATIONS = {
     "4 warps": ("constexpr int kRowThreads = 256;",
-                "constexpr int kRowThreads = 128;"),
+                "constexpr int kRowThreads = 128;", {}),
+    "2 slots": ("constexpr int kSlots = 1;", "constexpr int kSlots = 2;",
+                {"_ROW_SLOTS": 2}),
+    "3 slots": ("constexpr int kSlots = 1;", "constexpr int kSlots = 3;",
+                {"_ROW_SLOTS": 3}),
 }
 
 
 def build_source_ablations(_build, out_dir):
-    """{name: CDLL} of the SOURCE_ABLATIONS copies."""
+    """{name: (CDLL, the plan's constants)} of the SOURCE_ABLATIONS
+    copies."""
     libs = {}
     src = (_build.CSRC / "flash_decode.cu").read_text()
-    for i, (name, (old, new)) in enumerate(SOURCE_ABLATIONS.items()):
+    for i, (name, (old, new, consts)) in enumerate(SOURCE_ABLATIONS.items()):
         d = out_dir / f"ablate{i}"
         d.mkdir(parents=True, exist_ok=True)
         for hdr in _build.CSRC.glob("*.cuh"):
             shutil.copy(hdr, d / hdr.name)
         _need(src, old, 1, f"flash_decode.cu ({name})")
-        libs[name] = _nvcc(_build, d, src.replace(old, new), f"ablate{i}")
+        libs[name] = (_nvcc(_build, d, src.replace(old, new), f"ablate{i}"),
+                      consts)
     return libs
+
+
+def forced_plan(AT, C):
+    """AT._row_decode_plan with the cluster size C; raises ValueError where
+    the shapes cannot take it."""
+    base = AT._row_decode_plan
+
+    def plan(B, KVH, G, D, T, bt, sms):
+        p = base(B, KVH, G, D, T, bt, sms)
+        maxb = -(-(T // bt) // C)
+        smem = AT._row_smem(G, D, bt, maxb, p["nbw"], C)
+        if (p["route"] != "row" or maxb * G > AT._ROW_MAX_PAIRS
+                or smem > AT._ROW_MAX_SMEM or C > T // bt):
+            raise ValueError(f"no plan of cluster {C} at G={G} D={D} T={T}")
+        return dict(p, cluster=C, maxb=maxb, smem=smem, grid=B * KVH * C)
+    return plan
 
 
 # (name, staged, B, KVH, G, D, T, positions, dots)
@@ -333,9 +349,9 @@ def main() -> int:
                  else "flash_decode_inline_launch")
         news = (kn, vn) if staged else (None, None)
 
-        def call(i, **kw):
+        def call(i):
             return AT._launch_decode(entry, q, k, v, ks, vs, *news, i % Lk,
-                                     p, bt, dots, **kw)
+                                     p, bt, dots)
 
         _build._libs["flash_decode"] = prod
         ref = call(1)
@@ -393,17 +409,25 @@ def main() -> int:
             flush=True)
         abl = {}
         if args.ablate:
-            variants = [(n, kw, prod) for n, kw in ABLATIONS.items()]
-            variants += [(n, {}, lib) for n, lib in copies.items()]
-            for vname, kw, lib in variants:
+            variants = [(n, {"_row_decode_plan": forced_plan(AT, C)}, prod)
+                        for n, C in ABLATIONS.items()]
+            variants += [(n, consts, lib)
+                         for n, (lib, consts) in copies.items()]
+            for vname, consts, lib in variants:
                 _build._libs["flash_decode"] = lib
+                saved = {n: getattr(AT, n) for n in consts}
+                for n, val in consts.items():
+                    setattr(AT, n, val)
                 try:
-                    eq = bool(torch.equal(call(1, **kw), ref))
+                    eq = bool(torch.equal(call(1), ref))
+                    vms = _time_ms(torch, call, 50)
                 except ValueError as err:   # a plan the shapes cannot take
                     print(f"  ablation {vname}: {err}", flush=True)
                     continue
-                vms = _time_ms(torch, lambda i: call(i, **kw), 50)
-                _build._libs["flash_decode"] = prod
+                finally:
+                    for n, val in saved.items():
+                        setattr(AT, n, val)
+                    _build._libs["flash_decode"] = prod
                 base = 0.5 * (ms + _time_ms(torch, call, 50))
                 abl[vname] = dict(ms=vms, tree_ms=base, ratio=vms / base,
                                   equal=eq)

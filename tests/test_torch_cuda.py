@@ -1256,21 +1256,23 @@ def test_split_graph_replay_equals_eager(dev, dots):
 
 # the row kernel (csrc/flash_decode.cu) against the block-parallel kernel
 # at the same block: both compute the walk's function bit for bit.
-# (B, KVH, T, attended positions): one row over 4096 tokens at its last
-# position (clusters of 8 CTAs, two blocks each), mixed positions over 2048,
-# the bench shape, 260 rows, one 2000-token block (the walk) and 4-token
-# blocks (T 300)
+# (B, KVH, T, block, attended positions): one row over 4096 tokens at its
+# last position (clusters of 8 CTAs, two blocks each), mixed positions over
+# 2048, the bench shape, 260 rows, a 2000-token cache (125 blocks of 16
+# tokens; at G >= 4 more than eight CTAs' shared memory holds, the wrappers'
+# split route), 4-token blocks (T 300), and one 2000-token block (the walk)
 _ROW_SHAPES = [
-    (1, 2, 4096, [4095]),
-    (8, 2, 2048, [0, 1, 255, 256, 700, 1999, 2047, 2048]),
-    (8, 4, 256, [128, 128, 0, 1, 255, 256, 200, 129]),
-    (260, 1, 512, None),
-    (4, 2, 2000, [0, 1, 1000, 2000]),
-    (3, 2, 300, [0, 150, 300]),
+    (1, 2, 4096, None, [4095]),
+    (8, 2, 2048, None, [0, 1, 255, 256, 700, 1999, 2047, 2048]),
+    (8, 4, 256, None, [128, 128, 0, 1, 255, 256, 200, 129]),
+    (260, 1, 512, None, None),
+    (4, 2, 2000, None, [0, 1, 1000, 2000]),
+    (3, 2, 300, None, [0, 150, 300]),
+    (4, 2, 2000, 2000, [0, 1, 1000, 2000]),
 ]
 
 
-def _row_and_split(dev, seed, B, KVH, G, D, T, pos, dots, bt=None, **kw):
+def _row_and_split(dev, seed, B, KVH, G, D, T, pos, dots, bt=None):
     """(row kernel, split kernel) outputs, staged then inline, at the
     wrappers' block (resolve_block_t(256, T)) unless ``bt``."""
     rng = np.random.default_rng(seed)
@@ -1284,7 +1286,7 @@ def _row_and_split(dev, seed, B, KVH, G, D, T, pos, dots, bt=None, **kw):
         entry = ("flash_decode_staged_launch" if staged
                  else "flash_decode_inline_launch")
         news = args[5:] if staged else (None, None)
-        out = AT._launch_decode(entry, *args[:5], *news, 1, p, bt, dots, **kw)
+        out = AT._launch_decode(entry, *args[:5], *news, 1, p, bt, dots)
         ref = AT._launch_split(*args, 1, p, bt, dots, staged)
         got.append((out, ref))
     return got
@@ -1294,24 +1296,25 @@ def _row_and_split(dev, seed, B, KVH, G, D, T, pos, dots, bt=None, **kw):
 @pytest.mark.parametrize("G,D", [(1, 128), (4, 128), (7, 64), (8, 64)])
 @pytest.mark.parametrize("shape", range(len(_ROW_SHAPES)))
 def test_row_kernel_equals_split_kernel(dev, dots, G, D, shape):
-    B, KVH, T, pos = _ROW_SHAPES[shape]
+    B, KVH, T, bt, pos = _ROW_SHAPES[shape]
     for out, ref in _row_and_split(dev, 2000 + 10 * shape + G, B, KVH, G, D,
-                                   T, pos, dots):
+                                   T, pos, dots, bt=bt):
         assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("dots", ["i8", "f32"])
-@pytest.mark.parametrize("cluster,slots", [(1, 1), (1, 2), (2, 2), (3, 2),
-                                           (4, 1), (4, 3), (8, 2), (8, 4)])
-def test_row_kernel_forced_plans(dev, dots, cluster, slots):
-    # any cluster size and ring depth gives the same bits: GQA heads over
-    # 2048 tokens at mixed positions, and 16-token blocks (a window of 16
-    # blocks, several windows a CTA)
-    for G, T, bt in ((4, 2048, 256), (1, 512, 16)):
-        pos = [0, 1, 17, 300, 511, T - 1, T, 256]
-        for out, ref in _row_and_split(dev, 2100 + cluster, 8, 2, G, 128, T,
-                                       pos, dots, bt=bt, cluster=cluster,
-                                       slots=slots):
+@pytest.mark.parametrize("KVH,C", [(2, 8), (8, 4), (16, 3), (32, 2), (33, 1)])
+def test_row_kernel_cluster_sizes(dev, dots, KVH, C):
+    # every cluster size the plan takes gives the same bits: B 8 rows over 8
+    # blocks (GQA heads over 2048 tokens; one head over 128 in 16-token
+    # blocks) at mixed positions, the cluster set by the streams
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for G, T, bt in ((4, 2048, 256), (1, 128, 16)):
+        plan = AT._row_decode_plan(8, KVH, G, 128, T, bt, sms)
+        assert plan["cluster"] == C, f"{sms} SMs: {plan}"
+        pos = [0, 1, 17, T // 3, T // 2, T - 1, T, bt]
+        for out, ref in _row_and_split(dev, 2100 + C, 8, KVH, G, 128, T,
+                                       pos, dots, bt=bt):
             assert torch.equal(out, ref), G
 
 
@@ -1350,19 +1353,50 @@ def test_row_kernel_graph_and_second_stream(dev):
 
 
 def test_row_plan_shared_memory_mirror(dev):
-    # the plan's shared memory is the kernel's layout, and the default plans
-    # of the main paths' shapes take the row kernel
-    lib = _build.library("flash_decode")
+    # the launch refuses a plan whose shared memory is not the kernel's own
+    # count, so each launch holds the plan's mirror to the layout: the
+    # default plans of the main paths' shapes, and the longest caches of
+    # Llama-3-8B's and Qwen2-0.5B's heads the row kernel takes, run it and
+    # equal the split kernel
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, KVH, G, D, T in ((8, 32, 1, 128, 256), (8, 8, 4, 128, 2048),
                             (1, 32, 1, 128, 4096), (8, 2, 7, 64, 2048),
-                            (3, 2, 8, 64, 300), (2, 1, 8, 16, 64)):
+                            (3, 2, 8, 64, 300), (2, 1, 8, 16, 64),
+                            (2, 8, 4, 128, 16384), (8, 2, 7, 64, 14336)):
         bt = AT.resolve_block_t(256, T)
         plan = AT._row_decode_plan(B, KVH, G, D, T, bt, sms)
         assert plan["route"] == "row", (B, KVH, G, D, T)
-        assert plan["smem"] == lib.flash_decode_row_smem(
-            G, D, bt, plan["maxb"], plan["nbw"], plan["slots"],
-            plan["cluster"])
+        pos = np.linspace(0, T, B).astype(int).tolist()
+        for out, ref in _row_and_split(dev, 2400 + T, B, KVH, G, D, T, pos,
+                                       "i8"):
+            assert torch.equal(out, ref), (B, KVH, G, D, T)
+
+
+def test_row_kernel_long_cache_takes_split_route(dev):
+    # past the row kernel's shared memory (Qwen2-0.5B's heads over 16384
+    # tokens, Llama-3-8B's over 16640) the wrappers launch the split kernel
+    # and count the launch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, KVH, G, D, T, bt in ((2, 2, 7, 64, 16384, 256),
+                                (2, 8, 4, 128, 16640, 256)):
+        assert AT._row_decode_plan(B, KVH, G, D, T, bt, sms)["route"] == \
+            "split"
+        rng = np.random.default_rng(2500 + T)
+        args = [a.to(dev) for a in _decode_inputs(rng, 2, B, KVH, G, D, T)]
+        pos = torch.tensor([T // 2, T], dtype=torch.int32, device=dev)
+        before = (AT.flash_decode_q8_staged.launches,
+                  AT.flash_decode_q8.launches)
+        staged = AT.flash_decode_q8_staged(*args, 1, pos, block_t=bt,
+                                           dots="i8")
+        inline = AT.flash_decode_q8(*args[:5], 1, pos, block_t=bt,
+                                    dots="i8")
+        assert (AT.flash_decode_q8_staged.launches,
+                AT.flash_decode_q8.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+        assert torch.equal(staged, AT._launch_split(*args, 1, pos, bt, "i8",
+                                                    True))
+        assert torch.equal(inline, AT._launch_split(*args, 1, pos, bt, "i8",
+                                                    False))
 
 
 def test_row_kernel_rules(dev):
@@ -1373,11 +1407,19 @@ def test_row_kernel_rules(dev):
         AT.flash_decode_q8_staged(*args, 1, pos)
     with pytest.raises(ValueError, match="csrc/flash_decode_split.cu takes"):
         AT.flash_decode_q8_ab(*args, 1, pos, staged=True)
+    # a plan whose shared memory differs from the kernel's layout is refused
+    # (cudaErrorInvalidValue) before anything is launched
     args = [a.to(dev) for a in _decode_inputs(rng, 2, 2, 2, 1, 64, 512)]
-    # a forced plan that does not fit raises; the wrapper never launches one
-    with pytest.raises(ValueError, match="cannot take"):
-        AT._launch_decode("flash_decode_inline_launch", *args[:5], None,
-                          None, 1, pos, 512, "i8", cluster=1)
+    plan = AT._row_decode_plan(2, 2, 1, 64, 512, 256, 132)
+    out = torch.empty((2, 2, 1, 64), device=dev)
+    ptrs = [t.data_ptr() for t in args[:5]] + [pos.data_ptr(),
+                                               out.data_ptr()]
+    lib = _build.library("flash_decode")
+    for smem in (plan["smem"] + 128, plan["smem"] - 128):
+        err = lib.flash_decode_inline_launch(
+            *ptrs, 2, 2, 1, 64, 512, 256, 0.125, 2, plan["cluster"],
+            plan["nbw"], plan["maxb"], smem, _build.stream_ptr(dev))
+        assert err == 1, smem
 
 
 def test_paged_engine_on_card_counts_launches(dev):

@@ -7,10 +7,8 @@ The kernel runs only on the card (``tests/test_torch_cuda.py``); here the
 plan is held to what the kernel relies on: every live block of every stream
 falls in exactly one CTA's contiguous range, in block order; the cluster
 size is 1-8 and comes from shapes alone; the shared memory fits; blocks
-over 256 tokens take the walk. A numpy model of the kernel's arithmetic
-(one CTA's blocks: logits' maxima, then the running maxima from the CTAs
-before it, each block's pieces, then the ordered chain) gives the
-sequential walk's bits on the plans' ranges.
+over 256 tokens take the walk, and caches of shorter blocks longer than
+eight CTAs' shared memory holds the block-parallel kernel.
 """
 
 import numpy as np
@@ -21,13 +19,15 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.ops import attention as AT
 SMS = 132
 
 # (B, KVH, G, D, T): the bench shape, Llama-2-7B over 512, 2048 and 4096
-# tokens, one row and 32 rows, Llama-3-8B's and Qwen2-0.5B's GQA heads, odd
-# caches (blocks of 4 and 8 tokens), tiny widths
+# tokens, one row and 32 rows, Llama-3-8B's and Qwen2-0.5B's GQA heads (also
+# at the longest caches the row kernel takes), odd caches (blocks of 4 and 8
+# tokens), tiny widths
 SHAPES = [
     (8, 32, 1, 128, 256), (8, 32, 1, 128, 512), (8, 32, 1, 128, 2048),
     (1, 32, 1, 128, 4096), (32, 32, 1, 128, 256), (8, 8, 4, 128, 2048),
     (8, 2, 7, 64, 2048), (3, 2, 8, 64, 300), (2, 2, 1, 128, 1000),
     (260, 2, 2, 64, 512), (1, 1, 8, 16, 64), (6, 2, 7, 32, 2048),
+    (8, 8, 4, 128, 16384), (8, 2, 7, 64, 14336),
 ]
 
 
@@ -74,7 +74,7 @@ def test_plan_comes_from_shapes_only(shape):
     assert (AT._row_decode_plan(2 * B, KVH, G, D, T, bt, SMS)["cluster"]
             <= plan["cluster"])
     assert plan["smem"] == AT._row_smem(G, D, bt, plan["maxb"], plan["nbw"],
-                                        plan["slots"], plan["cluster"])
+                                        plan["cluster"])
 
 
 @pytest.mark.parametrize("T,bt", [(2000, 2000), (4096, 512), (1024, 1024)])
@@ -82,108 +82,39 @@ def test_blocks_over_256_tokens_take_the_walk(T, bt):
     plan = AT._row_decode_plan(4, 2, 1, 128, T, bt, SMS)
     assert plan["route"] == "walk" and plan["cluster"] == 0
     assert plan["grid"] == 8
-    with pytest.raises(ValueError, match="cannot take"):
-        AT._row_decode_plan(4, 2, 1, 128, T, bt, SMS, cluster=2)
 
 
-def test_long_caches_of_small_blocks_take_the_walk():
+def test_long_caches_of_small_blocks_take_the_split_kernel():
     # 1-token blocks over 2048 tokens: 256 blocks a CTA even at 8 CTAs, over
     # the pairs a CTA's shared memory holds
     plan = AT._row_decode_plan(2, 2, 1, 128, 2048, 1, SMS)
-    assert plan["route"] == "walk"
+    assert plan["route"] == "split"
     assert AT._row_decode_plan(2, 2, 1, 128, 2048, 16, SMS)["route"] == "row"
 
 
-@pytest.mark.parametrize("cluster,slots", [(1, 1), (3, 2), (8, 4), (5, 4)])
-def test_forced_plans(cluster, slots):
-    plan = AT._row_decode_plan(8, 8, 4, 128, 2048, 256, SMS, cluster=cluster,
-                               slots=slots)
-    assert (plan["cluster"], plan["slots"]) == (cluster, slots)
-    assert plan["maxb"] == -(-8 // cluster)
-    with pytest.raises(ValueError, match="cannot take"):
-        AT._row_decode_plan(8, 8, 4, 128, 2048, 256, SMS, cluster=9)
+# (KVH, G, D, the longest cache of 256-token blocks the row kernel takes at
+# B 8 on 132 SMs): Llama-2-7B's, Llama-3-8B's and Qwen2-0.5B's heads; the
+# numbers the plan's docstring states
+@pytest.mark.parametrize("KVH,G,D,limit", [(32, 1, 128, 57344),
+                                           (8, 4, 128, 16384),
+                                           (2, 7, 64, 14336)])
+def test_long_caches_take_the_split_kernel(KVH, G, D, limit):
+    for T in (limit - 256, limit):
+        plan = AT._row_decode_plan(8, KVH, G, D, T, 256, SMS)
+        assert plan["route"] == "row" and plan["cluster"] >= 7
+        assert plan["smem"] <= AT._ROW_MAX_SMEM
+    for T in (limit + 256, 4 * limit):
+        assert AT._row_decode_plan(8, KVH, G, D, T, 256, SMS) == dict(
+            route="split", cluster=0, nbw=0, maxb=0, smem=0, grid=0)
 
 
-# -- a numpy model of the kernel's arithmetic against the walk ------------
-
-def _pieces(lg, vs, v, m_prev, m_t):
-    """One block's (alpha, tot, contrib) as the walk forms them (f32,
-    numpy's own exp on both sides): p in token order, the lane chains of
-    the sum, the four token chains of p @ V."""
-    alpha = np.exp(np.float32(m_prev - m_t), dtype=np.float32)
-    p = np.exp((lg - m_t).astype(np.float32), dtype=np.float32)
-    lanes = np.zeros(32, np.float32)
-    for i, x in enumerate(p):
-        lanes[i % 32] = np.float32(lanes[i % 32] + x)
-    for off in (16, 8, 4, 2, 1):
-        lanes = (lanes + lanes[np.arange(32) ^ off]).astype(np.float32)
-    pv = (p * vs).astype(np.float32)
-    chains = np.zeros((4, v.shape[1]), np.float32)
-    for i in range(len(p)):
-        chains[i % 4] = (chains[i % 4] + pv[i] * v[i]).astype(np.float32)
-    contrib = np.float32(0) + chains[0]
-    for c in range(1, 4):
-        contrib = (contrib + chains[c]).astype(np.float32)
-    return alpha, lanes[0], contrib
-
-
-def _walk(lg, vs, v, bt, n):
-    m, s = np.float32(-1e30), np.float32(0)
-    acc = np.zeros(v.shape[1], np.float32)
-    for t0 in range(0, n, bt):
-        sl = slice(t0, min(t0 + bt, n))
-        mt = max(m, lg[sl].max())
-        alpha, tot, contrib = _pieces(lg[sl], vs[sl], v[sl], m, mt)
-        acc = (acc * alpha + contrib).astype(np.float32)
-        s = np.float32(s * alpha + tot)
-        m = mt
-    return acc, s, m
-
-
-def _cluster(lg, vs, v, bt, n, plan):
-    nb = -(-n // bt) if n > 0 else 0
-    ranges = AT._row_ranges(plan, nb)
-    # each CTA: its blocks' maxima, published; then, from the CTAs before
-    # it, the running max and each block's pieces
-    bmax = [[lg[j * bt:min((j + 1) * bt, n)].max() for j in range(lo, hi)]
-            for lo, hi in ranges]
-    cmax = [max([np.float32(-1e30)] + b) for b in bmax]
-    blocks = []
-    for r, (lo, hi) in enumerate(ranges):
-        m = max([np.float32(-1e30)] + cmax[:r])
-        for j, bm in zip(range(lo, hi), bmax[r]):
-            sl = slice(j * bt, min((j + 1) * bt, n))
-            mt = max(m, bm)
-            blocks.append((mt,) + _pieces(lg[sl], vs[sl], v[sl], m, mt))
-            m = mt
-    # the first CTA chains them in block order
-    m, s = np.float32(-1e30), np.float32(0)
-    acc = np.zeros(v.shape[1], np.float32)
-    for mt, alpha, tot, contrib in blocks:
-        acc = (acc * alpha + contrib).astype(np.float32)
-        s = np.float32(s * alpha + tot)
-        m = mt
-    return acc, s, m
-
-
-@pytest.mark.parametrize("T,bt,G,n", [(2048, 256, 4, 2048), (2048, 256, 4, 1),
-                                      (4096, 256, 1, 4096), (512, 16, 1, 300),
-                                      (300, 4, 2, 299), (2048, 256, 4, 0)])
-def test_cluster_split_gives_the_walks_bits(T, bt, G, n):
-    rng = np.random.default_rng(T + bt + n)
-    lg = (rng.normal(size=T) * 3).astype(np.float32)
-    vs = rng.uniform(0.001, 0.02, size=T).astype(np.float32)
-    v = rng.integers(-127, 128, size=(T, 8)).astype(np.float32)
-    ref = _walk(lg, vs, v, bt, n)
-    checked = 0
-    for C in (None, 1, 2, 3, 8):
-        try:
-            plan = AT._row_decode_plan(8 if C is None else 1, 8, G, 128, T,
-                                       bt, SMS, cluster=C)
-        except ValueError:          # a cluster too small for the cache
-            continue
-        got = _cluster(lg, vs, v, bt, n, plan)
-        assert np.array_equal(got[0], ref[0]) and got[1] == ref[1]
-        assert got[2] == ref[2]
-        checked += 1
-    assert checked >= 3
+# (KVH, the cluster the plan takes): B 8 rows over 8 blocks (GQA heads over
+# 2048 tokens in 256-token blocks, one head over 128 in 16-token blocks) on
+# 132 SMs; the card tests reach each cluster size with these shapes
+@pytest.mark.parametrize("KVH,C", [(2, 8), (8, 4), (16, 3), (32, 2), (33, 1)])
+def test_cluster_sizes_from_streams(KVH, C):
+    for G, T, bt in ((4, 2048, 256), (1, 128, 16)):
+        plan = AT._row_decode_plan(8, KVH, G, 128, T, bt, SMS)
+        assert plan["route"] == "row" and plan["cluster"] == C
+        assert plan["grid"] == 8 * KVH * C
+        assert plan["maxb"] == -(-(T // bt) // C)
