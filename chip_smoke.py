@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (W4A8 decode and its options, prefill, the serving
-engines and the unfused compressed-model path) on one NVIDIA GPU.
+engines, the unfused compressed-model path and the compression pipeline) on
+one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
@@ -162,6 +163,16 @@ caught):
    megastep's entry of the kernel table adds its cooperative grid (``ctas``,
    ``ctas_per_sm``) and the ``-Xptxas -v`` lines of both builds
    (``ptxas``).
+11. The compression pipeline (``phase_compress``, after phase 6): a dense
+   Llama-2-7B-width, 2-layer model from ``llama.init_params(0)``, full
+   Hessians over 4 x 2 x 512 tokens, ``compress_model`` of layer 0 (LDLQ)
+   and layer 1 (RTN) at 4 bits with rank-128 factors in w4a8 mode, every
+   stage timed per projection (eigh, LPLR update, LDLQ sweep and its
+   launches) and every error held under the gate and to the solver's
+   Q-only error; layer 0's o_proj on the card against the CPU; one
+   projection on the E8 lattice through the flat W4A8 kernel; a
+   checkpoint round trip; 8 steps of the main path on the compressed
+   model (each launch against its plain version) and a perplexity window.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -3960,6 +3971,616 @@ def _perplexity_w4a8(torch, dev, views, config, counters, names):
                              f"{want}) at M {Ms}")
 
 
+# The compression phase's settings (phase 11). The alternation runs
+# COMPRESS_ITERS iterations (Q, then L and R from the residual): the fewest
+# that keep the phase near two minutes on the card. 4 x 2 x 512 calibration
+# tokens leave the full Hessians singular at n = 11008 (and nearly so at
+# 4096), and the un-whitening of R divides by the square roots of their
+# eigenvalues: COMPRESS_SIGMA_REG lifts the smallest to it.
+COMPRESS_ITERS = 1
+COMPRESS_SIGMA_REG = 1e-2
+# o_proj of layer 0 solved on the card and on the CPU from the same W and
+# H: cuSOLVER against LAPACK and sums in another order, and an LDLQ code on
+# a rounding edge that rounds the other way and is carried along its row.
+# Bound on the difference of the activation-aware errors, relative.
+COMPRESS_CPU_RTOL = 1e-2
+# The RTN layer's served form is the per-row 4-bit RTN of W - L @ R, with
+# L @ R fitted to the rounding of the solver's global grid: on random
+# weights it moves the per-row RTN error of W by a fraction of a percent
+# either way (read on an H100 over the 7 projections: from 0.13% better to
+# 0.38% worse), so the served errors are held within 1% of the serving
+# grid's rank-0 form, the per-row RTN of W. The factors' work is held on
+# the LDLQ layer, whose served Q keeps the sweep's codes.
+COMPRESS_ROW_RTOL = 1e-2
+# The compressed model's decode step against the plain step from the same
+# cache. Every launch is held to its plain version on the same operands
+# (W4A8 and head bit-equal, attention within 1e-4). The attention's expf
+# ulps (6e-8 rel) reach the residual stream through the o_proj input's
+# row scale (its codes stay equal) and round later int8 activation codes
+# the other way, and the flips cascade. The phase shows the cause: the
+# plain step fed the kernels' attention outputs agrees within KERN_REL
+# (read on an H100: 0 at every step), a step where no activation code
+# flipped agrees within KERN_REL (read: 0), and the flipped codes are
+# counted per call. Reading of the plain comparison on an H100: 1.152e-2
+# at worst over 8 steps (4428 flips in the head's input); bound about
+# twice that.
+COMPRESS_DRIFT_REL = 2.5e-2
+
+
+class _CompressWatch:
+    """Within this context the compression stages are timed on the host
+    clock between synchronisations (``ms[stage]``: (key, ms) per call):
+    ``lowrank.regularized_eigh`` ("eigh", by n), ``caldera._update_LR``
+    (one LPLR update) and ``caldera.ldlq_quantize`` (one LDLQ sweep). Each
+    ``caldera.caldera_core`` first keeps the solver's Q-only reconstruction
+    of its W at the same bits (its Q rule on W alone: the global-scale RTN,
+    or LDLQ through the same U), the rank-0 error the projection is held
+    to (``q_only``; its time apart, "q_only")."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {"eigh": [], "lplr": [], "ldlq": [], "q_only": []}
+        self.q_only = []
+
+    def _timed(self, stage, fn, key):
+        torch = self.torch
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[stage].append((key(*args),
+                                   1e3 * (time.perf_counter() - t0)))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        from ee274_convexcaldera_llm_quantization_tpu_torch.decomp import (
+            caldera as C, lowrank as LR)
+        self.saved = [(LR, "regularized_eigh", LR.regularized_eigh),
+                      (C, "_update_LR", C._update_LR),
+                      (C, "ldlq_quantize", C.ldlq_quantize),
+                      (C, "caldera_core", C.caldera_core)]
+        ldlq, core = C.ldlq_quantize, C.caldera_core
+        LR.regularized_eigh = self._timed("eigh", LR.regularized_eigh,
+                                          lambda H, *_: H.shape[0])
+        C._update_LR = self._timed("lplr", C._update_LR,
+                                   lambda p, res, *_: tuple(res.shape))
+        C.ldlq_quantize = self._timed("ldlq", ldlq,
+                                      lambda A, *_: tuple(A.shape))
+
+        def core_keeping_q_only(params, W, H, H_sqrt, eigH, U, *rest):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if params.q_update == "ldlq":
+                q = ldlq(W, U, params.Q_bits)     # not the solve's sweep
+            else:
+                q = C._quantize_qd(W, params.Q_bits, params.quant_factory_Q)
+            self.q_only.append(q)
+            self.torch.cuda.synchronize()
+            self.ms["q_only"].append((tuple(W.shape),
+                                      1e3 * (time.perf_counter() - t0)))
+            return core(params, W, H, H_sqrt, eigH, U, *rest)
+
+        C.caldera_core = core_keeping_q_only
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+        return False
+
+
+class _TapCalls:
+    """Within this context the modules in ``holders`` see their kernels
+    module through a proxy: each wrapper named in ``taps`` (``{name:
+    tap}``; under ``_PlainKernels`` the plain version) is called as
+    ``tap(fn, *args, **kw)``."""
+
+    def __init__(self, holders, taps):
+        self.holders, self.taps = holders, taps
+
+    def __enter__(self):
+        taps = self.taps
+
+        class Proxy:
+            def __init__(self, module):
+                self._module = module
+
+            def __getattr__(self, name):
+                fn = getattr(self._module, name)
+                if name not in taps:
+                    return fn
+                return lambda *args, **kw: taps[name](fn, *args, **kw)
+
+        self.saved = [(m, a, getattr(m, a)) for m, a in self.holders]
+        for m, a, real in self.saved:
+            setattr(m, a, Proxy(real))
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, real in self.saved:
+            setattr(m, a, real)
+        return False
+
+
+class _CheckCalls(_TapCalls):
+    """Within this context the modules in ``holders`` (``(module, alias)``:
+    ``fused.K`` and so on) see their kernels module through a proxy
+    (``_TapCalls``): each wrapper named in ``checks`` (``{name: (plain,
+    how)}``) runs as it is (its launch counter stays its own), then its
+    plain version runs on the same operands: "exact" holds the two
+    outputs equal bit for bit, "attn" to phase 2's bound for a decode
+    kernel (``_attn_ok``). Keeps ``calls`` and the largest rel-Frobenius
+    difference (``worst``) per name, every failure (``bad``), and each
+    call's first operand and output in order (``inputs``, ``outputs``)."""
+
+    def __init__(self, torch, holders, checks):
+        super().__init__(holders, {name: self._checked(name)
+                                   for name in checks})
+        self.torch, self.checks = torch, checks
+        self.calls = dict.fromkeys(checks, 0)
+        self.worst = dict.fromkeys(checks, 0.0)
+        self.bad = []
+        self.inputs = {name: [] for name in checks}
+        self.outputs = {name: [] for name in checks}
+
+    def _checked(self, name):
+        def checked(fn, *args, **kw):
+            torch = self.torch
+            plain, how = self.checks[name]
+            out = fn(*args, **kw)
+            ref = plain(*args, **kw)
+            rel = float(torch.linalg.norm(out - ref)
+                        / torch.linalg.norm(ref))
+            if how == "exact":
+                ok, text = bool(torch.equal(out, ref)), "bit-equal"
+            else:
+                ok, text = _attn_ok(torch, out, ref, kw.get("dots", "f32"))
+            self.calls[name] += 1
+            self.worst[name] = max(self.worst[name], rel)
+            self.inputs[name].append(args[0])
+            self.outputs[name].append(out)
+            if not ok:
+                self.bad.append(f"{name}: {text} (rel {rel:.3e})")
+            return out
+        return checked
+
+
+def _aa_error(torch, W, W_hat, H) -> float:
+    """``sqrt(tr(E H E^T) / tr(W H W^T))``, E = W_hat - W (the solver's
+    activation-aware error), in f32 on the tensors' device."""
+    E = W_hat - W
+    return float(torch.sqrt(((E @ H) * E).sum() / ((W @ H) * W).sum()))
+
+
+def _fro_error(torch, W, W_hat) -> float:
+    return float(torch.linalg.norm(W_hat - W) / torch.linalg.norm(W))
+
+
+def _leaves(obj, prefix="", out=None):
+    """Every field of nested dataclasses and lists, keyed by path."""
+    out = {} if out is None else out
+    if isinstance(obj, list):
+        for i, o in enumerate(obj):
+            _leaves(o, f"{prefix}.{i}", out)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            _leaves(getattr(obj, f.name), f"{prefix}.{f.name}", out)
+    else:
+        out[prefix] = obj
+    return out
+
+
+def phase_compress(torch, dev, config):
+    """The compression pipeline on the card (phase 11), at ``config``'s
+    widths (Llama-2-7B, 2 layers):
+
+    (a) dense params from ``llama.init_params(0)``; full Hessians of every
+    projection (``collect_hessians(diag=False)``) over 4 seeded batches of
+    2 x 512 tokens;
+    (b) ``compress_model`` of layer 0 with LDLQ and layer 1 with RTN (4-bit
+    Q, 16-bit rank-128 factors, w4a8 serving), per projection: the eigh at
+    its n, one LPLR update, one LDLQ sweep, the total, the relative
+    Frobenius and activation-aware errors, each held finite and under the
+    0.99 gate; the LDLQ layer's activation-aware error held no worse than
+    the same sweep without factors (Q-only) and than the serving grid's
+    per-row 4-bit RTN of W, the RTN layer's two errors within
+    ``COMPRESS_ROW_RTOL`` of that per-row RTN; the launches of one LDLQ
+    sweep at n 4096 as ``torch.profiler`` counts them;
+    (c) layer 0's o_proj solved on the card and on the CPU from the same W
+    and H, activation-aware errors within ``COMPRESS_CPU_RTOL``;
+    (d) layer 1's o_proj with ``serving_quant="e8p"`` (2-bit E8 lattice,
+    served as int4 plus a rank-1 offset) through ``apply_linear`` at M 8 and
+    1024: the flat W4A8 kernel (row 2) against its plain version;
+    (e) ``save_params`` -> ``load_params`` of the compressed model (with
+    (d)'s e8p o_proj in layer 1) through a temporary directory, every array
+    equal;
+    (f) the main path: ``stack_layers`` -> ``fuse_stacked`` ->
+    ``quantize_factors_int8_fused`` (the head by ``quantize_linear_int8``),
+    8 steps of ``decode_step_fused(staged_kv="uniform", attn_dots="i8",
+    attn_kernel="row", proj_kernel="grid")`` at B 8, each with its exact
+    launches (rows 3, 11, 9) and every launch against its plain version on
+    the same operands (``_CheckCalls``: W4A8 and head bit for bit, the
+    attention within phase 2's bound); the logits held within
+    ``KERN_REL`` of the plain step fed the kernels' attention outputs,
+    within ``COMPRESS_DRIFT_REL`` of the plain step from the same cache
+    (``KERN_REL`` where no int8 activation code flipped), the flipped codes
+    counted per call;
+    (g) one 1024-token ``evaluate_perplexity`` window of the compressed
+    unfused model (int8 head): 14 flat W4A8 launches and one int8 head
+    launch (rows 2, 9), equal to the plain versions' perplexity; the dense
+    model's beside it."""
+    import tempfile
+
+    from ee274_convexcaldera_llm_quantization_tpu_torch.calibrate import (
+        hessian)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.decomp.caldera import (
+        CalderaParams, caldera, ldlq_precompute, ldlq_quantize)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.evalm import (
+        perplexity)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, fused, llama, stacked, surgery)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.quant.quantizers \
+        import QuantizerFactory
+    from ee274_convexcaldera_llm_quantization_tpu_torch.utils import (
+        checkpoint)
+
+    card = _card_line()
+    L = config.num_layers
+    t_phase = time.perf_counter()
+
+    # (a) the dense model and its Hessians
+    t0 = time.perf_counter()
+    dense = llama.init_params(0, config, device=dev)
+    gen = torch.Generator().manual_seed(13)
+    batches = [torch.randint(0, config.vocab_size, (2, 512), generator=gen)
+               for _ in range(4)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hessians = hessian.collect_hessians(dense, batches, config, diag=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"compress (a) Llama-2-7B width, {L} layers: dense params in "
+          f"{t1 - t0:.2f} s; {len(hessians)} full Hessians (f64) over 4 "
+          f"batches of 2 x 512 tokens in {t2 - t1:.2f} s (on {card})",
+          flush=True)
+
+    # (b) compress each layer, all 7 projections
+    base = dict(Q_bits=4, L_bits=16, R_bits=16, rank=128,
+                iters=COMPRESS_ITERS, lplr_iters=1,
+                sigma_reg=COMPRESS_SIGMA_REG)
+    print(f"compress (b) settings: {base}", flush=True)
+    model = dense
+    for layer, q_update in ((0, "ldlq"), (1, "rtn")):
+        cp = CalderaParams(q_update=q_update, **base)
+        ends = []
+
+        def done(name, err):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        with _CompressWatch(torch) as watch:
+            t0 = time.perf_counter()
+            model, report = surgery.compress_model(
+                model, cp, hessians=hessians, layer_range=(layer, layer),
+                serving_mode="w4a8", progress=done)
+        names = list(report.errors)
+        if report.skipped or len(report.compressed) != 7:
+            raise AssertionError(f"compress (b) layer {layer}: skipped "
+                                 f"{report.skipped}")
+        prev = t0
+        for j, name in enumerate(names):
+            proj = name.split(".")[-1]
+            W = getattr(dense.layers[layer], proj).w.float()
+            H = hessians[name].float()
+            W_hat = getattr(model.layers[layer], proj).materialize()
+            Wq = watch.q_only[j]
+            packed, scales = K.pack_rowscale(W, 4)
+            Wrow = (K.unpack_codes(packed, 4).float() - 7) * scales
+            lin = getattr(model.layers[layer], proj)
+            Lf, Rf = lin.factors()
+            LR = lin.global_scale * (Lf.float() @ Rf.float())
+            errs = dict(fro=report.errors[name],
+                        aa=_aa_error(torch, W, W_hat, H),
+                        fro_q=_fro_error(torch, W, Wq),
+                        aa_q=_aa_error(torch, W, Wq, H),
+                        fro_row=_fro_error(torch, W, Wrow),
+                        aa_row=_aa_error(torch, W, Wrow, H))
+            lr_share = float(torch.linalg.norm(LR) / torch.linalg.norm(W))
+            n_eigh, eigh_ms = watch.ms["eigh"][j]
+            lplr_ms = watch.ms["lplr"][j][1]
+            ldlq = (f", one LDLQ sweep {watch.ms['ldlq'][j][1]:.1f} ms"
+                    if q_update == "ldlq" else "")
+            extra = watch.ms["q_only"][j][1] / 1e3
+            print(f"compress (b) {name} {tuple(W.shape)} {q_update}: eigh "
+                  f"at n {n_eigh} {eigh_ms:.1f} ms, one LPLR update "
+                  f"{lplr_ms:.1f} ms{ldlq}; total "
+                  f"{ends[j] - prev - extra:.2f} s (and {extra:.2f} s for "
+                  f"the Q-only comparison); "
+                  f"rel-Frobenius {errs['fro']:.4f} (Q-only "
+                  f"{errs['fro_q']:.4f}, per-row RTN {errs['fro_row']:.4f}),"
+                  f" activation-aware {errs['aa']:.4f} (Q-only "
+                  f"{errs['aa_q']:.4f}, per-row RTN {errs['aa_row']:.4f}); "
+                  f"served / per-row RTN: rel-Frobenius "
+                  f"{errs['fro'] / errs['fro_row']:.4f}, activation-aware "
+                  f"{errs['aa'] / errs['aa_row']:.4f}; |gs L R| / |W| "
+                  f"{lr_share:.4f}", flush=True)
+            prev = ends[j]
+            if q_update == "ldlq":
+                # the factors' work: the same sweep and U without them
+                # (Q-only, the same per-row grid), and the serving grid's
+                # per-row RTN of W, in the error the sweep minimises
+                held = (errs["aa"] <= errs["aa_q"]
+                        and errs["aa"] <= errs["aa_row"])
+            else:
+                # the per-row RTN of W - L @ R against that of W
+                bound = 1 + COMPRESS_ROW_RTOL
+                held = (errs["fro"] <= bound * errs["fro_row"]
+                        and errs["aa"] <= bound * errs["aa_row"])
+            if not (all(math.isfinite(e) for e in errs.values())
+                    and errs["fro"] <= 0.99 and errs["aa"] <= 0.99
+                    and held):
+                raise AssertionError(f"compress (b) {name}: errors {errs}")
+        extra = sum(ms for _, ms in watch.ms["q_only"]) / 1e3
+        print(f"compress (b) layer {layer} ({q_update}): "
+              f"{ends[-1] - t0 - extra:.1f} s for its 7 projections (and "
+              f"{extra:.1f} s for the Q-only comparisons), "
+              f"{report.avg_bits_per_param:.4f} bits per parameter (on "
+              f"{card})", flush=True)
+        del watch, W, H, W_hat, Wq, Wrow, lin, LR
+    # the launches of one LDLQ sweep at n 4096 (o_proj of layer 0)
+    W = dense.layers[0].o_proj.w.float()
+    H = hessians["layers.0.o_proj"].float()
+    U = ldlq_precompute(H + COMPRESS_SIGMA_REG * torch.eye(
+        H.shape[0], device=dev))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ldlq_quantize(W, U, 4)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"compress (b) one LDLQ sweep of layers.0.o_proj "
+          f"{tuple(W.shape)} (panels of 256): {kernels} kernel launches "
+          f"seen by torch.profiler", flush=True)
+    del U
+
+    # (c) layer 0's o_proj on the card and on the CPU
+    cp = CalderaParams(q_update="ldlq", **base)
+    t0 = time.perf_counter()
+    d_card = caldera(cp, W, H, scale_W=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    Wc, Hc = W.cpu(), H.cpu()
+    d_cpu = caldera(cp, Wc, Hc, scale_W=False)
+    t2 = time.perf_counter()
+    e_card = _aa_error(torch, W, d_card.reconstruct(), H)
+    e_cpu = _aa_error(torch, Wc, d_cpu.reconstruct(), Hc)
+    f_card = _fro_error(torch, W, d_card.reconstruct())
+    f_cpu = _fro_error(torch, Wc, d_cpu.reconstruct())
+    print(f"compress (c) layers.0.o_proj {tuple(W.shape)} (LDLQ, iters "
+          f"{COMPRESS_ITERS}) through caldera: card {t1 - t0:.2f} s, CPU "
+          f"({torch.get_num_threads()} threads) {t2 - t1:.2f} s; "
+          f"activation-aware error card {e_card:.6f}, CPU {e_cpu:.6f} (rel "
+          f"diff {abs(e_card - e_cpu) / e_cpu:.2e}, bound "
+          f"{COMPRESS_CPU_RTOL:g}); rel-Frobenius card {f_card:.6f}, CPU "
+          f"{f_cpu:.6f}", flush=True)
+    if not abs(e_card - e_cpu) <= COMPRESS_CPU_RTOL * e_cpu:
+        raise AssertionError("compress (c): the card's solve disagrees "
+                             "with the CPU's")
+    del d_card, d_cpu, Wc, Hc
+
+    # (d) one projection on the E8 lattice, served by the flat W4A8 kernel
+    cp8 = CalderaParams(q_update="rtn", quant_factory_Q=QuantizerFactory(
+        method="e8p", block_size="global"), **dict(base, Q_bits=2))
+    t0 = time.perf_counter()
+    e8, rep8 = surgery.compress_model(
+        dense, cp8, hessians=hessians, layer_range=(1, 1),
+        proj_filter=("o_proj",), serving_mode="w4a8", serving_quant="e8p")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lin8 = e8.layers[1].o_proj
+    if not (isinstance(lin8, CM.CalderaLinear) and lin8.q_method == "e8p"
+            and lin8.L.shape[1] == base["rank"] + 1):
+        raise AssertionError(f"compress (d): not an e8p linear: {lin8}")
+    W = dense.layers[1].o_proj.w.float()
+    H = hessians["layers.1.o_proj"].float()
+    aa8 = _aa_error(torch, W, lin8.materialize(), H)
+    gen = torch.Generator().manual_seed(14)
+    for M in (8, 1024):
+        x = torch.randn((M, config.hidden_size), generator=gen).to(dev)
+        K.quantized_matmul_w4a8.launches = 0
+        y = CM.apply_linear(lin8, x)
+        launched = K.quantized_matmul_w4a8.launches
+        with _PlainKernels():
+            yp = CM.apply_linear(lin8, x)
+        e = _rel(torch, y, yp)
+        print(f"compress (d) layers.1.o_proj on the E8 lattice (2 bits a "
+              f"weight, {rep8.avg_bits_per_param:.4f} bits per parameter "
+              f"with the factors): compressed in {t1 - t0:.2f} s, "
+              f"rel-Frobenius {rep8.errors['layers.1.o_proj']:.4f}, "
+              f"activation-aware {aa8:.4f}; apply_linear at M {M}: "
+              f"{launched} flat W4A8 launch, against the plain version on "
+              f"the card rel-Frobenius {e:.3e} (bound {KERN_REL:g})",
+              flush=True)
+        if launched != 1 or not e <= KERN_REL:
+            raise AssertionError("compress (d): the e8p linear's kernel "
+                                 "disagrees with its plain version")
+    del e8, W, H
+
+    # (e) the checkpoint round trip, with (d)'s e8p o_proj in layer 1
+    ck = dataclasses.replace(model, layers=[
+        model.layers[0], dataclasses.replace(model.layers[1], o_proj=lin8)])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save_params(tmp, ck, config)
+        t1 = time.perf_counter()
+        back, back_config = checkpoint.load_params(tmp, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(os.path.join(tmp, "params.npz"))
+    a, b = _leaves(ck), _leaves(back)
+    bad = [k for k in a if not (
+        (torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+         and a[k].device == b[k].device)
+        if isinstance(a[k], torch.Tensor) else a[k] == b[k])]
+    print(f"compress (e) save_params -> load_params: {len(a)} leaves, "
+          f"params.npz {size / 1e9:.3f} GB, save {t1 - t0:.2f} s, load "
+          f"{t2 - t1:.2f} s; {len(a) - len(bad)} of {len(a)} equal",
+          flush=True)
+    if bad or a.keys() != b.keys() or back_config != config:
+        raise AssertionError(f"compress (e): differing leaves {bad}")
+    del ck, back, a, b, lin8
+
+    # (f) the main path on the compressed model
+    params = fused.quantize_factors_int8_fused(
+        fused.fuse_stacked(stacked.stack_layers(model)))
+    if not isinstance(params.lm_head, CM.Int8Linear):
+        raise AssertionError("compress (f): the head is not int8")
+    B, T, steps = 8, 64, 8
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    tok = torch.randint(0, config.vocab_size, (B,),
+                        generator=torch.Generator().manual_seed(15)).to(dev)
+    counters = (K.quantized_matmul_w4a8_stacked, AT.flash_decode_q8_staged,
+                K.int8_matmul)
+    holders = [(fused, "K"), (fused, "AT"), (stacked, "K"), (CM, "K")]
+    checks = {"quantized_matmul_w4a8_stacked":
+              (K.quantized_matmul_w4a8_stacked_plain, "exact"),
+              "flash_decode_q8_staged":
+              (AT.flash_decode_q8_staged_plain, "attn"),
+              "int8_matmul": (K.int8_matmul_plain, "exact")}
+    per_step = (4 * L, L, 1)
+    acts = ("quantized_matmul_w4a8_stacked", "int8_matmul")
+    worst, worst_replay, worst_call, argmax_rows = 0.0, 0.0, {}, 0
+
+    def step(cache, tok, pos):
+        return fused.decode_step_fused(
+            params, tok, pos, cache, config, staged_kv="uniform",
+            attn_dots="i8", attn_kernel="row", proj_kernel="grid")[0]
+
+    def recording(store):
+        def tap(fn, x, *args, **kw):
+            store.append(x)
+            return fn(x, *args, **kw)
+        return tap
+
+    def codes(xs):
+        return [K.quantize_activations_int8(x)[0] for x in xs]
+
+    for i in range(steps):
+        pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+        c_plain, c_replay = _copy_cache(cache, dev), _copy_cache(cache, dev)
+        x_plain = []
+        with _PlainKernels(), _TapCalls(holders, dict.fromkeys(
+                acts, recording(x_plain))):
+            lplain = step(c_plain, tok, pos)
+        for c in counters:
+            c.launches = 0
+        with _CheckCalls(torch, holders, checks) as chk:
+            logits = step(cache, tok, pos)
+        if tuple(chk.calls.values()) != per_step:
+            raise AssertionError(f"compress (f) step {i}: checked calls "
+                                 f"{chk.calls}")
+        got = tuple(c.launches for c in counters)
+        if got != per_step or chk.bad:
+            raise AssertionError(f"compress (f) step {i}: launches {got} "
+                                 f"(expected {per_step}), calls against "
+                                 f"their plain versions {chk.bad}")
+        # the plain step again, fed the kernels' attention outputs
+        attn = iter(chk.outputs["flash_decode_q8_staged"])
+        x_replay = []
+        with _PlainKernels(), _TapCalls(holders, dict(
+                dict.fromkeys(acts, recording(x_replay)),
+                flash_decode_q8_staged=lambda fn, *a, **kw: next(attn))):
+            lreplay = step(c_replay, tok, pos)
+        del c_plain, c_replay
+        # every int8 activation quantization of the step in call order: the
+        # 4 W4A8 projections of each layer, then the head
+        x_kern = [x for name in acts for x in chk.inputs[name]]
+        q_kern, q_plain, q_replay = (codes(x_kern), codes(x_plain),
+                                     codes(x_replay))
+        flips = [int((a != b).sum()) for a, b in zip(q_kern, q_plain)]
+        same_replay = all(torch.equal(a, b)
+                          for a, b in zip(q_kern, q_replay))
+        e = _rel(torch, logits, lplain)
+        e_r = _rel(torch, lreplay, logits)
+        rows = int((logits.argmax(-1) != lplain.argmax(-1)).sum())
+        print(f"compress (f) step {i}: logits against the plain step "
+              f"{e:.3e} ({rows} of {B} rows with another argmax), against "
+              f"the plain step fed the kernels' attention outputs {e_r:.3e} "
+              f"(bound {KERN_REL:g}; its int8 activation codes equal the "
+              f"kernel step's: {same_replay}); int8 activation codes that "
+              f"differ from the plain step's, per call (layer 0 qkv, o, "
+              f"gate/up, down, layer 1 ..., head; of {B} rows): {flips}",
+              flush=True)
+        worst, worst_replay = max(worst, e), max(worst_replay, e_r)
+        argmax_rows += rows
+        for name, w in chk.worst.items():
+            worst_call[name] = max(worst_call.get(name, 0.0), w)
+        if not (e_r <= KERN_REL and same_replay
+                and _same_argmax(torch, lreplay, logits)
+                and e <= COMPRESS_DRIFT_REL
+                and (sum(flips) > 0 or e <= KERN_REL)):
+            raise AssertionError(
+                f"compress (f) step {i}: logits against the plain step {e} "
+                f"(bound {COMPRESS_DRIFT_REL:g}; {KERN_REL:g} with no "
+                f"flipped code, flips {flips}), against the replay {e_r} "
+                f"(bound {KERN_REL:g}, codes equal {same_replay})")
+        tok = logits.argmax(-1)
+    print(f"compress (f) the compressed model on the main path "
+          f"(decode_step_fused, staged 'uniform', dots i8, row attention, "
+          f"grid projections), B {B}, {steps} steps from position 0: "
+          f"launches per step w4a8_stacked {per_step[0]}, attention "
+          f"{per_step[1]}, int8 head {per_step[2]}; each launch against its "
+          f"plain version on the same operands (W4A8 and head bit-equal, "
+          f"attention within phase 2's bound): worst rel-Frobenius "
+          f"{worst_call}; logits against the plain step fed the kernels' "
+          f"attention outputs: worst {worst_replay:.3e} (bound "
+          f"{KERN_REL:g}); against the plain step: worst {worst:.3e} "
+          f"(bound {COMPRESS_DRIFT_REL:g}, the flipped int8 activation "
+          f"codes above), {argmax_rows} of {B * steps} rows with another "
+          f"argmax", flush=True)
+    del params, cache
+
+    # (g) one perplexity window of the unfused compressed model
+    unfused = llama.ModelParams(
+        model.embed, model.layers, model.final_norm,
+        CM.quantize_linear_int8(model.lm_head))
+    stream = torch.randint(0, config.vocab_size, (1024,),
+                           generator=torch.Generator().manual_seed(16))
+    counters = (K.quantized_matmul_w4a8, K.int8_matmul)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    ppl = perplexity.evaluate_perplexity(unfused, stream.numpy(), config,
+                                         window=1024, device=dev)
+    t1 = time.perf_counter()
+    got = tuple(c.launches for c in counters)
+    with _PlainKernels():
+        ppl_plain = perplexity.evaluate_perplexity(
+            unfused, stream.numpy(), config, window=1024, device=dev)
+    ppl_dense = perplexity.evaluate_perplexity(dense, stream.numpy(),
+                                               config, window=1024,
+                                               device=dev)
+    print(f"compress (g) evaluate_perplexity, one 1024-token window: "
+          f"compressed {ppl:.4f} ({t1 - t0:.3f} s; launches flat W4A8 "
+          f"{got[0]}, int8 head {got[1]}), through the plain versions on "
+          f"the card {ppl_plain:.4f}; the dense model {ppl_dense:.4f} "
+          f"(random weights: the values show only that it runs)",
+          flush=True)
+    if got != (7 * L, 1) or ppl != ppl_plain or not math.isfinite(ppl):
+        raise AssertionError(f"compress (g): perplexity {ppl} against "
+                             f"{ppl_plain}, launches {got}")
+    del unfused, model, dense, hessians
+    torch.cuda.empty_cache()
+    print(f"compress phase: {time.perf_counter() - t_phase:.1f} s (on "
+          f"{card})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3969,6 +4590,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ee274_convexcaldera_llm_quantization_tpu_torch._device import (
         resolve_device)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
     from ee274_convexcaldera_llm_quantization_tpu_torch.ops import _build
 
     dev = resolve_device("cuda")
@@ -4039,6 +4662,9 @@ def main() -> int:
     phase_options(torch, dev, record)
     torch.cuda.empty_cache()
     phase_unfused(torch, dev, record)
+    torch.cuda.empty_cache()
+    phase_compress(torch, dev,
+                   dataclasses.replace(LLAMA2_7B, num_layers=2))
 
     for name, r in record.items():
         missing = [k for k in measured if r[k] is None]

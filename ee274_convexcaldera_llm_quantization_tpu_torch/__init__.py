@@ -29,6 +29,14 @@ factors and KV with f32 per-row / per-(token, head) scales).
                       scheduler; ``paged``: the paged pools and steps;
                       ``PagedServingEngine``) and the HTTP front end.
 - ``evalm``         — the perplexity harness.
+- compression       — ``ops.packing``, ``ops.blockquant``,
+                      ``quant.quantizers`` and ``ops.lattice`` (the block
+                      quantizers and the E8P lattice), ``decomp`` (CALDERA
+                      with LPLR and LDLQ), ``calibrate`` (Hessians),
+                      ``models.surgery`` (compress a model),
+                      ``utils.checkpoint`` and ``cli`` (``compress``,
+                      ``calibrate``, ``eval``, ``serve``); plain torch on
+                      the tensors' device, no kernel of their own.
 - ``interop``       — load params handed over as numpy arrays.
 - ``bench_params``  — seeded synthetic packed weights built on the device.
 

@@ -3,11 +3,11 @@
 Counterpart of ``ee274_convexcaldera_llm_quantization_tpu.models.
 compressed`` (serving half): the same containers with the same field names,
 holding tensors instead of JAX arrays, the same quantizers, and
-:func:`compress_linear` for the uniform quantizer. :func:`apply_linear`
-serves :class:`DenseLinear`, :class:`Int8Linear` and :class:`CalderaLinear`
-in both serving modes, each through its kernel on the card ("w4a8": the
-flat W4A8 matmul; "grouped": the grouped bf16 matmul); ``QATLinear`` and
-``RotatedLinear`` are not ported yet.
+:func:`compress_linear` for the uniform quantizer and the E8P lattice.
+:func:`apply_linear` serves :class:`DenseLinear`, :class:`Int8Linear` and
+:class:`CalderaLinear` in both serving modes, each through its kernel on
+the card ("w4a8": the flat W4A8 matmul; "grouped": the grouped bf16
+matmul); ``QATLinear`` and ``RotatedLinear`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Optional, Union
 import torch
 
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
+from ee274_convexcaldera_llm_quantization_tpu_torch.ops import lattice
 
 
 @dataclasses.dataclass
@@ -125,14 +126,31 @@ def compress_linear(W: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
 
     ``W`` is the Q component (N, K): "w4a8" packs it with one scale per row
     (a 3-bit grid in the 4-bit container), "grouped" with one scale per
-    (row, group). ``L``/``R`` are stored as bf16. Only the uniform
-    quantizer is ported; ``q_method="e8p"`` needs the lattice codebook.
+    (row, group). ``L``/``R`` are stored as bf16.
+
+    ``q_method="e8p"`` (``mode="w4a8"`` only) quantizes ``W`` per row with
+    the E8 lattice codebook and repacks it losslessly as int4 with per-row
+    scale ``s/2`` (``ops.lattice.e8p_pack_rowscale``); the per-row offset
+    ``s/4`` rides as one more rank-1 term, ``L`` gaining the column
+    ``offsets / global_scale`` and ``R`` a row of ones. ``num_bits`` is then
+    4 (the resident form); the information rate is 2 bits per weight.
     """
     N, Kin = W.shape
     if q_method == "e8p":
-        raise NotImplementedError(
-            "q_method='e8p' (the E8P lattice repack) is not ported yet "
-            "(ROADMAP.md, Queue A item 11: ops/lattice.py)")
+        if mode != "w4a8":
+            raise ValueError("e8p serving requires mode='w4a8'")
+        packed, half_scales, offsets = lattice.e8p_pack_rowscale(W)
+        gs = torch.as_tensor(global_scale, dtype=torch.float32,
+                             device=W.device)
+        L_aug = torch.cat([L.to(torch.bfloat16),
+                           (offsets / gs).to(torch.bfloat16)], dim=1)
+        R_aug = torch.cat([R.to(torch.bfloat16),
+                           torch.ones((1, Kin), dtype=torch.bfloat16,
+                                      device=W.device)], dim=0)
+        return CalderaLinear(
+            packed=packed, scales=half_scales, L=L_aug, R=R_aug,
+            global_scale=gs, b=bias, num_bits=4, group_size=Kin,
+            out_features=N, in_features=Kin, mode="w4a8", q_method="e8p")
     if q_method != "uniform":
         raise ValueError(f"unknown serving q_method {q_method!r}")
     if num_bits == 3 and mode != "w4a8":

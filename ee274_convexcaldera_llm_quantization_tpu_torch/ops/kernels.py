@@ -20,6 +20,10 @@ products is an integer below 2**53, so they are exact in any order, like the
 kernels' i32 sums. The grouped (bf16) plain version dequantizes to bf16 and
 multiplies in f32: each bf16 x bf16 product is exact in f32, so it differs
 from the kernel only in the order of its f32 sums.
+
+:func:`fwht`, :func:`hadamard_sandwich` and :func:`hadamard_unsandwich`
+(model surgery's Hadamard rotations) are plain torch butterflies, as in the
+reference, where they are no Pallas kernel either.
 """
 
 from __future__ import annotations
@@ -1778,3 +1782,52 @@ def low_rank_matmul(x2: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
     if L_scale is not None:
         ylr = ylr * L_scale[:, 0][None, :]
     return ylr
+
+
+# ---------------------------------------------------------------------------
+# Fast Walsh-Hadamard transform (the Hadamard incoherence rotations of model
+# surgery; plain torch butterflies, not a kernel of the reference)
+# ---------------------------------------------------------------------------
+
+def fwht(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Unnormalized fast Walsh-Hadamard transform along ``axis`` (length a
+    power of two): ``scipy.linalg.hadamard(n) @ x`` in O(n log n); divide by
+    ``sqrt(n)`` for the orthonormal transform."""
+    x = torch.movedim(x, axis, -1)
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"FWHT length {n} is not a power of two")
+    shape = x.shape
+    h = 1
+    while h < n:
+        x = x.reshape(*shape[:-1], n // (2 * h), 2, h)
+        a, b = x[..., 0, :], x[..., 1, :]
+        x = torch.stack([a + b, a - b], dim=-2)
+        h *= 2
+    return torch.movedim(x.reshape(shape), -1, axis)
+
+
+def _sqrt_size(m: int, n: int, device) -> torch.Tensor:
+    """``sqrt(f32(m * n))`` as a tensor, so the division that uses it is a
+    true division on every device."""
+    return torch.sqrt(torch.tensor(float(m * n), dtype=torch.float32,
+                                   device=device))
+
+
+def hadamard_sandwich(W: torch.Tensor):
+    """Orthonormal two-sided Hadamard rotation with power-of-two padding:
+    ``(H1 @ W_padded @ H2 / sqrt(m2 * n2), m2, n2)``; inverted by
+    :func:`hadamard_unsandwich`."""
+    m, n = W.shape
+    m2, n2 = 1 << (m - 1).bit_length(), 1 << (n - 1).bit_length()
+    Wp = torch.nn.functional.pad(W, (0, n2 - n, 0, m2 - m))
+    out = fwht(fwht(Wp, axis=0), axis=1) / _sqrt_size(m2, n2, W.device)
+    return out, m2, n2
+
+
+def hadamard_unsandwich(A: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`hadamard_sandwich` (the orthonormal Hadamard
+    transform is an involution), cropped to ``(m, n)``."""
+    out = fwht(fwht(A, axis=0), axis=1) / _sqrt_size(
+        A.shape[0], A.shape[1], A.device)
+    return out[:m, :n]

@@ -2288,3 +2288,90 @@ def test_megastep_persistent_step_on_card(dev, staged_kv, monkeypatch):
         # the first layer's committed codes at most one apart (a flip)
         d = (getattr(ckern, name)[0].int() - getattr(cplain, name)[0].int())
         assert int(d.abs().max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# The compression pipeline on the card against the CPU port
+# ---------------------------------------------------------------------------
+
+def _compress_inputs(seed, m=512, n=1376):
+    """A seeded weight and a correlated, well-conditioned second moment
+    (4n samples of z (I + 0.3 G / sqrt(n)))."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((m, n)).astype(np.float32)
+    X = rng.standard_normal((4 * n, n)).astype(np.float32)
+    X = X @ (np.eye(n, dtype=np.float32)
+             + 0.3 * rng.standard_normal((n, n)).astype(np.float32)
+             / np.sqrt(n))
+    return torch.from_numpy(W), torch.from_numpy(
+        (X.T @ X / (4 * n)).astype(np.float32))
+
+
+def _aa_error(W, W_hat, H):
+    E = (W_hat - W).double()
+    W, H = W.double(), H.double()
+    return float(torch.sqrt(((E @ H) * E).sum() / ((W @ H) * W).sum()))
+
+
+@pytest.mark.parametrize("q_update", ["rtn", "ldlq"])
+def test_caldera_on_card_matches_cpu(dev, q_update):
+    from ee274_convexcaldera_llm_quantization_tpu_torch.decomp import (
+        caldera as C)
+    W, H = _compress_inputs(900)
+    p = C.CalderaParams(Q_bits=4, L_bits=16, R_bits=16, rank=32, iters=2,
+                        q_update=q_update)
+    cpu = C.caldera(p, W, H, scale_W=False)
+    card = C.caldera(p, W.to(dev), H.to(dev), scale_W=False)
+    assert card.Q.device.type == "cuda"
+    e_cpu = _aa_error(W, cpu.reconstruct(), H)
+    e_card = _aa_error(W, card.reconstruct().cpu(), H)
+    # cuSOLVER against LAPACK (SVD, eigh, Cholesky) and another sum order:
+    # the same codes up to rounding edges, and under LDLQ a few edge flips
+    # that the feedback carries on; 2% of the error (as between panel
+    # widths in the reference's tests)
+    assert abs(e_card - e_cpu) <= 0.02 * e_cpu, (e_card, e_cpu)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_ldlq_sweep_on_card_matches_cpu(dev, bits):
+    from ee274_convexcaldera_llm_quantization_tpu_torch.decomp import (
+        caldera as C)
+    W, H = _compress_inputs(901)
+    U = C.ldlq_precompute(H)
+    cpu = C.ldlq_quantize(W, U, bits)
+    card = C.ldlq_quantize(W.to(dev), U.to(dev), bits).cpu()
+    maxq = 2 ** (bits - 1) - 1
+    scale = W.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) / maxq
+    same = torch.round(card / scale) == torch.round(cpu / scale)
+    # one f32 rounding per column and per panel update on each side: the
+    # codes agree but where a column's input sits on an edge and the
+    # feedback carries the flip along its row
+    assert float(same.float().mean()) >= 0.99
+    e_cpu, e_card = _aa_error(W, cpu, H), _aa_error(W, card, H)
+    assert abs(e_card - e_cpu) <= 0.02 * e_cpu
+    U_card = C.ldlq_precompute(H.to(dev)).cpu()
+    torch.testing.assert_close(U_card, U, rtol=0,
+                               atol=1e-4 * float(U.abs().max()))
+
+
+def test_e8p_encode_on_card_matches_cpu(dev):
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import lattice
+    rng = np.random.default_rng(902)
+    y = torch.from_numpy((1.5 * rng.standard_normal((65536, 8)))
+                         .astype(np.float32))
+    cb = lattice.codebook_on("cpu")
+    cpu = lattice.e8p_encode(y, cb)
+    card = lattice.e8p_encode(y.to(dev), lattice.codebook_on(dev)).cpu()
+    diff = card != cpu
+    d = lambda idx: ((y - cb[idx.long()]) ** 2).sum(dim=1)  # noqa: E731
+    # an index differs only at a near tie of the two codewords' distances
+    torch.testing.assert_close(d(card)[diff], d(cpu)[diff], rtol=1e-5,
+                               atol=1e-5)
+    assert float(diff.float().mean()) <= 1e-3
+    # the int4 repack of per-row blocks: bytes from the same codes
+    W = torch.from_numpy(rng.standard_normal((64, 4096)).astype(np.float32))
+    p_cpu, h_cpu, _ = lattice.e8p_pack_rowscale(W)
+    p_card, h_card, _ = lattice.e8p_pack_rowscale(W.to(dev))
+    same = (p_card.cpu() == p_cpu).float().mean()
+    assert float(same) >= 0.999
+    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-6, atol=0)

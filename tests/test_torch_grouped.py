@@ -277,11 +277,18 @@ class TestCompressedLinear:
                                    atol=1e-7)
 
     def test_unported_quantizer_raises(self):
+        # the E8P lattice is ported (ops/lattice.py, its parity in
+        # tests/test_torch_surgery.py); like the reference it serves only
+        # in w4a8 mode, and an unknown quantizer still raises
         W, L, R, _, _ = _linear_inputs(1)
-        with pytest.raises(NotImplementedError, match="lattice"):
+        with pytest.raises(ValueError, match="e8p serving requires"):
+            TC.compress_linear(torch.from_numpy(W), torch.from_numpy(L),
+                               torch.from_numpy(R), 4, mode="grouped",
+                               q_method="e8p")
+        with pytest.raises(ValueError, match="unknown serving q_method"):
             TC.compress_linear(torch.from_numpy(W), torch.from_numpy(L),
                                torch.from_numpy(R), 4, mode="w4a8",
-                               q_method="e8p")
+                               q_method="nf4")
         with pytest.raises(ValueError, match="w4a8"):
             TC.compress_linear(torch.from_numpy(W), torch.from_numpy(L),
                                torch.from_numpy(R), 3, mode="grouped")

@@ -208,7 +208,15 @@ class TestHygiene:
             "fused, ee274_convexcaldera_llm_quantization_tpu_torch.interop, "
             "ee274_convexcaldera_llm_quantization_tpu_torch.bench_params, "
             "ee274_convexcaldera_llm_quantization_tpu_torch.serve."
-            "fast_engine\n"
+            "fast_engine, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.cli, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.models.surgery, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.decomp.caldera, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.ops.lattice, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.utils."
+            "checkpoint, "
+            "ee274_convexcaldera_llm_quantization_tpu_torch.calibrate."
+            "hessian\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or "
             "m.startswith('ee274_convexcaldera_llm_quantization_tpu.') or "
