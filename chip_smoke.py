@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (W4A8 decode and its options, prefill, the serving
-engines, the unfused compressed-model path and the compression pipeline) on
-one NVIDIA GPU.
+engines, the unfused compressed-model path, the compression pipeline and
+the offline quality pipeline) on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
@@ -173,6 +173,16 @@ caught):
    projection on the E8 lattice through the flat W4A8 kernel; a
    checkpoint round trip; 8 steps of the main path on the compressed
    model (each launch against its plain version) and a perplexity window.
+12. The offline quality pipeline (``phase_pipeline``, after phase 11): (a)
+   ``examples/cli_pipeline_2bit.py`` through the port's ``train_step``,
+   HF export and ``cli.main`` (calibrate, compress at 4-bit, 2-bit and
+   2-bit e8p, eval) on TINY, beside the JAX package's rows, and the
+   trained dense and 2-bit e8p models on the card against the CPU; (b) an
+   HF round trip and two training steps at Llama-2-7B widths; (c) budgeted
+   bit allocation of a layer and one decode step of it; (d) Convex-CALDERA
+   in f64 on one Qwen2-0.5B layer; (e) QAT; (f) the servable Hadamard
+   basis; (g) the SCL baselines. Every flat W4A8 and head launch of it is
+   held to its plain version.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -4581,6 +4591,587 @@ def phase_compress(torch, dev, config):
           f"{card})", flush=True)
 
 
+# Phase 12 (the offline quality pipeline). (a): examples/cli_pipeline_2bit.py
+# on the card: TINY trained on a sticky Markov language, then the CLI.
+PIPE_TRAIN = dict(steps=400, batch=16, seq=64, lr=3e-3)
+# The reference's rows of that flow, CPU runs of the JAX package
+# (PERFORMANCE.md, "End-to-end 2-bit quality through the CLI"): quality
+# figures, not speeds. name -> (bits/param, perplexity).
+PIPE_JAX_ROWS = {"dense (bf16)": (16.000, 57.00),
+                 "4-bit uniform rank-16": (7.556, 57.57),
+                 "2-bit uniform rank-16": (5.556, 177.39),
+                 "2-bit e8p rank-16": (5.667, 59.15)}
+# The trained dense model's logits on the card against the CPU's: bf16
+# casts of activations that differ by f32 ulps (cuBLAS against CPU sums)
+# round the other way now and then; on tiny random models the CPU tests
+# read 1.6e-3 to 2.6e-3 between two summation orders (README, the grouped
+# path). Bound 5e-3.
+PIPE_DENSE_REL = 5e-3
+# (d): Convex-CALDERA on one layer of Qwen2-0.5B, f64 on the card; k_proj
+# again on the CPU (at the default mu, and at 1e-3, where L is not zero):
+# L and R within 1e-8 of ||W||.
+CONVEX_CPU_REL = 1e-8
+# (g): the SCL baselines' distortions on a 128-row slice, card against CPU:
+# the scalar quantizer exactly up to the f32 mean's order, Lloyd-Max and
+# K-means from the same first centroids to f32 rounding of the cell sums.
+SCL_CPU_RTOL = 1e-4
+
+
+def _markov_streams(np, seeds_and_lengths):
+    """The sticky Markov language of ``examples/cli_pipeline_2bit.py``
+    (transition rows Dirichlet(0.05) from seed 0, mixed 0.85 / 0.15 with
+    uniform): each stream from its own seed, token by token as the
+    example's ``rng.choice(256, p=P[prev])`` draws it (the same uniforms
+    through the same normalised cumulative sums, so the same tokens)."""
+    P = np.random.default_rng(0).dirichlet(np.full(256, 0.05), size=256)
+    P = 0.85 * P + 0.15 / 256
+    cdf = np.cumsum(P, axis=1)
+    cdf /= cdf[:, -1:]
+    out = []
+    for seed, n in seeds_and_lengths:
+        r = np.random.default_rng(seed)
+        toks = np.empty(n, np.int64)
+        toks[0] = r.integers(256)
+        u = r.random(n - 1)
+        for i in range(1, n):
+            toks[i] = np.searchsorted(cdf[toks[i - 1]], u[i - 1],
+                                      side="right")
+        out.append(toks)
+    return out
+
+
+def _on(train, params, dev):
+    """``params`` with every tensor copied to ``dev``."""
+    return train.replace_leaves(params, {
+        k: t.to(dev) for k, t in train.tensor_leaves(params).items()})
+
+
+def _cli_json(cli, argv):
+    """Run the port's CLI; its last JSON line on stdout."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _checked_forward(torch, holders, checks, fn):
+    """``fn()`` with every launch named in ``checks`` held against its plain
+    version (``_CheckCalls``); returns (output, the checker)."""
+    with _CheckCalls(torch, holders, checks) as chk:
+        out = fn()
+    if chk.bad:
+        raise AssertionError(f"launches against their plain versions: "
+                             f"{chk.bad}")
+    return out, chk
+
+
+def _pipeline_e2e(torch, dev, tmp, card):
+    """Phase 12 (a); returns (the trained dense params, the 4-bit
+    checkpoint's directory, a held-out window, a training batch)."""
+    import numpy as np
+
+    from ee274_convexcaldera_llm_quantization_tpu_torch import cli
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, hf_export, llama, train)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        TINY)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.utils import (
+        checkpoint)
+
+    t0 = time.perf_counter()
+    train_stream, eval_stream = _markov_streams(np, ((10, 200_000),
+                                                     (11, 16_384)))
+    t1 = time.perf_counter()
+    steps, B, S, lr = (PIPE_TRAIN[k] for k in ("steps", "batch", "seq",
+                                               "lr"))
+    params = llama.init_params(0, TINY, device=dev)
+    opt = train.make_optimizer(lr)
+    state = train.init_train_state(params, opt)
+    losses = []
+    for it in range(steps):
+        i0 = (it * B * S) % (len(train_stream) - B * S - 1)
+        batch = torch.from_numpy(train_stream[i0:i0 + B * S].reshape(B, S))
+        params, state, loss = train.train_step(params, state, batch.to(dev),
+                                               TINY, opt)
+        losses.append(loss)
+    losses = [float(v) for v in losses]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"pipeline (a) TINY on the Markov language ({len(train_stream)} "
+          f"training tokens from seed 10, made in {t1 - t0:.2f} s): "
+          f"{steps} train_steps at B {B}, S {S}, lr {lr:g} in "
+          f"{t2 - t1:.2f} s ({1e3 * (t2 - t1) / steps:.2f} ms a step on "
+          f"{card}); loss {losses[0]:.4f} -> {losses[steps // 2]:.4f} -> "
+          f"{losses[-1]:.4f}", flush=True)
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"pipeline (a): training did not learn: "
+                             f"{losses[::50]}")
+
+    hf = os.path.join(tmp, "hf")
+    hf_export.save_hf_checkpoint(hf, params, TINY)
+    on = ["--device", str(dev)]
+    toks = os.path.join(tmp, "eval.npy")
+    np.save(toks, eval_stream)
+    hess = os.path.join(tmp, "hess.npz")
+    t0 = time.perf_counter()
+    _cli_json(cli, ["calibrate", "--model", hf, "--num-batches", "8",
+                    "--batch-size", "4", "--window", "64", "--output", hess,
+                    *on])
+    t1 = time.perf_counter()
+    dense = _cli_json(cli, ["eval", "--model", hf, "--tokens", toks,
+                            "--window", "256", *on])
+    t2 = time.perf_counter()
+    print(f"pipeline (a) exported the HF directory; cli calibrate "
+          f"{t1 - t0:.2f} s, cli eval (dense, 64 windows of 256) "
+          f"{t2 - t1:.2f} s", flush=True)
+    rows = {"dense (bf16)": (16.0, dense["perplexity"])}
+    cks = {}
+    for name, bits, squant in (("4-bit uniform rank-16", "4", "uniform"),
+                               ("2-bit uniform rank-16", "2", "uniform"),
+                               ("2-bit e8p rank-16", "2", "e8p")):
+        ck = os.path.join(tmp, name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        rep = _cli_json(cli, ["compress", "--model", hf, "--hessians", hess,
+                              "--q-bits", bits, "--rank", "16", "--iters",
+                              "3", "--lplr-iters", "3", "--serving-mode",
+                              "w4a8", "--serving-quant", squant,
+                              "--output", ck, *on])
+        t1 = time.perf_counter()
+        ev = _cli_json(cli, ["eval", "--checkpoint", ck, "--tokens", toks,
+                             "--window", "256", *on])
+        t2 = time.perf_counter()
+        print(f"pipeline (a) cli compress {name}: {t1 - t0:.2f} s "
+              f"({rep['compressed']} compressed, {rep['skipped']} "
+              f"skipped); cli eval --checkpoint {t2 - t1:.2f} s",
+              flush=True)
+        if rep["skipped"] or rep["compressed"] != 7 * TINY.num_layers:
+            raise AssertionError(f"pipeline (a) {name}: {rep}")
+        rows[name] = (rep["avg_bits_per_param"], ev["perplexity"])
+        cks[name] = ck
+    d_ppl, j_ppl = rows["dense (bf16)"][1], PIPE_JAX_ROWS["dense (bf16)"][1]
+    print(f"pipeline (a) held-out perplexity (16384 tokens from seed 11, "
+          f"windows of 256), the port on {card} beside the JAX package's "
+          f"CPU run (PERFORMANCE.md):", flush=True)
+    print(f"  {'config':24s} {'bits/param':>10s} {'ppl':>9s} "
+          f"{'dlog-ppl':>9s} | {'JAX bits':>8s} {'JAX ppl':>8s} "
+          f"{'JAX dlog':>8s}", flush=True)
+    for name, (bits, ppl) in rows.items():
+        jb, jppl = PIPE_JAX_ROWS[name]
+        print(f"  {name:24s} {bits:10.3f} {ppl:9.3f} "
+              f"{math.log(ppl) - math.log(d_ppl):+9.4f} | {jb:8.3f} "
+              f"{jppl:8.2f} {math.log(jppl) - math.log(j_ppl):+8.4f}",
+              flush=True)
+    if not all(math.isfinite(p) and p > 1 for _, p in rows.values()):
+        raise AssertionError(f"pipeline (a): perplexities {rows}")
+
+    # the card against the CPU on trained weights
+    window = torch.from_numpy(eval_stream[:256][None])
+    dense_cpu = _on(train, params, "cpu")
+    l_card = llama.forward(params, window.to(dev), TINY)
+    l_cpu = llama.forward(dense_cpu, window, TINY)
+    e_dense = _rel(torch, l_card, l_cpu)
+    e8, _ = checkpoint.load_params(cks["2-bit e8p rank-16"], device=dev)
+    e8_cpu, _ = checkpoint.load_params(cks["2-bit e8p rank-16"],
+                                       device="cpu")
+    holders = [(CM, "K")]
+    x_card, x_cpu = [], []
+
+    def recording(store):
+        def tap(fn, x, *args, **kw):
+            store.append(x)
+            return fn(x, *args, **kw)
+        return tap
+    with _TapCalls(holders, {"quantized_matmul_w4a8":
+                             recording(x_card)}):
+        c_card = llama.forward(e8, window.to(dev), TINY)
+    with _TapCalls(holders, {"quantized_matmul_w4a8": recording(x_cpu)}):
+        c_cpu = llama.forward(e8_cpu, window, TINY)
+    flips = [int((K.quantize_activations_int8(a.cpu())[0]
+                  != K.quantize_activations_int8(b)[0]).sum())
+             for a, b in zip(x_card, x_cpu)]
+    # the CPU forward again, each W4A8 call fed the card's input for it
+    fed = iter(x_card)
+    with _TapCalls(holders, {"quantized_matmul_w4a8":
+                             lambda fn, x, *a, **kw: fn(next(fed).cpu(), *a,
+                                                        **kw)}):
+        c_replay = llama.forward(e8_cpu, window, TINY)
+    e_c, e_r = _rel(torch, c_card, c_cpu), _rel(torch, c_card, c_replay)
+    print(f"pipeline (a) one held-out window of 256 tokens, the card's "
+          f"logits against the CPU's: trained dense {e_dense:.3e} (bound "
+          f"{PIPE_DENSE_REL:g}); 2-bit e8p checkpoint {e_c:.3e} (bound "
+          f"{COMPRESS_DRIFT_REL:g} with flipped codes, {SYNC_REL:g} "
+          f"without), the CPU fed the card's W4A8 inputs {e_r:.3e} (bound "
+          f"{SYNC_REL:g}); int8 activation codes that differ between the "
+          f"card's and the CPU's inputs, per W4A8 call (of "
+          f"{x_card[0].numel()}): {flips}", flush=True)
+    if not (e_dense <= PIPE_DENSE_REL and e_r <= SYNC_REL
+            and e_c <= (COMPRESS_DRIFT_REL if sum(flips) else SYNC_REL)
+            and len(x_card) == 7 * TINY.num_layers):
+        raise AssertionError("pipeline (a): the card's logits disagree "
+                             "with the CPU's")
+    batch = torch.from_numpy(train_stream[:B * S].reshape(B, S))
+    return params, cks["4-bit uniform rank-16"], window, batch
+
+
+def _pipeline_convex(torch, dev, card):
+    """Phase 12 (d): Convex-CALDERA on one layer of Qwen2-0.5B in f64."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.allocate import (
+        convex)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        QWEN2_0_5B)
+
+    c = QWEN2_0_5B
+    h, kv, im = c.hidden_size, c.kv_dim, c.intermediate_size
+    shapes = {"q_proj": (h, h), "k_proj": (kv, h), "v_proj": (kv, h),
+              "o_proj": (h, h), "gate_proj": (im, h), "up_proj": (im, h),
+              "down_proj": (h, im)}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = convex.ConvexCalderaParams()
+    W_down = torch.randn((h, im), generator=gen, device=dev,
+                         dtype=torch.float64)
+    torch.linalg.svd(W_down, full_matrices=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.linalg.svd(W_down, full_matrices=False)
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t0
+    print(f"pipeline (d) Convex-CALDERA at Qwen2-0.5B widths (hidden {h}, "
+          f"kv_dim {kv}, intermediate {im}), f64 on the card, default "
+          f"ConvexCalderaParams (mu {params.mu}, cap "
+          f"{params.max_outer_iters} x {params.fista_iters} FISTA "
+          f"iterations, not cut); one thin SVD at {h} x {im}: "
+          f"{1e3 * svd_s:.1f} ms (on {card})", flush=True)
+    svt = convex._svt
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return svt(*a, **kw)
+    t_all = time.perf_counter()
+    k_case = None
+    try:
+        convex._svt = counted
+        for name, (m, n) in shapes.items():
+            W = torch.randn((m, n), generator=gen, device=dev,
+                            dtype=torch.float64) / math.sqrt(n)
+            hd = 0.5 + 1.5 * torch.rand((n,), generator=gen, device=dev,
+                                        dtype=torch.float64)
+            calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = convex.convex_caldera(W, hd, params=params, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            ratio = d.duality_gap / d.objective_value
+            print(f"pipeline (d) {name} {m} x {n}: {calls[0]} FISTA "
+                  f"iterations, status {d.solver_status}, duality_gap / "
+                  f"objective {ratio:.3e}, effective_rank "
+                  f"{d.effective_rank:g}, avg_bit_width "
+                  f"{d.avg_bit_width:g}, {dt:.2f} s", flush=True)
+            if not (math.isfinite(d.objective_value)
+                    and d.solver_status == "optimal" and ratio <= 1e-6):
+                raise AssertionError(f"pipeline (d) {name}: not certified")
+            if name == "k_proj":
+                k_case = (W, hd, d)
+    finally:
+        convex._svt = svt
+    t_dev = time.perf_counter() - t_all
+    print(f"pipeline (d) 7 projections in {t_dev:.2f} s on the card",
+          flush=True)
+    # k_proj on the CPU, with the same settings and with mu 1e-3, where
+    # the thresholding keeps singular values and L is not zero
+    W, hd, d = k_case
+    for mu in (params.mu, 1e-3):
+        p = dataclasses.replace(params, mu=mu)
+        if mu != params.mu:
+            d = convex.convex_caldera(W, hd, params=p, device=dev)
+        t0 = time.perf_counter()
+        dc = convex.convex_caldera(W.cpu(), hd.cpu(), params=p,
+                                   device="cpu")
+        t1 = time.perf_counter()
+        scale = float(torch.linalg.norm(W))
+        eL = float(torch.linalg.norm(d.L_star.cpu() - dc.L_star)) / scale
+        eR = float(torch.linalg.norm(d.R_star.cpu() - dc.R_star)) / scale
+        print(f"pipeline (d) k_proj at mu {mu:g} on the CPU "
+              f"({torch.get_num_threads()} threads) {t1 - t0:.2f} s: L "
+              f"{eL:.2e}, R {eR:.2e} of ||W|| from the card's (bound "
+              f"{CONVEX_CPU_REL:g}); status {dc.solver_status}, rank "
+              f"{dc.effective_rank:g}, bits {dc.avg_bit_width:g}, "
+              f"|L| / |W| {float(torch.linalg.norm(dc.L_star)) / scale:.3f}",
+              flush=True)
+        if not (eL <= CONVEX_CPU_REL and eR <= CONVEX_CPU_REL
+                and (dc.solver_status, dc.effective_rank, dc.avg_bit_width)
+                == (d.solver_status, d.effective_rank, d.avg_bit_width)):
+            raise AssertionError("pipeline (d): the CPU's k_proj disagrees")
+
+
+def _pipeline_scl(torch, dev, W, card):
+    """Phase 12 (g): the SCL baselines on one 4096 x 4096 weight."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.quant import scl
+
+    cases = [("scalar", 2, 1), ("scalar", 4, 1), ("lloyd_max", 2, 1),
+             ("lloyd_max", 4, 1), ("vector", 2, 2), ("vector", 4, 2)]
+    slice_ = W[:128].cpu()
+    for method, bits, dim in cases:
+        p = scl.SCLQuantizationParams(num_bits=bits, method=method,
+                                      vector_dim=dim)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = scl.scl_quantize(W, p)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rs = scl.scl_quantize(slice_.to(dev), p)
+        t1 = time.perf_counter()
+        rc = scl.scl_quantize(slice_, p)
+        t2 = time.perf_counter()
+        rel = abs(rs.distortion - rc.distortion) / rc.distortion
+        print(f"pipeline (g) {method} {bits}-bit (vector_dim {dim}) on "
+              f"{tuple(W.shape)}: distortion {r.distortion:.6e}, rate "
+              f"{r.rate:g}, {dt:.3f} s on {card}; on a 128-row slice card "
+              f"{rs.distortion:.6e}, CPU {rc.distortion:.6e} ({t2 - t1:.2f}"
+              f" s), rel {rel:.2e} (bound {SCL_CPU_RTOL:g})", flush=True)
+        if not (math.isfinite(r.distortion) and rel <= SCL_CPU_RTOL):
+            raise AssertionError(f"pipeline (g) {method} {bits}-bit")
+
+
+def phase_pipeline(torch, dev, config):
+    """The offline quality pipeline on the card (phase 12), after phase 11:
+
+    (a) ``examples/cli_pipeline_2bit.py`` through the port: TINY trained on
+    the example's Markov language (``train.train_step``, PIPE_TRAIN),
+    exported as an HF directory, then ``cli.main`` calibrate, compress at
+    4-bit uniform, 2-bit uniform and 2-bit e8p (rank 16, iters 3, w4a8) and
+    eval on the held-out stream, beside the JAX rows of PERFORMANCE.md; the
+    trained dense model and the 2-bit e8p checkpoint on the card against
+    the CPU on one held-out window (the e8p model's W4A8 inputs recorded on
+    both, its flipped int8 codes counted, and the CPU replayed with the
+    card's inputs);
+    (b) ``config``'s dense model (phase 11's: Llama-2-7B widths, 2 layers,
+    ``init_params(0)``) exported and imported again, every array equal,
+    bytes and seconds; two ``train_step``s at B 2, S 256, peak memory;
+    (c) ``compress_model_with_budget`` of layer 0 (B_tot 3.0, menu (2, 4,
+    8), w4a8, iters 1): the bits per projection, the average against the
+    budget; one decode step of the result (int8 head) with each flat W4A8
+    and head launch held to its plain version;
+    (d) Convex-CALDERA (f64) on the seven projections of one Qwen2-0.5B
+    layer with seeded diagonal Hessians, k_proj on the CPU as well;
+    (e) ``qat_finetune``: 3 steps on (a)'s 4-bit model, one on (c)'s layer;
+    every global_scale unchanged; each finalized model's forward with its
+    W4A8 launches held to the plain version;
+    (f) ``compress_model(use_hadamard="servable")`` of (b)'s layer 1 (4-bit
+    RTN): one forward, the rotated layers' W4A8 launches held to the plain
+    version;
+    (g) the SCL baselines at 2 and 4 bits on (b)'s 4096 x 4096 q_proj, and
+    on a 128-row slice on the card and the CPU."""
+    import tempfile
+
+    from ee274_convexcaldera_llm_quantization_tpu_torch.decomp.caldera import (
+        CalderaParams)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, hf_export, hf_import, llama, qat, surgery, train)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        TINY)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.utils import (
+        checkpoint)
+
+    card = _card_line()
+    t_phase = time.perf_counter()
+    print(f"pipeline cuts: (a) {PIPE_TRAIN['steps']} training steps (the "
+          f"example's), (b) Llama-2-7B widths at {config.num_layers} layers "
+          f"(depth cut as in phase 11), (c) iters 1 and lplr_iters 1 (the "
+          f"CLI default is 5), (e) 3 and 1 QAT steps", flush=True)
+    checks_w = {"quantized_matmul_w4a8": (K.quantized_matmul_w4a8_plain,
+                                          "exact")}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tiny, ck4, window, tiny_batch = _pipeline_e2e(torch, dev, tmp, card)
+        print(f"pipeline (a) {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (e), the TINY half: QAT on (a)'s 4-bit model
+        q4, _ = checkpoint.load_params(ck4, device=dev)
+        t0 = time.perf_counter()
+        fin, losses = qat.qat_finetune(q4, tiny_batch.to(dev), TINY, steps=3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        same = all(torch.equal(getattr(a, p).global_scale,
+                               getattr(b, p).global_scale)
+                   for a, b in zip(q4.layers, fin.layers)
+                   for p in surgery.PROJ_NAMES)
+        _, chk = _checked_forward(torch, [(CM, "K")], checks_w,
+                                  lambda: llama.forward(fin,
+                                                        window.to(dev), TINY))
+        print(f"pipeline (e) qat_finetune of (a)'s 4-bit model, 3 steps at "
+              f"lr 1e-5 on B {tiny_batch.shape[0]}, S {tiny_batch.shape[1]}:"
+              f" {t1 - t0:.2f} s, losses {[round(v, 4) for v in losses]}; "
+              f"global_scale unchanged: {same}; the finalized model's "
+              f"forward: {chk.calls['quantized_matmul_w4a8']} flat W4A8 "
+              f"launches, each bit-equal to the plain version", flush=True)
+        if not (same and chk.calls["quantized_matmul_w4a8"]
+                == 7 * TINY.num_layers
+                and all(math.isfinite(v) for v in losses)):
+            raise AssertionError("pipeline (e): TINY QAT")
+        del q4, fin, tiny
+
+        # (b) HF round trip at Llama-2-7B widths
+        dense = llama.init_params(0, config, device=dev)
+        d = os.path.join(tmp, "hf7b")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hf_export.save_hf_checkpoint(d, dense, config)
+        t1 = time.perf_counter()
+        back, back_config = hf_import.load_hf_checkpoint(d, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+        a, b = train.tensor_leaves(dense), train.tensor_leaves(back)
+        bad = [k for k in a if not (a[k].dtype == b[k].dtype
+                                    and torch.equal(a[k], b[k]))]
+        print(f"pipeline (b) Llama-2-7B widths, {config.num_layers} layers: "
+              f"save_hf_checkpoint {size / 1e9:.3f} GB of f32 in "
+              f"{t1 - t0:.2f} s, load_hf_checkpoint onto the card "
+              f"{t2 - t1:.2f} s; {len(a) - len(bad)} of {len(a)} arrays "
+              f"equal bit for bit", flush=True)
+        if bad or a.keys() != b.keys() or back_config != config:
+            raise AssertionError(f"pipeline (b): differing arrays {bad}")
+        del back, a, b
+    opt = train.make_optimizer(1e-4)
+    state = train.init_train_state(dense, opt)
+    gen = torch.Generator().manual_seed(18)
+    toks = torch.randint(0, config.vocab_size, (2, 2, 256), generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    tuned, losses = dense, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in toks:
+        tuned, state, loss = train.train_step(tuned, state, batch.to(dev),
+                                              config, opt)
+        losses.append(float(loss))
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"pipeline (b) two train_steps at B 2, S 256 (two batches of "
+          f"random tokens): {t1 - t0:.2f} s, "
+          f"losses {[round(v, 4) for v in losses]}, peak device memory "
+          f"{peak:.2f} GiB (on {card})", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("pipeline (b): non-finite loss")
+    del tuned, state
+
+    # (c) budgeted compression of layer 0
+    cp = CalderaParams(Q_bits=4, L_bits=16, R_bits=16, rank=128, iters=1,
+                       lplr_iters=1)
+    t0 = time.perf_counter()
+    budget, rep, alloc = surgery.compress_model_with_budget(
+        dense, cp, 3.0, menu=(2, 4, 8), layer_range=(0, 0),
+        serving_mode="w4a8")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    print(f"pipeline (c) compress_model_with_budget, layer 0, B_tot 3.0, "
+          f"menu (2, 4, 8): {t1 - t0:.2f} s; bits "
+          f"{ {k.split('.')[-1]: int(v) for k, v in alloc.bits.items()} }, "
+          f"average {alloc.avg_bits:.4f} of {3.0} (certificate "
+          f"{alloc.duality_gap:.3e}); with the factors "
+          f"{rep.avg_bits_per_param:.4f} bits per parameter; errors "
+          f"{ {k.split('.')[-1]: round(v, 4) for k, v in rep.errors.items()} }",
+          flush=True)
+    if not (alloc.avg_bits <= 3.0 + 1e-12 and len(rep.compressed) == 7):
+        raise AssertionError(f"pipeline (c): {alloc}, {rep.skipped}")
+    groups = {g: {alloc.bits[f"layers.0.{p}"] for p in ps} for g, ps in (
+        ("qkv", ("q_proj", "k_proj", "v_proj")),
+        ("gate/up", ("gate_proj", "up_proj")))}
+    served = llama.ModelParams(budget.embed, budget.layers,
+                               budget.final_norm,
+                               CM.quantize_linear_int8(budget.lm_head))
+    B = 8
+    prompt = torch.randint(0, config.vocab_size, (B, 16),
+                           generator=gen).to(dev)
+    cache = llama.KVCache.create(config, B, 32, device=dev)
+    logits, cache = llama.prefill(served, prompt, cache, config)
+    checks = dict(checks_w, int8_matmul=(K.int8_matmul_plain, "exact"))
+    counters = (K.quantized_matmul_w4a8, K.int8_matmul)
+    for c in counters:
+        c.launches = 0
+    (step, _), chk = _checked_forward(
+        torch, [(CM, "K")], checks,
+        lambda: llama.decode_step(served, logits.argmax(-1), 16, cache,
+                                  config))
+    got = tuple(c.launches for c in counters)
+    print(f"pipeline (c) the budgeted model (layer 0 mixed, layer 1 dense, "
+          f"int8 head) on the unfused path, one decode step at B {B}: "
+          f"launches flat W4A8 {got[0]}, int8 head {got[1]}, each bit-equal "
+          f"to its plain version (worst rel {max(chk.worst.values()):.1e});"
+          f" the fused step needs one width per fused group, and the "
+          f"allocation gave {groups}", flush=True)
+    if got != (7, 1) or not bool(torch.isfinite(step).all()):
+        raise AssertionError(f"pipeline (c): launches {got}")
+    del served, cache, step
+
+    # (d) Convex-CALDERA
+    t0 = time.perf_counter()
+    _pipeline_convex(torch, dev, card)
+    print(f"pipeline (d) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e), the full-width half: one QAT step on (c)'s layer
+    t0 = time.perf_counter()
+    fin, losses = qat.qat_finetune(budget, toks[0, :, :128].to(dev),
+                                   config, steps=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    same = all(torch.equal(getattr(budget.layers[0], p).global_scale,
+                           getattr(fin.layers[0], p).global_scale)
+               for p in surgery.PROJ_NAMES)
+    _, chk = _checked_forward(torch, [(CM, "K")], checks_w,
+                              lambda: llama.forward(fin, prompt[:1], config))
+    print(f"pipeline (e) qat_finetune of (c)'s layer, 1 step at B 2, S 128: "
+          f"{t1 - t0:.2f} s, loss {losses[0]:.4f}; global_scale unchanged: "
+          f"{same}; the finalized model's forward: "
+          f"{chk.calls['quantized_matmul_w4a8']} flat W4A8 launches, each "
+          f"bit-equal to the plain version", flush=True)
+    if not (same and chk.calls["quantized_matmul_w4a8"] == 7
+            and math.isfinite(losses[0])):
+        raise AssertionError("pipeline (e): full-width QAT")
+    del fin, budget
+
+    # (f) the servable Hadamard basis on layer 1
+    cp4 = CalderaParams(Q_bits=4, L_bits=16, R_bits=16, rank=128, iters=1,
+                        lplr_iters=1)
+    t0 = time.perf_counter()
+    rot, rep = surgery.compress_model(
+        dense, cp4, layer_range=(1, 1), serving_mode="w4a8",
+        use_hadamard="servable")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    errs = {k.split(".")[-1]: round(v, 4) for k, v in rep.errors.items()}
+    sides = {p: (getattr(rot.layers[1], p).rot_in,
+                 getattr(rot.layers[1], p).rot_out)
+             for p in surgery.PROJ_NAMES}
+    (logits, chk) = _checked_forward(
+        torch, [(CM, "K")], checks_w,
+        lambda: llama.forward(rot, prompt[:1], config))
+    print(f"pipeline (f) compress_model(use_hadamard='servable'), layer 1, "
+          f"4-bit RTN: {t1 - t0:.2f} s, errors {errs}, rotated sides (in, out) {sides}; one forward: "
+          f"{chk.calls['quantized_matmul_w4a8']} flat W4A8 launches between "
+          f"FWHTs, each bit-equal to the plain version", flush=True)
+    if not (len(rep.compressed) == 7 and chk.calls["quantized_matmul_w4a8"]
+            == 7 and bool(torch.isfinite(logits).all())):
+        raise AssertionError("pipeline (f)")
+    del rot, logits
+
+    # (g) the SCL baselines
+    t0 = time.perf_counter()
+    _pipeline_scl(torch, dev, dense.layers[0].q_proj.w.float(), card)
+    print(f"pipeline (g) {time.perf_counter() - t0:.1f} s", flush=True)
+    del dense
+    torch.cuda.empty_cache()
+    print(f"pipeline phase: {time.perf_counter() - t_phase:.1f} s (on "
+          f"{card})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4664,6 +5255,9 @@ def main() -> int:
     phase_unfused(torch, dev, record)
     torch.cuda.empty_cache()
     phase_compress(torch, dev,
+                   dataclasses.replace(LLAMA2_7B, num_layers=2))
+    torch.cuda.empty_cache()
+    phase_pipeline(torch, dev,
                    dataclasses.replace(LLAMA2_7B, num_layers=2))
 
     for name, r in record.items():

@@ -6,11 +6,11 @@ subcommands, flags and JSON result lines, on the port. Run as
     python -m ee274_convexcaldera_llm_quantization_tpu_torch.cli compress \\
         --model tiny --serving-mode w4a8 --output ckpt
 
-Every subcommand runs on ``--device`` (``cuda`` by default, which raises
-without a card; ``--device cpu`` runs the plain PyTorch versions of the
-kernels). Not ported yet: ``bench`` (the port bench, ROADMAP.md Queue A
-item 7) and a Hugging Face directory as ``--model`` (``models/
-hf_import.py``, item 13); both raise ``NotImplementedError``.
+``--model`` names a preset or a local Hugging Face checkpoint directory
+(``models.hf_import``). Every subcommand runs on ``--device`` (``cuda`` by
+default, which raises without a card; ``--device cpu`` runs the plain
+PyTorch versions of the kernels). Not ported yet: ``bench`` (the port
+bench, ROADMAP.md Queue A item 7), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import numpy as np
 
 
 def _add_model_args(p):
-    p.add_argument("--model", default="tiny", help="preset name")
+    p.add_argument("--model", default="tiny", help="preset name or HF dir")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint directory of model params")
     p.add_argument("--seed", type=int, default=0)
@@ -42,13 +42,12 @@ def _load_model(args):
         from ee274_convexcaldera_llm_quantization_tpu_torch.utils.checkpoint \
             import load_params
         return load_params(args.checkpoint, device=args.device)
-    if args.model not in PRESETS:
-        raise NotImplementedError(
-            f"--model {args.model!r} is not a preset; loading a Hugging Face "
-            "directory needs models/hf_import.py, which is not ported yet "
-            "(ROADMAP.md, Queue A item 13)")
-    config = PRESETS[args.model]
-    return llama.init_params(args.seed, config, device=args.device), config
+    if args.model in PRESETS:
+        config = PRESETS[args.model]
+        return llama.init_params(args.seed, config, device=args.device), config
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.hf_import \
+        import load_hf_checkpoint
+    return load_hf_checkpoint(args.model, device=args.device)
 
 
 def cmd_compress(args):

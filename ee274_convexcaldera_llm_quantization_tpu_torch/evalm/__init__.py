@@ -1,1 +1,2 @@
-"""Evaluation harnesses (perplexity)."""
+"""Evaluation harnesses: perplexity, yes/no accuracy, compression metrics
+and plots."""

@@ -7,7 +7,9 @@ holding tensors instead of JAX arrays, the same quantizers, and
 :func:`apply_linear` serves :class:`DenseLinear`, :class:`Int8Linear` and
 :class:`CalderaLinear` in both serving modes, each through its kernel on
 the card ("w4a8": the flat W4A8 matmul; "grouped": the grouped bf16
-matmul); ``QATLinear`` and ``RotatedLinear`` are not ported yet.
+matmul), the trainable fake-quantized :class:`QATLinear` (plain f32 dots,
+straight-through gradients by :func:`ste_quantize`) and the Hadamard-rotated
+:class:`RotatedLinear` (FWHTs around its inner linear's kernel).
 """
 
 from __future__ import annotations
@@ -97,7 +99,90 @@ class Int8Linear:
         return tuple(self.w8.shape)
 
 
-Linear = Union[DenseLinear, CalderaLinear, Int8Linear]
+def ste_quantize(W: torch.Tensor, num_bits: int,
+                 group_size: Optional[int] = None) -> torch.Tensor:
+    """Fake-quantize with a straight-through gradient.
+
+    Forward: symmetric absmax quantize-dequantize at ``num_bits``, per row
+    when ``group_size`` is None (the w4a8 grid, ``kernels.pack_rowscale``)
+    or per (row, group) (``pack_for_serving``), in f32. Backward: identity
+    (``W + (q(W) - W).detach()``); absmax never clips, so nothing gates the
+    gradient.
+    """
+    maxq = 2 ** (num_bits - 1) - 1
+    Wf = W.float()
+    if group_size is None:
+        g = Wf
+    else:
+        N, Kin = Wf.shape
+        if Kin % group_size:
+            raise ValueError(f"K={Kin} not divisible by group {group_size}")
+        g = Wf.reshape(N, Kin // group_size, group_size)
+    absmax = g.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    scale = absmax / maxq
+    q = (torch.clamp(torch.round(g / scale), -maxq, maxq) * scale).reshape(
+        Wf.shape)
+    return Wf + (q - Wf).detach()
+
+
+@dataclasses.dataclass
+class QATLinear:
+    """Trainable fake-quantized CALDERA linear:
+    ``W ~= global_scale * (ste_quantize(Wq) + L @ R)`` with an f32 latent
+    ``Wq`` re-quantized on every forward and f32 factors
+    (``models.qat`` converts to and from the packed form)."""
+
+    Wq: torch.Tensor                      # (out, in) f32
+    L: torch.Tensor                       # (out, rank) f32
+    R: torch.Tensor                       # (rank, in) f32
+    global_scale: torch.Tensor            # () f32
+    b: Optional[torch.Tensor] = None      # (out,)
+    num_bits: int = 4
+    group_size: Optional[int] = None      # None: one scale per row
+    mode: str = "w4a8"
+
+    @property
+    def shape(self):
+        return tuple(self.Wq.shape)
+
+    def effective_weight(self) -> torch.Tensor:
+        """The dense f32 weight the forward sees (``global_scale`` outside
+        the gradient)."""
+        q = ste_quantize(self.Wq, self.num_bits, self.group_size)
+        return self.global_scale.detach() * (q + self.L @ self.R)
+
+    def materialize(self) -> torch.Tensor:
+        return self.effective_weight()
+
+
+@dataclasses.dataclass
+class RotatedLinear:
+    """A CalderaLinear served in a Hadamard-rotated basis: ``W = H1 W' H2``
+    with orthonormal Hadamard rotations on the power-of-two sides
+    (``rot_out``: output features, ``rot_in``: input features); ``inner``
+    holds the packed ``W'``. Forward: ``y = H1 (W' (H2 x)) + b``, the
+    rotations as FWHTs; the bias lies outside them."""
+
+    inner: CalderaLinear
+    b: Optional[torch.Tensor] = None
+    rot_in: bool = True
+    rot_out: bool = True
+
+    @property
+    def shape(self):
+        return self.inner.shape
+
+    def materialize(self) -> torch.Tensor:
+        W = self.inner.materialize().float()
+        if self.rot_out:
+            W = K.fwht(W, axis=0) / K._sqrt_size(W.shape[0], 1, W.device)
+        if self.rot_in:
+            W = K.fwht(W, axis=1) / K._sqrt_size(W.shape[1], 1, W.device)
+        return W
+
+
+Linear = Union[DenseLinear, CalderaLinear, Int8Linear, QATLinear,
+               RotatedLinear]
 
 
 def quantize_linear_int8(lin: DenseLinear) -> Int8Linear:
@@ -183,12 +268,22 @@ def apply_linear(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     factors: :func:`ops.kernels.quantized_matmul` plus the factor dots;
     "grouped" with bf16 factors: :func:`ops.kernels.fused_qlr_matmul`. Each
     kernel runs on the card for CUDA tensors and as its plain version for
-    CPU tensors.
+    CPU tensors. A QATLinear is an f32 dot with its effective weight; a
+    RotatedLinear runs its inner linear between FWHTs.
     """
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if isinstance(lin, DenseLinear):
         y = x2.to(torch.bfloat16).float() @ lin.w.to(torch.bfloat16).float().T
+    elif isinstance(lin, QATLinear):
+        y = x2.float() @ lin.effective_weight().T
+    elif isinstance(lin, RotatedLinear):
+        u = x2.float()
+        if lin.rot_in:
+            u = K.fwht(u, axis=-1) / K._sqrt_size(u.shape[-1], 1, u.device)
+        y = apply_linear(lin.inner, u)
+        if lin.rot_out:
+            y = K.fwht(y, axis=-1) / K._sqrt_size(y.shape[-1], 1, y.device)
     elif isinstance(lin, Int8Linear):
         y = K.int8_matmul(x2, lin.w8, lin.scales)
     elif isinstance(lin, CalderaLinear) and lin.mode == "w4a8":
@@ -201,14 +296,10 @@ def apply_linear(lin: Linear, x: torch.Tensor) -> torch.Tensor:
                                 lin.group_size)
         ylr = K.low_rank_matmul(x2, lin.L, lin.R, lin.L_scale, lin.R_scale)
         y = (yq + ylr) * lin.global_scale
-    elif isinstance(lin, CalderaLinear):
+    else:
         y = K.fused_qlr_matmul(x2, lin.packed, lin.scales, lin.L, lin.R,
                                lin.num_bits, lin.group_size,
                                lin.global_scale)
-    else:
-        raise NotImplementedError(
-            f"apply_linear for {type(lin).__name__} is not ported yet "
-            "(ROADMAP.md, Queue A item 15)")
     if lin.b is not None:
         y = y + lin.b[None, :]
     return y.reshape(*shape[:-1], y.shape[-1])

@@ -8,12 +8,10 @@ Hessian on the weight's device, pack the result in serving layout
 relative error exceeds the threshold. The serving form re-quantizes the
 unquantized residual ``W / gs - L @ R`` on the serving grid, except under
 LDLQ, whose Q is packed as it is (a re-rounding would discard the error
-feedback).
-
-Not ported yet: the servable Hadamard path (``use_hadamard="servable"``,
-which needs ``compressed.RotatedLinear``, ROADMAP.md Queue A item 15) and
-``compress_model_with_budget`` (``allocate/multigroup.py``, item 14); both
-raise ``NotImplementedError``.
+feedback). ``use_hadamard="servable"`` keeps a Hadamard-rotated
+decomposition packed (``compressed.RotatedLinear``);
+:func:`compress_model_with_budget` assigns each projection its bits from a
+menu under a global budget (``allocate.multigroup``) first.
 """
 
 from __future__ import annotations
@@ -23,13 +21,17 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ee274_convexcaldera_llm_quantization_tpu_torch.allocate.multigroup \
+    import GroupSpec, allocate_bits_discrete
 from ee274_convexcaldera_llm_quantization_tpu_torch.decomp.caldera import (
     CalderaParams, caldera)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.compressed import (
-    DenseLinear, compress_linear)
+    DenseLinear, RotatedLinear, compress_linear)
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.llama import (
     LayerParams, ModelParams)
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
+from ee274_convexcaldera_llm_quantization_tpu_torch.quant.quantizers import (
+    QuantizerFactory)
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
               "gate_proj", "up_proj", "down_proj")
@@ -71,6 +73,47 @@ def caldera_with_hadamard(caldera_params: CalderaParams, W: torch.Tensor,
     return W_hat, _rel_error(W_hat, W)
 
 
+def _rotate_hessian(H: Optional[torch.Tensor], n: int
+                    ) -> Optional[torch.Tensor]:
+    """``H' = H2 H H2`` of an (n, n) ``H`` for the orthonormal Hadamard H2
+    (the rotated weight's inputs are ``H2 x``)."""
+    if H is None:
+        return None
+    Hr = K.fwht(K.fwht(H, axis=0), axis=1) / torch.tensor(
+        float(n), dtype=torch.float32, device=H.device)
+    return (Hr + Hr.T) / 2
+
+
+def compress_linear_rotated(caldera_params: CalderaParams, W: torch.Tensor,
+                            H=None, serving_bits: Optional[int] = None,
+                            serving_mode: str = "grouped",
+                            bias: Optional[torch.Tensor] = None,
+                            q_method: str = "uniform"
+                            ) -> Tuple[RotatedLinear, float]:
+    """CALDERA in a Hadamard-rotated basis, kept packed for rotated serving
+    (:class:`compressed.RotatedLinear`): each side whose dimension is a
+    power of two is rotated (no padding), the Hessian with the input side;
+    the residual is packed as in :func:`compress_model`. Returns
+    ``(RotatedLinear, relative_error)``, the error in the original
+    basis."""
+    m, n = W.shape
+    rot_out = (m & (m - 1)) == 0
+    rot_in = (n & (n - 1)) == 0
+    Wf = W.float()
+    Wr = Wf
+    if rot_out:
+        Wr = K.fwht(Wr, axis=0) / K._sqrt_size(m, 1, W.device)
+    if rot_in:
+        Wr = K.fwht(Wr, axis=1) / K._sqrt_size(n, 1, W.device)
+    H = _hessian_tensor(H, W.device)
+    Hr = _rotate_hessian(H, n) if rot_in else H
+    inner, _, _ = _compress_projection(
+        caldera_params, Wr, Hr, serving_bits or caldera_params.Q_bits, None,
+        serving_mode, q_method)
+    rl = RotatedLinear(inner=inner, b=bias, rot_in=rot_in, rot_out=rot_out)
+    return rl, _rel_error(rl.materialize(), Wf)
+
+
 @dataclasses.dataclass
 class SurgeryReport:
     """Per-projection compression outcomes."""
@@ -98,6 +141,18 @@ def _q_source(cp: CalderaParams, W: torch.Tensor, Q, L, R,
     if cp.compute_quantized_component and cp.q_update != "ldlq":
         return W / global_scale - L @ R
     return Q
+
+
+def _compress_projection(cp: CalderaParams, W: torch.Tensor, H, bits: int,
+                         bias, mode: str, q_method: str):
+    """CALDERA of ``W`` and its serving pack at ``bits``; returns (the
+    CalderaLinear, its relative error, the solver's rank)."""
+    decomp = caldera(cp, W, H=H, scale_W=False)
+    clin = compress_linear(
+        _q_source(cp, W, decomp.Q, decomp.L, decomp.R, decomp.global_scale),
+        decomp.L, decomp.R, bits, global_scale=decomp.global_scale,
+        bias=bias, mode=mode, q_method=q_method)
+    return clin, _rel_error(clin.materialize(), W), decomp.L.shape[1]
 
 
 def _gate(report: SurgeryReport, name: str, err: float, threshold: float,
@@ -138,12 +193,10 @@ def compress_model(
     ``serving_mode`` "grouped" or "w4a8"; ``serving_quant="e8p"`` packs each
     residual with the E8P lattice (w4a8 only), counted at 2 bits plus one
     fp16 scale per row. ``use_hadamard=True`` decomposes in a Hadamard-
-    rotated basis and keeps the dense reconstruction.
+    rotated basis and keeps the dense reconstruction; ``"servable"`` keeps
+    it packed as a :class:`compressed.RotatedLinear`
+    (:func:`compress_linear_rotated`).
     """
-    if use_hadamard == "servable":
-        raise NotImplementedError(
-            "use_hadamard='servable' needs compressed.RotatedLinear, which "
-            "is not ported yet (ROADMAP.md, Queue A item 15)")
     report = SurgeryReport()
     sbits = serving_bits or caldera_params.Q_bits
     e8p = serving_quant == "e8p"
@@ -167,24 +220,28 @@ def compress_model(
             if hessians is not None and name in hessians:
                 H = _hessian_tensor(hessians[name], W.device)
             report.total_params += m * n
-            if use_hadamard:
+            if use_hadamard and use_hadamard != "servable":
                 W_hat, err = caldera_with_hadamard(caldera_params, W, H=H)
                 if _gate(report, name, err, error_threshold, progress):
                     fields[proj] = DenseLinear(w=W_hat.to(lin.w.dtype),
                                                b=lin.b)
                 report.total_bits += m * n * 16
                 continue
-            decomp = caldera(caldera_params, W, H=H, scale_W=False)
-            clin = compress_linear(
-                _q_source(caldera_params, W, decomp.Q, decomp.L, decomp.R,
-                          decomp.global_scale),
-                decomp.L, decomp.R, sbits, global_scale=decomp.global_scale,
-                bias=lin.b, mode=serving_mode, q_method=serving_quant)
-            if _gate(report, name, _rel_error(clin.materialize(), W),
-                     error_threshold, progress):
-                fields[proj] = clin
+            if use_hadamard == "servable":
+                # the rank counts the e8p offset column, as the reference's
+                new, err = compress_linear_rotated(
+                    caldera_params, W, H=H, serving_bits=sbits,
+                    serving_mode=serving_mode, bias=lin.b,
+                    q_method=serving_quant)
+                rank = new.inner.L.shape[1]
+            else:
+                new, err, rank = _compress_projection(
+                    caldera_params, W, H, sbits, lin.b, serving_mode,
+                    serving_quant)
+            if _gate(report, name, err, error_threshold, progress):
+                fields[proj] = new
                 report.total_bits += _packed_bits(
-                    m, n, decomp.L.shape[1], 2 if e8p else sbits, e8p)
+                    m, n, rank, 2 if e8p else sbits, e8p)
             else:
                 report.total_bits += m * n * 16
         new_layers.append(LayerParams(**fields))
@@ -215,11 +272,95 @@ def compress_model_batched(
         progress=progress)
 
 
-def compress_model_with_budget(*args, **kwargs):
-    """Mixed-precision surgery under a global bit budget: not ported yet."""
-    raise NotImplementedError(
-        "compress_model_with_budget needs allocate/multigroup.py, which is "
-        "not ported yet (ROADMAP.md, Queue A item 14)")
+def _mean_diag(H) -> float:
+    H = torch.as_tensor(H)
+    return float((H if H.dim() == 1 else torch.diagonal(H)).double().mean())
+
+
+def compress_model_with_budget(
+    params: ModelParams,
+    caldera_params: CalderaParams,
+    B_tot: float,
+    hessians: Optional[Dict] = None,
+    menu: Sequence[int] = (2, 4, 8),
+    layer_range: Optional[Tuple[int, int]] = None,
+    proj_filter: Sequence[str] = PROJ_NAMES,
+    error_threshold: float = 0.99,
+    serving_mode: str = "grouped",
+    use_e8p_at_2bit: bool = False,
+    progress: Optional[Callable[[str, float], None]] = None,
+):
+    """Mixed-precision surgery under a global bit budget ``B_tot`` (bits per
+    parameter of the quantized components).
+
+    Each selected projection is an allocation group with ``c = 0.1 Var(W)``
+    and, as its distortion weight, the mean diagonal of its Hessian (1
+    without one); :func:`allocate.multigroup.allocate_bits_discrete` picks
+    each one's ``Q_bits`` from ``menu``, then CALDERA runs at that width.
+    ``use_e8p_at_2bit`` puts every 2-bit group on the E8P lattice (w4a8
+    only). The factors' bits come on top of the budget and are counted in
+    the report. Returns ``(params, report, allocation)``.
+    """
+    specs = []
+    for i, lp in enumerate(params.layers):
+        if layer_range is not None and not (
+                layer_range[0] <= i <= layer_range[1]):
+            continue
+        for proj in proj_filter:
+            lin = getattr(lp, proj)
+            if not isinstance(lin, DenseLinear):
+                continue
+            name = f"layers.{i}.{proj}"
+            weight = 1.0
+            if hessians is not None and name in hessians:
+                weight = _mean_diag(hessians[name])
+            W = lin.w.float()
+            specs.append(GroupSpec(
+                name=name, num_params=W.numel(),
+                c=0.1 * float(W.double().var(unbiased=False)), k=1.0,
+                weight=max(weight, 1e-12)))
+    allocation = allocate_bits_discrete(specs, B_tot, menu=menu)
+
+    report = SurgeryReport()
+    new_layers = []
+    for i, lp in enumerate(params.layers):
+        fields = {}
+        for proj in _LAYER_FIELDS:
+            lin = getattr(lp, proj)
+            fields[proj] = lin
+            name = f"layers.{i}.{proj}"
+            if name not in allocation.bits or not isinstance(lin,
+                                                             DenseLinear):
+                continue
+            bits = int(allocation.bits[name])
+            e8p_here = use_e8p_at_2bit and bits == 2
+            if e8p_here and serving_mode != "w4a8":
+                raise ValueError("use_e8p_at_2bit requires "
+                                 "serving_mode='w4a8'")
+            cp = dataclasses.replace(caldera_params, Q_bits=bits)
+            if e8p_here:
+                cp = dataclasses.replace(cp, quant_factory_Q=QuantizerFactory(
+                    method="e8p", block_size="global"))
+            W = lin.w.float()
+            m, n = W.shape
+            H = None
+            if hessians is not None and name in hessians:
+                H = _hessian_tensor(hessians[name], W.device)
+            clin, err, _ = _compress_projection(
+                cp, W, H, 4 if e8p_here else bits, lin.b, serving_mode,
+                "e8p" if e8p_here else "uniform")
+            report.total_params += m * n
+            if _gate(report, name, err, error_threshold, progress):
+                fields[proj] = clin
+                # the rank counts the e8p offset column, as the reference's
+                report.total_bits += (m * n * bits
+                                      + clin.L.shape[1] * (m + n) * 16)
+            else:
+                report.total_bits += m * n * 16
+        new_layers.append(LayerParams(**fields))
+    return ModelParams(embed=params.embed, layers=new_layers,
+                       final_norm=params.final_norm,
+                       lm_head=params.lm_head), report, allocation
 
 
 def hessian_key_map_from_reference(torch_state_keys: Sequence[str]

@@ -1,1 +1,2 @@
-"""Checkpoints of (compressed) model params."""
+"""Checkpoints of (compressed) model params; phase timers, the profiler
+trace scope and the event log."""

@@ -2375,3 +2375,55 @@ def test_e8p_encode_on_card_matches_cpu(dev):
     same = (p_card.cpu() == p_cpu).float().mean()
     assert float(same) >= 0.999
     torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-6, atol=0)
+
+
+def test_rotated_linear_on_card_matches_plain(dev, monkeypatch):
+    # a RotatedLinear's inner flat W4A8 linear on Hadamard-rotated
+    # activations (both sides rotated, 4-bit), against the plain version on
+    # the same card
+    from ee274_convexcaldera_llm_quantization_tpu_torch.decomp.caldera import (
+        CalderaParams)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, surgery)
+    g = torch.Generator(device=dev).manual_seed(1500)
+    W = torch.randn((512, 1024), generator=g, device=dev) / 32
+    cp = CalderaParams(Q_bits=4, L_bits=16, R_bits=16, rank=16, iters=1,
+                       lplr_iters=1)
+    rl, err = surgery.compress_linear_rotated(cp, W, serving_mode="w4a8")
+    assert (rl.rot_in, rl.rot_out) == (True, True) and err < 0.2
+    xs = [torch.randn((M, 1024), generator=g, device=dev) for M in (1, 8, 64)]
+    before = K.quantized_matmul_w4a8.launches
+    ys = [CM.apply_linear(rl, x) for x in xs]
+    assert K.quantized_matmul_w4a8.launches == before + len(xs)
+    monkeypatch.setattr(K, "quantized_matmul_w4a8",
+                        K.quantized_matmul_w4a8_plain)
+    for x, y in zip(xs, ys):
+        _close(y, CM.apply_linear(rl, x))
+
+
+def test_budget_layer_w4a8_bits_on_card(dev, monkeypatch):
+    # compress_model_with_budget on one TINY-MHA layer with a (2, 8) menu:
+    # every projection served by the flat W4A8 kernel at its 2- or 8-bit
+    # width, against the plain version on the card
+    from ee274_convexcaldera_llm_quantization_tpu_torch.decomp.caldera import (
+        CalderaParams)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, surgery)
+    config = dataclasses.replace(TINY_MHA, num_layers=1)
+    params = llama.init_params(1501, config, device=dev)
+    cp = CalderaParams(Q_bits=4, L_bits=16, R_bits=16, rank=8, iters=1,
+                       lplr_iters=1)
+    q, report, alloc = surgery.compress_model_with_budget(
+        params, cp, 5.0, menu=(2, 8), serving_mode="w4a8")
+    assert set(alloc.bits.values()) == {2.0, 8.0}, alloc.bits
+    g = torch.Generator(device=dev).manual_seed(1502)
+    lins = [getattr(q.layers[0], name) for name in surgery.PROJ_NAMES]
+    assert [lin.num_bits for lin in lins] == [
+        alloc.bits[f"layers.0.{name}"] for name in surgery.PROJ_NAMES]
+    xs = [torch.randn((8, lin.in_features), generator=g, device=dev)
+          for lin in lins]
+    ys = [CM.apply_linear(lin, x) for lin, x in zip(lins, xs)]
+    monkeypatch.setattr(K, "quantized_matmul_w4a8",
+                        K.quantized_matmul_w4a8_plain)
+    for lin, x, y in zip(lins, xs, ys):
+        _close(y, CM.apply_linear(lin, x))

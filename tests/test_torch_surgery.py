@@ -321,11 +321,20 @@ class TestSurgery:
                                      for i in range(CONFIG.num_layers)]
 
     def test_unported_paths_raise(self):
+        """The two paths that raised before their modules were ported now
+        run (against the reference in tests/test_torch_qat_rotated.py and
+        test_torch_allocate.py): servable Hadamard packs RotatedLinears,
+        the budget allocates."""
         _, tp = _models()
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TS.compress_model(tp, _cp("torch"), use_hadamard="servable")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TS.compress_model_with_budget(tp, _cp("torch"), B_tot=3.0)
+        q, r = TS.compress_model(tp, _cp("torch"), use_hadamard="servable",
+                                 proj_filter=("o_proj",), layer_range=(0, 0))
+        assert isinstance(q.layers[0].o_proj, TC.RotatedLinear)
+        assert r.compressed == ["layers.0.o_proj"]
+        q, r, a = TS.compress_model_with_budget(
+            tp, _cp("torch"), B_tot=3.0, proj_filter=("o_proj", "up_proj"),
+            layer_range=(1, 1))
+        assert sorted(a.bits) == ["layers.1.o_proj", "layers.1.up_proj"]
+        assert isinstance(q.layers[1].up_proj, TC.CalderaLinear)
 
 
 # ---------------------------------------------------------------------------
@@ -486,7 +495,11 @@ class TestCLI:
     def test_refusals(self, capsys, tmp_path):
         with pytest.raises(NotImplementedError, match="item 7"):
             TCLI.main(["bench"])
-        with pytest.raises(NotImplementedError, match="item 13"):
+        # a directory that is neither a preset nor an HF checkpoint
+        (tmp_path / "config.json").write_text(json.dumps(
+            {"vocab_size": 8, "hidden_size": 4, "intermediate_size": 8,
+             "num_hidden_layers": 1, "num_attention_heads": 1}))
+        with pytest.raises(FileNotFoundError, match="safetensors/bin"):
             TCLI.main(["eval", "--model", str(tmp_path), "--device", "cpu"])
         with pytest.raises(SystemExit, match="w4a8"):
             TCLI.main(["serve", "--model", "tiny", "--engine", "fast",
