@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (W4A8 decode and its options, prefill, the serving
-engines, the unfused compressed-model path, the compression pipeline and
-the offline quality pipeline) on one NVIDIA GPU.
+engines, the unfused compressed-model path, the compression pipeline, the
+offline quality pipeline, mixed-width serving and speculative decoding) on
+one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
@@ -183,6 +184,30 @@ caught):
    in f64 on one Qwen2-0.5B layer; (e) QAT; (f) the servable Hadamard
    basis; (g) the SCL baselines. Every flat W4A8 and head launch of it is
    held to its plain version.
+13. Mixed-width serving and speculative decoding (``phase_mixed``, last):
+   the reference's flagship composition (``scripts/exp_13b_mixed.py
+   --segmented --fused-segments --speculative``) at Llama-2-13B widths, 40
+   layers, an int8 head: (a) the budgeted allocation (2.5 grid bits from
+   {2, 3, 4, 8}, the script's sensitivity model), synthetic packed weights
+   and rank-128 int8 factors bucketed by ``stack_layers_mixed``, its
+   segments and ``prepare_fused_segments``' fused groups; (c) a 128-token
+   ``prefill_into_slot_mixed`` into each of 8 slots; (b)
+   ``decode_step_mixed_segmented`` at B 8 (staged, i8 dots, fused
+   segments): every launch against its plain version (rows 3 and 9
+   bit-equal, row 6 within ``L_RTOL``, row 11 to phase 2's bound), exact
+   launches, the step against the plain versions' step, the switch path
+   against the inline segmented path (bit-equal), eager and CUDA-graph
+   times, the weight-byte bound; (d) ``verify_step_mixed`` at S 5 against
+   five segmented steps (``VERIFY_REL``) and at S 2, every launch checked
+   (row 3 at M 40 and 16, row 9 at M 40 and 16), row 3 on the 8-bit
+   container; (e) 16 greedy ``spec_decode_round`` rounds with a 10-layer
+   ``truncate_mixed`` draft, gamma 4: committed tokens, acceptance, eager
+   and profiled device time per round, launches, and the plain greedy
+   stream beside it; (f) at Llama-2-7B widths, 8 layers, int8 token-major
+   caches: ``generate_speculative`` against plain greedy decode, a perfect
+   draft's acceptance, ``SpeculativeServingEngine`` against
+   ``FastServingEngine`` on 8 requests; each first divergence with its
+   margin (``MARGIN_REL``, ROADMAP R6 and R16).
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -204,6 +229,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -4122,7 +4148,9 @@ class _CheckCalls(_TapCalls):
     how)}``) runs as it is (its launch counter stays its own), then its
     plain version runs on the same operands: "exact" holds the two
     outputs equal bit for bit, "attn" to phase 2's bound for a decode
-    kernel (``_attn_ok``). Keeps ``calls`` and the largest rel-Frobenius
+    kernel (``_attn_ok``), "rel" within ``L_RTOL`` (the L-fused kernel:
+    exact integer sums, its factor dots and f32 epilogue in another order).
+    Keeps ``calls`` and the largest rel-Frobenius
     difference (``worst``) per name, every failure (``bad``), and each
     call's first operand and output in order (``inputs``, ``outputs``)."""
 
@@ -4146,6 +4174,10 @@ class _CheckCalls(_TapCalls):
                         / torch.linalg.norm(ref))
             if how == "exact":
                 ok, text = bool(torch.equal(out, ref)), "bit-equal"
+            elif how == "rel":
+                ok = torch.allclose(out, ref, rtol=L_RTOL, atol=L_RTOL * float(
+                    ref.abs().max()))
+                text = f"rtol {L_RTOL:g}"
             else:
                 ok, text = _attn_ok(torch, out, ref, kw.get("dots", "f32"))
             self.calls[name] += 1
@@ -4170,9 +4202,10 @@ def _fro_error(torch, W, W_hat) -> float:
 
 
 def _leaves(obj, prefix="", out=None):
-    """Every field of nested dataclasses and lists, keyed by path."""
+    """Every field of nested dataclasses, lists and tuples, keyed by
+    path."""
     out = {} if out is None else out
-    if isinstance(obj, list):
+    if isinstance(obj, (list, tuple)):
         for i, o in enumerate(obj):
             _leaves(o, f"{prefix}.{i}", out)
     elif dataclasses.is_dataclass(obj):
@@ -5172,6 +5205,829 @@ def phase_pipeline(torch, dev, config):
           f"{card})", flush=True)
 
 
+# Phase 13 (mixed-width serving and speculative decoding, Llama-2-13B).
+# The allocation of scripts/exp_13b_mixed.py:117-128: one group per (layer,
+# projection), D(b) = c 2^(-2b) with c 0.1 and k 2 ln 2, weighted by the
+# depth's exp(-2l/L) times the projection's sensitivity, under a budget of
+# 2.5 grid bits from the menu {2, 3, 4, 8}; rank-128 int8 factors.
+MIXED_PROJ_WEIGHT = {"q_proj": 1.0, "k_proj": 1.0, "v_proj": 1.2,
+                     "o_proj": 1.5, "gate_proj": 1.0, "up_proj": 1.0,
+                     "down_proj": 2.0}
+MIXED_BUDGET, MIXED_MENU, MIXED_RANK = 2.5, (2, 3, 4, 8), 128
+# The L-fused kernel against its plain version (phase 2's bound): exact
+# integer sums, the 128-term factor dots and the f32 epilogue in another
+# order.
+L_RTOL = 1e-5
+# (d) the S-token verify window against S one-token segmented steps from
+# the same cache, logits rel-Frobenius per position. The window attends
+# through the plain attention, the steps through the staged row kernel (f32
+# dots; sums in another order), and an int8 activation or K/V code that
+# rounds the other way cascades through the 40 layers (ROADMAP R6).
+# Readings on an H100: 4.7e-4 to 5.7e-4 over the five positions.
+VERIFY_REL = 2e-3
+# (e), (f): a first divergence between the speculative and the plain greedy
+# stream must sit on a knife edge (R6): there the plain step's gap between
+# its top logit and the logit of the token the speculative stream took is
+# under this share of the top logit's height over the row's mean.
+MARGIN_REL = 5e-2
+
+
+def _mixed_shapes(config):
+    h, im = config.hidden_size, config.intermediate_size
+    return {"q_proj": (config.q_dim, h), "k_proj": (config.kv_dim, h),
+            "v_proj": (config.kv_dim, h), "o_proj": (h, config.q_dim),
+            "gate_proj": (im, h), "up_proj": (im, h), "down_proj": (h, im)}
+
+
+def _mixed_allocation(config):
+    """The allocator's result and each layer's {projection: grid bits}."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.allocate import (
+        multigroup as MG)
+    shapes = _mixed_shapes(config)
+    groups = []
+    for l in range(config.num_layers):
+        depth_w = math.exp(-2.0 * l / config.num_layers)
+        for name, (m, n) in shapes.items():
+            groups.append(MG.GroupSpec(
+                name=f"layers.{l}.{name}", num_params=m * n, c=0.1,
+                k=2 * math.log(2), weight=MIXED_PROJ_WEIGHT[name] * depth_w))
+    alloc = MG.allocate_bits_discrete(groups, B_tot=MIXED_BUDGET,
+                                      menu=MIXED_MENU)
+    bits = [{name: int(alloc.bits[f"layers.{l}.{name}"]) for name in shapes}
+            for l in range(config.num_layers)]
+    return alloc, bits
+
+
+def _mixed_params(torch, dev, config, bits, seed=0):
+    """The allocation as a per-layer model in packed form, from a seeded
+    generator on the card (codes of the grid's range in its container: a
+    3-bit grid's offset codes 4..10 in the 4-bit container, 8-bit codes
+    0..254; row scales 1/sqrt(in)/7; rank-128 int8 factors with scales
+    0.02/127; an int8 head), bucketed by the port's ``stack_layers_mixed``.
+    """
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        llama, mixed as TM)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.compressed \
+        import CalderaLinear, DenseLinear, quantize_linear_int8
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shapes = _mixed_shapes(config)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=dtype,
+                             device=dev)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+
+    def lin(name, grid):
+        m, n = shapes[name]
+        cont = K.container_bits(grid)
+        if grid == 3:
+            packed = (ints(4, 11, (m, n // 2), torch.uint8) << 4) | ints(
+                4, 11, (m, n // 2), torch.uint8)
+        else:
+            packed = ints(0, 255 if cont == 8 else 256,
+                          (m, n * cont // 8), torch.uint8)
+        r = min(MIXED_RANK, m, n)
+        return CalderaLinear(
+            packed=packed, scales=full((m, 1), 1.0 / n ** 0.5 / 7),
+            L=ints(-127, 128, (m, r), torch.int8),
+            R=ints(-127, 128, (r, n), torch.int8),
+            global_scale=full((), 1.0), L_scale=full((m, 1), 0.02 / 127),
+            R_scale=full((r, 1), 0.02 / 127), num_bits=cont, group_size=n,
+            out_features=m, in_features=n, mode="w4a8",
+            grid_bits=0 if grid == cont else grid)
+
+    h = config.hidden_size
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * 0.02).to(torch.bfloat16)
+
+    layers = [llama.LayerParams(
+        attn_norm=full((h,), 1.0), mlp_norm=full((h,), 1.0),
+        **{name: lin(name, bits[l][name]) for name in shapes})
+        for l in range(config.num_layers)]
+    model = llama.ModelParams(
+        embed=normal((config.vocab_size, h)), layers=layers,
+        final_norm=full((h,), 1.0),
+        lm_head=quantize_linear_int8(DenseLinear(
+            w=normal((config.vocab_size, h)))))
+    return TM.stack_layers_mixed(model)
+
+
+def _mixed_counters():
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    return {"row 3 (w4a8_stacked)": K.quantized_matmul_w4a8_stacked,
+            "row 6 (w4a8_l_stacked)": K.quantized_matmul_w4a8_l_stacked,
+            "row 11 (flash_decode_q8_staged)": AT.flash_decode_q8_staged,
+            "row 10 (flash_decode_q8)": AT.flash_decode_q8,
+            "row 9 (int8_matmul)": K.int8_matmul}
+
+
+def _launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def _mixed_checks():
+    """(holders, checks) for ``_CheckCalls`` on the mixed and speculative
+    paths: rows 3 and 9 bit-equal, row 6 within ``L_RTOL``, rows 10 and 11
+    to phase 2's attention bound."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, fused, mixed as TM)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    holders = [(TM, "K"), (TM, "AT"), (fused, "K"), (CM, "K")]
+    checks = {"quantized_matmul_w4a8_stacked":
+              (K.quantized_matmul_w4a8_stacked_plain, "exact"),
+              "quantized_matmul_w4a8_l_stacked":
+              (K.quantized_matmul_w4a8_l_stacked_plain, "rel"),
+              "flash_decode_q8_staged":
+              (AT.flash_decode_q8_staged_plain, "attn"),
+              "flash_decode_q8": (AT.flash_decode_q8_plain, "attn"),
+              "int8_matmul": (K.int8_matmul_plain, "exact")}
+    return holders, checks
+
+
+def _checked(torch, what, fn):
+    """``fn()`` with every launch held to its plain version on the same
+    operands (``_mixed_checks``); raises on any failure. Returns (output,
+    {kernel: (calls, worst rel-Frobenius)}, the operands' row counts)."""
+    holders, checks = _mixed_checks()
+    with _CheckCalls(torch, holders, checks) as chk:
+        out = fn()
+    if chk.bad:
+        raise AssertionError(f"{what}: launches against their plain "
+                             f"versions: {chk.bad}")
+    rows = {n: sorted({x.shape[0] for x in xs if x.dim() == 2})
+            for n, xs in chk.inputs.items() if xs}
+    return out, {n: (c, chk.worst[n]) for n, c in chk.calls.items() if c}, \
+        rows
+
+
+def _first_divergence(torch, spec_rows, plain_rows, plain_logits):
+    """Tokens that agree, and for each row that differs its first differing
+    index and the plain step's margin there: its top logit less the logit
+    of the speculative stream's token, over the top logit's height above
+    the row's mean (raises above ``MARGIN_REL``: no knife edge)."""
+    agree, notes = 0, []
+    for b, (s, p) in enumerate(zip(spec_rows, plain_rows)):
+        n = min(len(s), len(p))
+        i = next((j for j in range(n) if s[j] != p[j]), None)
+        agree += n if i is None else i
+        if i is None:
+            continue
+        row = plain_logits[b][i].float()
+        top = float(row.max())
+        margin = (top - float(row[s[i]])) / max(top - float(row.mean()),
+                                                1e-30)
+        notes.append(f"row {b} first differs at token {i} (margin "
+                     f"{margin:.2e})")
+        if margin > MARGIN_REL:
+            raise AssertionError(f"row {b}: speculative and plain greedy "
+                                 f"streams differ at token {i} where the "
+                                 f"margin is {margin:.3e}")
+    return agree, notes
+
+
+def _device_busy_ms(torch, fn):
+    """Summed device time of the kernels ``fn()`` runs, as torch.profiler
+    sees them (CUPTI), and their number; (None, 0) where it sees none."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, 0
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, \
+        len(kernels)
+
+
+def phase_mixed(torch, dev, card):
+    """Phase 13: the reference's flagship serving composition
+    (``scripts/exp_13b_mixed.py --segmented --fused-segments
+    --speculative``) at Llama-2-13B widths, 40 layers, on the port's
+    ``models/mixed.py`` and ``serve/speculative.py``; (f) speculative
+    serving at Llama-2-7B widths (``serve/spec_engine.py``)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        llama, mixed as TM)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_13B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import (
+        speculative as TSP)
+
+    t_phase = time.perf_counter()
+    config = LLAMA2_13B
+    L, B, T, S0, gamma = config.num_layers, 8, 256, 128, 4
+    shapes = _mixed_shapes(config)
+
+    # (a) the allocation, the buckets, the segments and the fused groups
+    alloc, bits = _mixed_allocation(config)
+    hist = collections.Counter(b for row in bits for b in row.values())
+    n_all = sum(m * n for m, n in shapes.values()) * L
+    container = sum(K.container_bits(row[name]) * m * n
+                    for row in bits for name, (m, n) in shapes.items()) / n_all
+    print(f"mixed (a) llama2-13b allocation, budget {MIXED_BUDGET} grid bits "
+          f"from {MIXED_MENU}: (layer, projection) groups per width "
+          f"{dict(sorted(hist.items()))}, average grid bits "
+          f"{alloc.avg_bits:.4f}, container bits {container:.4f}, allocator "
+          f"gap {alloc.duality_gap:.3e}", flush=True)
+    for name in shapes:
+        print(f"  {name}: {[row[name] for row in bits]}", flush=True)
+    t0 = time.perf_counter()
+    params = _mixed_params(torch, dev, config, bits)
+    torch.cuda.synchronize()
+    nbytes_params = sum(t.numel() * t.element_size()
+                        for t in _leaves(params).values()
+                        if isinstance(t, torch.Tensor))
+    print(f"mixed (a) params built and bucketed in "
+          f"{time.perf_counter() - t0:.1f} s: {nbytes_params / 1e9:.3f} GB "
+          f"on the card", flush=True)
+    runs = TM.mixed_segments(params.layers, L)
+
+    def sig_text(sig):
+        out = []
+        for name in shapes:
+            b = getattr(params.layers, name).buckets[sig[name]]
+            out.append(f"{name[:-5]} {b.num_bits}"
+                       + (f"/{b.grid_bits}" if b.grid_bits else ""))
+        return ", ".join(out)
+
+    t0 = time.perf_counter()
+    prep = TM.prepare_fused_segments(params, config)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    for (s, e, sig), p in zip(runs, prep):
+        for fp in (v for v in p.values() if v is not None):
+            for t in (fp.packed, fp.scales, fp.R, fp.R_scale, fp.L_cat,
+                      fp.L_scale_cat):
+                if not t.is_contiguous():
+                    raise AssertionError(f"segment {s}-{e}: a fused stack "
+                                         "is not contiguous")
+        print(f"  segment layers {s}-{e - 1}: buckets {sig}; containers "
+              f"(/grid) {sig_text(sig)}; fused: qkv "
+              f"{'yes' if p['qkv'] is not None else 'no'}, gate/up "
+              f"{'yes' if p['gateup'] is not None else 'no'}", flush=True)
+    n_fused = sum((p["qkv"] is not None) + (p["gateup"] is not None)
+                  for p in prep)
+    print(f"mixed (a) {len(runs)} segments; prepare_fused_segments fused "
+          f"{n_fused} of {2 * len(runs)} groups in {prep_s:.1f} s "
+          f"(contiguous stacks)", flush=True)
+
+    counters = _mixed_counters()
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    prompts = torch.randint(1, config.vocab_size, (B, S0),
+                            generator=torch.Generator().manual_seed(13)
+                            ).to(dev)
+
+    # (c) prefill of a 128-token prompt into each slot
+    first, pre_ms = [], []
+    for b in range(B):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if b == 0:
+            (lg, cache), calls, rows = _checked(
+                torch, "mixed (c) prefill", lambda: TM.prefill_into_slot_mixed(
+                    params, prompts[:1], 0, cache, config))
+        else:
+            lg, cache = TM.prefill_into_slot_mixed(
+                params, prompts[b:b + 1], b, cache, config)
+        torch.cuda.synchronize()
+        pre_ms.append(1e3 * (time.perf_counter() - t0))
+        got = _launches(counters)
+        want = {"row 3 (w4a8_stacked)": 7 * L, "row 9 (int8_matmul)": 1}
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"mixed (c) prefill {b}: launches {got}")
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("mixed (c): non-finite logits")
+        first.append(lg)
+    print(f"mixed (c) prefill_into_slot_mixed, {S0}-token prompts into 8 "
+          f"slots: {[f'{m:.1f}' for m in pre_ms]} ms (the first with every "
+          f"launch held to its plain version: {calls}, operand rows "
+          f"{rows}); launches per prefill: row 3 {7 * L}, row 9 1 (on "
+          f"{card})", flush=True)
+    tok = torch.stack(first).argmax(-1)
+    pos = torch.full((B,), S0, dtype=torch.int32, device=dev)
+
+    # (b) the flagship step: segmented, fused segments, staged, i8 dots
+    def step(c, **kw):
+        kw = dict(dict(staged_kv=True, fused_prep=prep, attn_dots="i8"), **kw)
+        return TM.decode_step_mixed_segmented(params, tok, pos, c, config,
+                                              **kw)
+
+    per_step = {"row 3 (w4a8_stacked)": 0, "row 6 (w4a8_l_stacked)": 0,
+                "row 11 (flash_decode_q8_staged)": L,
+                "row 9 (int8_matmul)": 1}
+    for (s, e, _), p in zip(runs, prep):
+        for key, n in (("qkv", 3), ("gateup", 2)):
+            if p[key] is None:
+                per_step["row 3 (w4a8_stacked)"] += n * (e - s)
+            else:
+                per_step["row 6 (w4a8_l_stacked)"] += e - s
+        per_step["row 3 (w4a8_stacked)"] += 2 * (e - s)      # o, down
+    for fn in counters.values():
+        fn.launches = 0
+    c1 = _copy_cache(cache, dev)
+    (lk, c1), calls, rows = _checked(torch, "mixed (b) step",
+                                     lambda: step(c1))
+    got = {k: v for k, v in _launches(counters).items() if v}
+    if got != per_step:
+        raise AssertionError(f"mixed (b): launches {got}, expected "
+                             f"{per_step}")
+    c2 = _copy_cache(cache, dev)
+    with _PlainKernels():
+        lp, c2 = step(c2)
+    if _rel(torch, lk, lp) > KERN_REL:
+        raise AssertionError(f"mixed (b): the step against the plain "
+                             f"versions' step: {_rel(torch, lk, lp):.3e}")
+    codes = sum(int((getattr(c1, n) != getattr(c2, n)).sum())
+                for n in ("k", "v"))
+    worst_code = max(int((getattr(c1, n).int() - getattr(c2, n).int()
+                          ).abs().max()) for n in ("k", "v"))
+    print(f"mixed (b) decode_step_mixed_segmented B {B} from a {S0}-token "
+          f"cache (staged, i8 dots, fused segments): launches per step "
+          f"{per_step}; every launch against its plain version: {calls} "
+          f"(calls, worst rel), operand rows {rows}; the step against the "
+          f"same step on the plain versions, same cache: logits "
+          f"rel-Frobenius {_rel(torch, lk, lp):.3e} (bound {KERN_REL}), "
+          f"argmax equal in "
+          f"{int((lk.argmax(-1) == lp.argmax(-1)).sum())}/{B} rows, "
+          f"{codes} K/V codes differ (by at most {worst_code})",
+          flush=True)
+    del c1, c2
+    # the switch path against the segmented path (inline, f32 dots): the
+    # same kernels in the same order, bit for bit
+    c3, c4 = _copy_cache(cache, dev), _copy_cache(cache, dev)
+    for fn in counters.values():
+        fn.launches = 0
+    la, c3 = TM.decode_step_mixed(params, tok, pos, c3, config)
+    lb, c4 = TM.decode_step_mixed_segmented(params, tok, pos, c4, config,
+                                            staged_kv=False)
+    inline = {k: v for k, v in _launches(counters).items() if v}
+    same = bool(torch.equal(la, lb)) and all(
+        torch.equal(getattr(c3, f.name), getattr(c4, f.name))
+        for f in dataclasses.fields(c3))
+    if not same:
+        raise AssertionError("mixed (b): the switch path and the inline "
+                             "segmented path differ")
+    del c3, c4
+    print(f"mixed (b) decode_step_mixed (switch) against "
+          f"decode_step_mixed_segmented (inline, f32 dots): logits and cache "
+          f"bit-equal; launches of the two steps {inline}", flush=True)
+    # times: eager (median of 10 steps, host clock to a synchronize) and
+    # one step as a CUDA graph (device time)
+    ct = _copy_cache(cache, dev)
+    times = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(ct)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(1e3 * (time.perf_counter() - t0))
+    eager = statistics.median(times)
+    dev_ms = _time_ms(torch, lambda i: step(ct), 1, reps=5)
+    unfused_ms = _time_ms(torch, lambda i: step(ct, fused_prep=None), 1,
+                          reps=5)
+    del ct
+    # weight bytes one step reads: every projection's codes, row scales,
+    # int8 factors and their scales (the fused stacks are copies: counted
+    # once), and the int8 head
+    wbytes = sum(
+        m * n * K.container_bits(row[name]) // 8 + 4 * m
+        + min(MIXED_RANK, m, n) * (m + n + 4) + 4 * m
+        for row in bits for name, (m, n) in shapes.items())
+    wbytes += config.vocab_size * (config.hidden_size + 4)
+    kv = (2 * L * B * config.num_kv_heads * (S0 + 1)
+          * (config.head_dim + 4))
+    bound = 1e3 * wbytes / HBM_BYTES_PER_S
+    print(f"mixed (b) step: eager median {eager:.3f} ms ({1e3 * B / eager:.1f}"
+          f" tok/s), device {dev_ms:.3f} ms as a CUDA graph (idle "
+          f"{1 - dev_ms / eager:.1%} of the eager step); unfused segments "
+          f"{unfused_ms:.3f} ms of device time; weight bytes "
+          f"{wbytes / 1e9:.3f} GB a step, bound {bound:.3f} ms at 3.35 TB/s "
+          f"({bound / dev_ms:.1%} of it), with the K/V read "
+          f"{1e3 * (wbytes + kv) / HBM_BYTES_PER_S:.3f} ms (on {card})",
+          flush=True)
+
+    _mixed_kernel_times(torch, dev, params, prep, config, cache, pos, card)
+
+    # (d) the verify window (S 5 = gamma + 1) against five segmented steps
+    window = torch.cat([tok[:, None], torch.randint(
+        1, config.vocab_size, (B, gamma), generator=torch.Generator(
+        ).manual_seed(14)).to(dev)], dim=1)
+    cv = _copy_cache(cache, dev)
+    for fn in counters.values():
+        fn.launches = 0
+    (vl, cv), vcalls, vrows = _checked(
+        torch, "mixed (d) verify", lambda: TSP.verify_step_mixed(
+            params, window, pos, cv, config))
+    want = {"row 3 (w4a8_stacked)": 7 * L, "row 9 (int8_matmul)": 1}
+    if {k: v for k, v in _launches(counters).items() if v} != want:
+        raise AssertionError(f"mixed (d): launches {_launches(counters)}")
+    cs = _copy_cache(cache, dev)
+    seq = []
+    for i in range(gamma + 1):
+        lg, cs = TM.decode_step_mixed_segmented(params, window[:, i], pos + i,
+                                                cs, config)
+        seq.append(lg)
+    rels = [_rel(torch, vl[:, i], seq[i]) for i in range(gamma + 1)]
+    agree = sum(int((vl[:, i].argmax(-1) == seq[i].argmax(-1)).sum())
+                for i in range(gamma + 1))
+    cols = pos.long()[:, None] + torch.arange(gamma + 1, device=dev)
+    rows_b = torch.arange(B, device=dev)[:, None]
+    kv_codes = sum(int((getattr(cv, n)[:, rows_b, :, cols]
+                        != getattr(cs, n)[:, rows_b, :, cols]).sum())
+                   for n in ("k", "v"))
+    print(f"mixed (d) verify_step_mixed, S {gamma + 1}, against "
+          f"{gamma + 1} segmented steps (staged, f32 dots) from the same "
+          f"cache: logits rel-Frobenius per position "
+          f"{[f'{r:.3e}' for r in rels]} (bound {VERIFY_REL}), argmax equal "
+          f"{agree}/{B * (gamma + 1)}, {kv_codes} K/V codes of the window "
+          f"differ; every launch against its plain version: {vcalls}, "
+          f"operand rows {vrows}", flush=True)
+    if max(rels) > VERIFY_REL:
+        raise AssertionError(f"mixed (d): verify against steps {rels}")
+    del cv, cs
+    cp = _copy_cache(cache, dev)
+    _, pcalls, prows = _checked(
+        torch, "mixed (d) probe window", lambda: TSP.verify_step_mixed(
+            params, window[:, :2], pos, cp, config))
+    del cp
+    print(f"mixed (d) the adaptive engine's probe window (S 2): every "
+          f"launch against its plain version {pcalls}, operand rows {prows}",
+          flush=True)
+    # row 3 on the 8-bit container (the allocation gives none) at both K
+    gen8 = torch.Generator(device=dev)
+    gen8.manual_seed(15)
+    for N, Kd in ((config.hidden_size, config.hidden_size),
+                  (config.hidden_size, config.intermediate_size)):
+        packed = torch.randint(0, 255, (2, N, Kd), generator=gen8,
+                               dtype=torch.uint8, device=dev)
+        sc = torch.full((2, N, 1), 1.0 / Kd ** 0.5 / 7, device=dev)
+        for M in (8, 16, 40):
+            x = torch.randn((M, Kd), generator=gen8, device=dev)
+            if not torch.equal(K.quantized_matmul_w4a8_stacked(
+                    x, packed, sc, 1, 8),
+                    K.quantized_matmul_w4a8_stacked_plain(
+                        x, packed, sc, 1, 8)):
+                raise AssertionError(f"row 3, 8-bit, M {M} K {Kd}: not "
+                                     "equal to the plain version")
+        del packed
+    print(f"mixed (d) row 3 on the 8-bit container, N "
+          f"{config.hidden_size}, K {config.hidden_size} and "
+          f"{config.intermediate_size}, M 8, 16, 40: bit-equal to the plain "
+          f"version", flush=True)
+
+    # (e) speculative rounds: the mixed target, a 10-layer truncate_mixed
+    # self-draft, gamma 4, greedy
+    draft, dcfg = TSP.truncate_draft(params, config, 10)
+    dcache = llama.HeadMajorQuantKVCache.create(dcfg, B, T, device=dev)
+    for b in range(B):
+        _, dcache = TM.prefill_into_slot_mixed(draft, prompts[b:b + 1], b,
+                                               dcache, dcfg)
+    tc = _copy_cache(cache, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    zeros = torch.zeros((B,), device=dev)
+    samp = (zeros, torch.zeros((B,), dtype=torch.int64, device=dev),
+            torch.ones((B,), device=dev))
+    toks, p = tok, pos
+    spec_rows = [[] for _ in range(B)]
+    committed, round_ms = [], []
+    for fn in counters.values():
+        fn.launches = 0
+    for r in range(16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, n_new, toks, p, tc, dcache = TSP.spec_decode_round(
+            params, draft, toks, p, tc, dcache, gen, *samp, config, dcfg,
+            gamma=gamma)
+        n_h = n_new.tolist()
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+        committed.append(n_h)
+        for row, o, n in zip(spec_rows, out.tolist(), n_h):
+            row.extend(o[:n])
+    spec_launches = {k: v for k, v in _launches(counters).items() if v}
+    for name in ("row 3 (w4a8_stacked)", "row 11 (flash_decode_q8_staged)",
+                 "row 9 (int8_matmul)"):
+        if not spec_launches.get(name):
+            raise AssertionError(f"mixed (e): {name} never launched")
+    busy, n_kernels = _device_busy_ms(torch, lambda: TSP.spec_decode_round(
+        params, draft, toks, p, tc, dcache, gen, *samp, config, dcfg,
+        gamma=gamma))
+    per_round = [sum(n) for n in committed]
+    acc = sum(n - 1 for row in committed for n in row) / (16 * B * gamma)
+    med = statistics.median(round_ms[1:])
+    # the plain greedy stream of the segmented step on the verify's buckets
+    # (staged, f32 dots), as far as the rounds went (R16: over the
+    # head-major cache the verify window attends through the plain
+    # attention and the step through row 11, so only knife-edge differences
+    # are allowed)
+    c0 = _copy_cache(cache, dev)
+    plain_rows, plain_logits = [[] for _ in range(B)], [[] for _ in range(B)]
+    t_tok, t_pos = tok, pos
+    for i in range(max(len(row) for row in spec_rows)):
+        lg, c0 = TM.decode_step_mixed_segmented(params, t_tok, t_pos, c0,
+                                                config)
+        t_tok, t_pos = lg.argmax(-1), t_pos + 1
+        for b in range(B):
+            plain_rows[b].append(int(t_tok[b]))
+            plain_logits[b].append(lg[b])
+    del c0
+    agree, notes = _first_divergence(torch, spec_rows, plain_rows,
+                                     plain_logits)
+    busy_txt = ("not measured (torch.profiler saw no kernels)"
+                if busy is None else
+                f"{busy:.3f} ms of kernel time over {n_kernels} kernels "
+                f"(idle {1 - busy / med:.1%} of the eager round)")
+    print(f"mixed (e) spec_decode_round, mixed target, 10-layer "
+          f"truncate_mixed draft, gamma {gamma}, greedy, B {B}, 16 rounds: "
+          f"committed tokens per round {per_round} (per row "
+          f"{committed[0]} ... {committed[-1]}), acceptance {acc:.3f}, "
+          f"{sum(per_round)} tokens in {sum(round_ms) / 1e3:.2f} s; eager "
+          f"median {med:.1f} ms a round ({sum(per_round) / 16 / B:.2f} "
+          f"tokens a row a round, {1e3 * sum(per_round) / sum(round_ms):.1f} "
+          f"tok/s) beside (b)'s eager step {eager:.1f} ms "
+          f"({1e3 * B / eager:.1f} tok/s); one more round's device time: "
+          f"{busy_txt} beside (b)'s step {dev_ms:.3f} ms; launches "
+          f"{spec_launches}; "
+          f"against the plain greedy stream: {agree} of "
+          f"{sum(len(r) for r in spec_rows)} tokens agree"
+          + (f"; {'; '.join(notes)}" if notes else ""), flush=True)
+    del tc, dcache, draft, prep, params, cache
+    torch.cuda.empty_cache()
+    _phase_spec_7b(torch, dev, card)
+    print(f"mixed phase ran in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _mixed_kernel_times(torch, dev, params, prep, config, cache, pos, card):
+    """Phase 13's kernels at its own shapes, each launch alone (a CUDA graph
+    of launches, weights from device memory) beside its plain version and
+    its bound: row 3 at M 8, 16 and 40 on the allocation's containers (2-bit,
+    a 3-bit grid in the 4-bit container) at K 5120 and 13824; row 6 on a
+    fused segment's qkv and gate/up at M 8; row 9 at M 8 and 40; row 11
+    (i8 dots) and row 10 (f32 and i8) at 40 heads over the 128-token
+    cache."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    lp = params.layers
+
+    def bucket(name, grid):
+        mp = getattr(lp, name)
+        for b in mp.buckets:
+            if (b.grid_bits or b.num_bits) == grid:
+                return b
+        return None
+
+    lines = []
+    for name, grid in (("q_proj", 2), ("q_proj", 3), ("gate_proj", 2),
+                       ("gate_proj", 3), ("down_proj", 2), ("down_proj", 3)):
+        b = bucket(name, grid)
+        if b is None:
+            continue
+        Lk, N, P = b.packed.shape
+        Kd = b.in_features
+        for M in (8, 16, 40):
+            x = torch.randn((M, Kd), generator=gen, device=dev)
+            xq, sx = K.quantize_activations_int8(x)
+            ms = _time_ms(torch, lambda i: K._launch_w4a8_stacked(
+                xq, sx, b.packed, b.scales, i % Lk, b.num_bits), 50)
+            plain_ms = _time_ms(torch, lambda i: (
+                K.quantized_matmul_w4a8_stacked_plain(
+                    x, b.packed, b.scales, i % Lk, b.num_bits)), 2, reps=3)
+            bound, by = _bound_ms(M * Kd + M * 4 + N * P + N * 4 + M * N * 4,
+                                  2 * M * N * Kd)
+            lines.append(f"row 3 {name} ({N} x {Kd}, grid {grid} in the "
+                         f"{b.num_bits}-bit container, {Lk} layers) M {M}: "
+                         f"{ms:.4f} ms, plain {plain_ms:.4f}, bound "
+                         f"{bound:.4f} ({by}; {bound / ms:.1%})")
+    for key in ("qkv", "gateup"):
+        fp = next((p[key] for p in prep if p[key] is not None), None)
+        if fp is None:
+            continue
+        Lk, N, P = fp.packed.shape
+        Kd = config.hidden_size
+        x = torch.randn((8, Kd), generator=gen, device=dev)
+        xq, sx = K.quantize_activations_int8(x)
+        xr = K.thin_xr(x, fp.R[0], fp.R_scale[0])
+        args = (fp.L_cat, fp.L_scale_cat, fp.num_bits, fp.ranks[0],
+                fp.splits)
+        ms = _time_ms(torch, lambda i: K._launch_l(
+            xq, sx, fp.packed, fp.scales, i % Lk, xr, *args), 50)
+        plain_ms = _time_ms(torch, lambda i: (
+            K.quantized_matmul_w4a8_l_stacked_plain(
+                x, fp.packed, fp.scales, i % Lk, xr, *args)), 2, reps=3)
+        r = fp.ranks[0]
+        bound, by = _bound_ms(
+            8 * Kd + 32 + N * P + 8 * N + N * r + 8 * len(fp.splits) * r * 4
+            + 8 * N * 4, _ops_int8_units(i8=2 * 8 * N * Kd,
+                                         bf16=2 * 8 * N * r))
+        lines.append(f"row 6 {key} of a fused segment ({N} x {Kd}, "
+                     f"{fp.num_bits}-bit container, {Lk} layers) M 8: "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {bound:.4f} "
+                     f"({by}; {bound / ms:.1%})")
+    head = params.lm_head
+    V, Kd = head.w8.shape
+    for M in (8, 40):
+        x = torch.randn((M, Kd), generator=gen, device=dev)
+        xq, sx = K.quantize_activations_int8(x)
+        ms = _time_ms(torch, lambda i: K._launch_int8_matmul(
+            xq, sx, head.w8, head.scales), 50)
+        plain_ms = _time_ms(torch, lambda i: K.int8_matmul_plain(
+            x, head.w8, head.scales), 2, reps=3)
+        bound, by = _bound_ms(V * Kd + V * 4 + M * Kd + M * V * 4,
+                              2 * M * V * Kd)
+        lines.append(f"row 9 head ({V} x {Kd}) M {M}: {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f}, bound {bound:.4f} ({by}; "
+                     f"{bound / ms:.1%})")
+    B, KVH, D = pos.shape[0], config.num_kv_heads, config.head_dim
+    G = config.num_heads // KVH
+    q = torch.randn((B, KVH, G, D), generator=gen, device=dev)
+    kn = torch.randn((B, KVH, D), generator=gen, device=dev)
+    vn = torch.randn((B, KVH, D), generator=gen, device=dev)
+    Lk, T = cache.k.shape[0], cache.k.shape[3]
+    ms = _time_ms(torch, lambda i: AT.flash_decode_q8_staged(
+        q, cache.k, cache.v, cache.k_scale, cache.v_scale, kn, vn, i % Lk,
+        pos, dots="i8"), 50)
+    plain_ms = _time_ms(torch, lambda i: AT.flash_decode_q8_staged_plain(
+        q, cache.k, cache.v, cache.k_scale, cache.v_scale, kn, vn, i % Lk,
+        pos, dots="i8"), 2, reps=3)
+    ctx = int(pos.sum())
+    bound, by = _bound_ms(2 * ctx * KVH * (D + 4) + 4 * B * KVH * D * 4,
+                          _ops_int8_units(i8=4 * ctx * KVH * G * D))
+    lines.append(f"row 11 staged i8, B {B}, {KVH} heads, D {D}, cache of "
+                 f"{T} at position {int(pos[0])}: {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f}, bound {bound:.4f} ({by}; "
+                 f"{bound / ms:.1%})")
+    # inline: the cache holds the current token too
+    bound, by = _bound_ms(2 * (ctx + B) * KVH * (D + 4) + 2 * B * KVH * D * 4,
+                          _ops_int8_units(i8=4 * (ctx + B) * KVH * G * D))
+    for dots in ("f32", "i8"):
+        ms = _time_ms(torch, lambda i: AT.flash_decode_q8(
+            q, cache.k, cache.v, cache.k_scale, cache.v_scale, i % Lk, pos,
+            dots=dots), 50)
+        plain_ms = _time_ms(torch, lambda i: AT.flash_decode_q8_plain(
+            q, cache.k, cache.v, cache.k_scale, cache.v_scale, i % Lk, pos,
+            dots=dots), 2, reps=3)
+        lines.append(f"row 10 inline {dots}, the same cache (tokens <= "
+                     f"{int(pos[0])}): {ms:.4f} ms, plain {plain_ms:.4f}, "
+                     f"bound {bound:.4f} ({by}; {bound / ms:.1%})")
+    for line in lines:
+        print(f"mixed kernels {line} (on {card})", flush=True)
+
+def _phase_spec_7b(torch, dev, card):
+    """Phase 13 (f): Llama-2-7B widths, 8 layers, fused params, int8
+    token-major caches: speculative generation and serving against plain
+    greedy decode and the fast engine."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import (
+        engine as TE, fast_engine as TFE, spec_engine as TSE,
+        speculative as TSP)
+
+    config = dataclasses.replace(LLAMA2_7B, num_layers=8)
+    B, S0, N, gamma = 8, 16, 24, 4
+    params = _build_fused(config, dev, seed=1)
+    draft, dcfg = TSP.truncate_draft(params, config, 2)
+    Q = llama.QuantKVCache
+    prompts = torch.randint(1, config.vocab_size, (B, S0),
+                            generator=torch.Generator().manual_seed(16)
+                            ).to(dev)
+
+    # plain greedy, logits kept
+    cache = Q.create(config, B, S0 + N + 2 * (gamma + 1), device=dev)
+    first = []
+    for b in range(B):
+        lg, cache = fused.prefill_into_slot_fused(params, prompts[b:b + 1],
+                                                  b, cache, config)
+        first.append(lg)
+    tok = torch.stack(first).argmax(-1)
+    pos = torch.full((B,), S0, dtype=torch.int32, device=dev)
+    plain_rows = [[t] for t in tok.tolist()]
+    plain_logits = [[l] for l in first]
+    for _ in range(N - 1):
+        lg, cache = fused.decode_step_fused(params, tok, pos, cache, config)
+        tok, pos = lg.argmax(-1), pos + 1
+        for b in range(B):
+            plain_rows[b].append(int(tok[b]))
+            plain_logits[b].append(lg[b])
+    del cache
+    t0 = time.perf_counter()
+    spec_rows = TSP.generate_speculative(
+        params, draft, prompts, N, config, dcfg, gamma=gamma,
+        cache_factory=Q.create, draft_cache_factory=Q.create)
+    gen_s = time.perf_counter() - t0
+    agree, notes = _first_divergence(torch, spec_rows, plain_rows,
+                                     plain_logits)
+    print(f"mixed (f) llama2-7b widths, {config.num_layers} layers, fused "
+          f"params, int8 token-major caches: generate_speculative (2-layer "
+          f"draft, gamma {gamma}, greedy, {B} x {N} tokens, {gen_s:.2f} s) "
+          f"against plain greedy decode: {agree}/{B * N} tokens agree"
+          + (f"; {'; '.join(notes)}" if notes else ""), flush=True)
+
+    # a perfect draft: the target drafts for itself
+    cache = Q.create(config, B, 64, device=dev)
+    dcache = Q.create(config, B, 64, device=dev)
+    for b in range(B):
+        _, cache = fused.prefill_into_slot_fused(params, prompts[b:b + 1],
+                                                 b, cache, config)
+        _, dcache = fused.prefill_into_slot_fused(params, prompts[b:b + 1],
+                                                  b, dcache, config)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    zeros = torch.zeros((B,), device=dev)
+    toks, p = torch.stack(first).argmax(-1), torch.full(
+        (B,), S0, dtype=torch.int32, device=dev)
+    accepted = 0
+    for _ in range(4):
+        _, n_new, toks, p, cache, dcache = TSP.spec_decode_round(
+            params, params, toks, p, cache, dcache, gen, zeros,
+            torch.zeros((B,), dtype=torch.int64, device=dev),
+            torch.ones((B,), device=dev), config, config, gamma=gamma)
+        accepted += int((n_new - 1).sum())
+    print(f"mixed (f) perfect draft (the target drafting for itself), 4 "
+          f"rounds: accepted {accepted} of {4 * B * gamma} proposed",
+          flush=True)
+    if accepted < 0.9 * 4 * B * gamma:
+        raise AssertionError("mixed (f): the perfect draft was rejected")
+    del cache, dcache
+
+    # the engines: 8 greedy requests
+    rng = torch.Generator().manual_seed(17)
+    reqs = [dict(uid=i, prompt=torch.randint(
+        1, config.vocab_size, (int(torch.randint(16, 49, (1,),
+                                                 generator=rng)),),
+        generator=rng).numpy(), max_new_tokens=N) for i in range(B)]
+    out = {}
+    for name, make in (
+            ("fast", lambda: TFE.FastServingEngine(
+                params, config, max_slots=B, max_seq_len=96, kv_int8=True,
+                device=dev)),
+            ("spec", lambda: TSE.SpeculativeServingEngine(
+                params, draft, config, dcfg, gamma=gamma, max_slots=B,
+                max_seq_len=96, kv_int8=True, draft_kv_int8=True,
+                device=dev))):
+        eng = make()
+        for r in reqs:
+            eng.submit(TE.Request(**r))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = ({c.uid: c.tokens for c in done}, wall, eng)
+    (fast, fast_s, _), (spec, spec_s, eng) = out["fast"], out["spec"]
+    rows_s = [spec[i] for i in range(B)]
+    rows_f = [fast[i] for i in range(B)]
+    # each request alone through the plain fused step gives the logits at
+    # its first difference
+    logits = []
+    for i, (s, f) in enumerate(zip(rows_s, rows_f)):
+        if s == f:
+            logits.append(None)
+            continue
+        c = Q.create(config, 1, 96, device=dev)
+        pr = torch.from_numpy(reqs[i]["prompt"]).to(dev)[None]
+        lg, c = fused.prefill_into_slot_fused(params, pr, 0, c, config)
+        row, t_pos = [lg], torch.tensor([pr.shape[1]], dtype=torch.int32,
+                                        device=dev)
+        for t in f[:-1]:
+            lg, c = fused.decode_step_fused(
+                params, torch.tensor([t], device=dev), t_pos, c, config)
+            row.append(lg[0])
+            t_pos = t_pos + 1
+        logits.append(row)
+    agree, notes = _first_divergence(torch, rows_s, rows_f, logits)
+    print(f"mixed (f) SpeculativeServingEngine (2-layer draft, gamma "
+          f"{gamma}, adaptive, int8 caches) against FastServingEngine, "
+          f"{B} greedy requests of {N} tokens: {agree}/{B * N} tokens "
+          f"agree" + (f"; {'; '.join(notes)}" if notes else "")
+          + f"; spec_rounds {eng.spec_rounds}, accepted_tokens "
+          f"{eng.accepted_tokens}, gamma now {eng.gamma_current}; wall "
+          f"{spec_s:.2f} s against {fast_s:.2f} s ({B * N / spec_s:.1f} "
+          f"against {B * N / fast_s:.1f} tok/s, on {card})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5259,6 +6115,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_pipeline(torch, dev,
                    dataclasses.replace(LLAMA2_7B, num_layers=2))
+    torch.cuda.empty_cache()
+    phase_mixed(torch, dev, card)
 
     for name, r in record.items():
         missing = [k for k in measured if r[k] is None]

@@ -47,8 +47,9 @@ class StackedModelParams:
 
 
 def _map_leaves(fn, *objs):
-    """``fn`` over the tensors of equal-structured params (dataclasses of
-    tensors, None and static fields; static fields come from the first)."""
+    """``fn`` over the tensors of equal-structured params (dataclasses and
+    tuples of tensors, None and static fields; static fields come from the
+    first)."""
     first = objs[0]
     if isinstance(first, torch.Tensor):
         return fn(*objs)
@@ -56,6 +57,8 @@ def _map_leaves(fn, *objs):
         return dataclasses.replace(first, **{
             f.name: _map_leaves(fn, *(getattr(o, f.name) for o in objs))
             for f in dataclasses.fields(first)})
+    if isinstance(first, tuple):
+        return tuple(_map_leaves(fn, *parts) for parts in zip(*objs))
     return first
 
 

@@ -2,14 +2,15 @@
 
 Counterpart of ``ee274_convexcaldera_llm_quantization_tpu.serve.
 http_server``: a background scheduler thread drives any of the port's
-serving engines (slotted, fast or paged) while a ``ThreadingHTTPServer``
-accepts JSON requests.
+serving engines (slotted, fast, speculative or paged) while a
+``ThreadingHTTPServer`` accepts JSON requests.
 
 Endpoints:
 
 - ``GET  /health``          -> ``{"status": "ok"}``
 - ``GET  /v1/stats``        -> engine counters (tokens, steps, queue depth,
-                               active slots)
+                               active slots; a speculative engine's
+                               ``spec_rounds`` and ``accepted_tokens``)
 - ``POST /v1/completions``  -> ``{"prompt": [token ids], "max_tokens": n,
                                "temperature": t, "top_k": k, "top_p": p,
                                "eos_token": e, "stream": bool}``.
@@ -126,13 +127,17 @@ class AsyncEngineRunner:
             depth, active = len(eng.queue), len(eng.slots)
         else:                            # paged engine: C++ scheduler counts
             depth, active = eng.sched.queue_len, eng.sched.active_count
-        return {
+        out = {
             "tokens_generated": getattr(eng, "tokens_generated", 0),
             "steps": getattr(eng, "steps", 0),
             "queue_depth": depth + self._inbox.qsize(),
             "active_slots": active,
             "max_slots": eng.max_slots,
         }
+        if hasattr(eng, "spec_rounds"):  # speculative engine
+            out["spec_rounds"] = eng.spec_rounds
+            out["accepted_tokens"] = eng.accepted_tokens
+        return out
 
     # -- engine thread -------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """PyTorch port, ``serve/http_server.py``: the HTTP front end over the port's
 paged engine on the CPU. Completions must equal direct engine runs and the
 reference's server over the reference's paged engine on the same weights;
-streaming, validation, stats and engine failures."""
+streaming, validation, stats (a speculative engine's counters too) and
+engine failures."""
 
 import json
 import threading
@@ -15,9 +16,11 @@ from ee274_convexcaldera_llm_quantization_tpu.serve import (
     http_server as JH, paged_engine as JPE)
 from ee274_convexcaldera_llm_quantization_tpu_torch.serve import engine as TE
 from ee274_convexcaldera_llm_quantization_tpu_torch.serve import (
-    http_server as TH, paged_engine as TPE)
+    fast_engine as TFE, http_server as TH, paged_engine as TPE,
+    spec_engine as TSE, speculative as TSP)
 
-from test_torch_fused import _one_torch_thread, _port_config  # noqa: F401
+from test_torch_fused import (  # noqa: F401 (a fixture)
+    _one_torch_thread, _params, _port_config)
 from test_torch_model import _model
 
 _KW = dict(max_slots=2, num_pages=16, page_size=8)
@@ -175,6 +178,35 @@ class TestHTTP:
             assert _get(srv, "/v1/stats")["max_slots"] == 1
         finally:
             srv.stop()
+
+    def test_speculative_engine_and_its_counters(self):
+        # the speculative engine behind the server answers the fast
+        # engine's greedy tokens, and the stats report its rounds and
+        # accepted tokens (as the reference's server does)
+        config, _, tp = _params("tiny")
+        cfg = _port_config(config)
+        draft, dcfg = TSP.truncate_draft(tp, cfg, 1)
+        kw = dict(max_slots=2, max_seq_len=64, device="cpu")
+        srv = TH.ServingHTTPServer(TSE.SpeculativeServingEngine(
+            tp, draft, cfg, dcfg, gamma=3, **kw), port=0).start()
+        try:
+            before = _get(srv, "/v1/stats")
+            assert before["spec_rounds"] == before["accepted_tokens"] == 0
+            prompt = _prompt(6, seed=21)
+            out = _post(srv, {"prompt": prompt, "max_tokens": 8})
+            eng = TFE.FastServingEngine(tp, cfg, **kw)
+            eng.submit(TE.Request(uid=0, prompt=np.asarray(prompt, np.int32),
+                                  max_new_tokens=8))
+            assert out["tokens"] == eng.run()[0].tokens
+            stats = _get(srv, "/v1/stats")
+            assert stats["spec_rounds"] > 0
+            assert 0 <= stats["accepted_tokens"] <= 3 * stats["spec_rounds"]
+            assert stats["tokens_generated"] == 8
+        finally:
+            srv.stop()
+        # engines without speculation report no such counters
+        assert "spec_rounds" not in TH.AsyncEngineRunner(
+            _port_engine()).stats()
 
     @pytest.mark.filterwarnings(
         "ignore::pytest.PytestUnhandledThreadExceptionWarning")
