@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (W4A8 decode and its options, prefill, the serving
 engines, the unfused compressed-model path, the compression pipeline, the
-offline quality pipeline, mixed-width serving and speculative decoding) on
-one NVIDIA GPU.
+offline quality pipeline, mixed-width serving and speculative decoding,
+tensor- and pipeline-parallel serving) on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
 
@@ -208,6 +208,25 @@ caught):
    draft's acceptance, ``SpeculativeServingEngine`` against
    ``FastServingEngine`` on 8 requests; each first divergence with its
    margin (``MARGIN_REL``, ROADMAP R6 and R16).
+14. Tensor- and pipeline-parallel serving (``phase_parallel``, last; the
+   ranks are spawned after the build by ``parallel.bootstrap.launch``):
+   (q) Qwen2-0.5B's whole fused step at full widths (qkv bias, tied int8
+   head, K 896, vocab 151936) against the plain versions; (a) tp=1 over
+   NCCL, a world of one in this process: ``decode_step_fused_tp`` bit-equal
+   to ``decode_step_fused`` on phase 4's step; (b) tp=2, two gloo ranks
+   sharing the card (NCCL refuses two ranks on one device), Llama-2-7B,
+   32 layers, each rank its shard of phase 4's weights: one TP step from
+   the single-device step's cache (``KERN_REL``, the differing K/V codes
+   counted), then a prefill of one 128-token prompt a row and 16 greedy
+   steps against single-device decode (each first divergence with its
+   margin under ``MARGIN_REL``), every launch of rows 3, 9, 11 and 13
+   against its plain version; (c) pp=2 and pp=2 x tp=2, four gloo ranks on
+   the card, depth cut to 8 layers, checked the same way; (d) tp=2
+   ``TPServingEngine`` on 8 requests of 16-200 prompt tokens against
+   ``FastServingEngine``, then one ``paged_decode_step_fused_tp`` tick over
+   16-token pages (row 14); (e) (b) over NCCL, one rank a card, where the
+   machine has two cards. Per-rank eager and device step times: ranks that
+   share one card time-share its SMs, so they are no scaling figure.
 
 Before the last line it prints the kernel table as one JSON object, each
 number measured in this run: ``launches`` counts the main path of the
@@ -4149,7 +4168,9 @@ class _CheckCalls(_TapCalls):
     plain version runs on the same operands: "exact" holds the two
     outputs equal bit for bit, "attn" to phase 2's bound for a decode
     kernel (``_attn_ok``), "rel" within ``L_RTOL`` (the L-fused kernel:
-    exact integer sums, its factor dots and f32 epilogue in another order).
+    exact integer sums, its factor dots and f32 epilogue in another order),
+    "scaled" to phase 2's f32 bound with its atol times the output's
+    largest value (flash prefill on a model's activations).
     Keeps ``calls`` and the largest rel-Frobenius
     difference (``worst``) per name, every failure (``bad``), and each
     call's first operand and output in order (``inputs``, ``outputs``)."""
@@ -4178,6 +4199,12 @@ class _CheckCalls(_TapCalls):
                 ok = torch.allclose(out, ref, rtol=L_RTOL, atol=L_RTOL * float(
                     ref.abs().max()))
                 text = f"rtol {L_RTOL:g}"
+            elif how == "scaled":
+                # phase 2's f32 bound, its atol scaled to the output's
+                # largest value (an f32 sum's error grows with its terms)
+                tol = 2e-6 * max(1.0, float(ref.abs().max()))
+                ok = torch.allclose(out, ref, rtol=2e-5, atol=tol)
+                text = f"rtol 2e-5, atol {tol:.2e}"
             else:
                 ok, text = _attn_ok(torch, out, ref, kw.get("dots", "f32"))
             self.calls[name] += 1
@@ -6028,6 +6055,846 @@ def _phase_spec_7b(torch, dev, card):
           f"against {B * N / fast_s:.1f} tok/s, on {card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: tensor- and pipeline-parallel serving (``parallel/``,
+# ``serve/tp_engine.py``) and Qwen2-0.5B's whole step
+# ---------------------------------------------------------------------------
+
+# (b): one 128-token prompt a row, 16 greedy steps; (d) 8 requests of
+# 16-200 prompt tokens, 8 new tokens each
+PAR_B, PAR_T, PAR_PROMPT, PAR_STEPS = 8, 256, 128, 16
+PAR_NEW = 8
+# (c): the pipeline depth, cut from 32 to 8 layers for the phase's time
+PAR_PP_LAYERS = 8
+PAR_PP_STEPS = 4
+
+
+def _par_holders():
+    """(holders, checks) for ``_CheckCalls`` on the parallel paths: rows 3
+    and 9 bit-equal to their plain versions, row 6 within ``L_RTOL``, rows
+    11 and 14 to phase 2's attention bound, row 13 to its f32 bound scaled
+    to the output."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        compressed as CM, fused, stacked)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import paged
+    holders = [(fused, "K"), (fused, "AT"), (stacked, "K"), (CM, "K"),
+               (paged, "AT")]
+    checks = {"quantized_matmul_w4a8_stacked":
+              (K.quantized_matmul_w4a8_stacked_plain, "exact"),
+              "quantized_matmul_w4a8_l_stacked":
+              (K.quantized_matmul_w4a8_l_stacked_plain, "rel"),
+              "int8_matmul": (K.int8_matmul_plain, "exact"),
+              "flash_decode_q8_staged":
+              (AT.flash_decode_q8_staged_plain, "attn"),
+              "flash_prefill": (AT.flash_prefill_plain, "scaled"),
+              "_flash_decode_q8_paged":
+              (AT.flash_decode_q8_paged_plain, "attn")}
+    return holders, checks
+
+
+class _ParChecks:
+    """``_CheckCalls`` over the parallel paths that keeps a running total
+    (calls, worst rel-Frobenius, failures) and drops the kept operands after
+    each block, so a long run holds no activations."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls, self.worst, self.bad = {}, {}, []
+
+    def run(self, fn):
+        holders, checks = _par_holders()
+        with _CheckCalls(self.torch, holders, checks) as chk:
+            out = fn()
+        for name, n in chk.calls.items():
+            if n:
+                self.calls[name] = self.calls.get(name, 0) + n
+                self.worst[name] = max(self.worst.get(name, 0.0),
+                                       chk.worst[name])
+        self.bad.extend(chk.bad)
+        return out
+
+    def summary(self):
+        return {n: (c, self.worst[n]) for n, c in self.calls.items()}
+
+
+def _par_counts():
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+    return {"row 3": K.quantized_matmul_w4a8_stacked,
+            "row 6": K.quantized_matmul_w4a8_l_stacked,
+            "row 9": K.int8_matmul, "row 11": AT.flash_decode_q8_staged,
+            "row 13": AT.flash_prefill, "row 14": AT.flash_decode_q8_paged}
+
+
+def _par_prompts(torch, config, n, lo, hi, seed):
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, config.vocab_size, (int(torch.randint(
+        lo, hi + 1, (1,), generator=rng)),), generator=rng)
+        for _ in range(n)]
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_spec(config, device="cuda", **kw):
+    """The sizes of the spawned worlds' runs (picklable): the module's
+    constants unless given."""
+    return dict(dict(config=config, device=device, B=PAR_B, T=PAR_T,
+                     prompt=PAR_PROMPT, steps=PAR_STEPS, new=PAR_NEW,
+                     new_lo=16, new_hi=200, pp_steps=PAR_PP_STEPS), **kw)
+
+
+def _rank_device(torch, spec):
+    if spec["device"] == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(spec["device"])
+
+
+def _par_greedy(torch, dev, step, prefill, prompts, steps):
+    """Prefill each row, then ``steps`` greedy steps of ``step(tokens, pos)``
+    (B,) from the prompts' ends; returns ([row tokens], [row logits per
+    token])."""
+    B = len(prompts)
+    first = []
+    for b, p in enumerate(prompts):
+        first.append(prefill(p.to(dev)[None], b))
+    tok = torch.stack([lg.argmax(-1) for lg in first])
+    rows = [[int(t)] for t in tok]
+    logits = [[first[b].float().cpu()] for b in range(B)]
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device=dev)
+    for _ in range(steps):
+        lg = step(tok, pos)
+        tok = lg.argmax(-1)
+        lc = lg.float().cpu()
+        for b in range(B):
+            rows[b].append(int(tok[b]))
+            logits[b].append(lc[b])
+        pos = pos + 1
+    return rows, logits
+
+
+def _time_steps(torch, dev, step, tok, pos, n=4):
+    """Median eager ms of ``n`` greedy steps (no checks), then one more
+    step's device time through torch.profiler: (eager ms, device ms,
+    kernels); no device time off the card."""
+    times = []
+    for _ in range(n):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        lg = step(tok, pos)
+        _sync(torch, dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        tok, pos = lg.argmax(-1), pos + 1
+    if dev.type != "cuda":
+        return statistics.median(times), None, 0
+    busy, kernels = _device_busy_ms(torch, lambda: step(tok, pos))
+    return statistics.median(times), busy, kernels
+
+
+def _rank_tp2(rank, backend, spec):
+    """(b) and (d) on one rank of a tp=2 world: the single-device
+    references first, on the full Llama-2-7B params (phase 4's, seed 0),
+    then this rank's shard alone (the rest freed), every launch held to its
+    plain version."""
+    import torch
+    from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.parallel import (
+        comm, mesh as pm, tp_fused as TPF)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.serve import (
+        engine as TE, fast_engine as TFE, paged, tp_engine as TTE)
+
+    dev = _rank_device(torch, spec)
+    config, B, T, S = spec["config"], spec["B"], spec["T"], spec["prompt"]
+    mesh = pm.make_mesh(1, 2, device_type=dev.type)
+    out = dict(rank=rank, backend=backend, device=str(dev))
+    sp = bench_params.build_compressed_llama_params(config, num_bits=4,
+                                                    rank=128, seed=0,
+                                                    device=dev)
+    fp = fused.quantize_factors_int8_fused(fused.fuse_stacked(sp))
+    prompts = _par_prompts(torch, config, B, S, S, 41)
+
+    # (b) single-device: prefill, greedy steps; the cache before and after
+    # the first step kept for the TP step from the same cache
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    snap = {}
+
+    def prefill1(p, b):
+        return fused.prefill_into_slot_fused(fp, p, b, cache, config,
+                                             flash=True)[0]
+
+    def step1(tok, pos):
+        first = not snap
+        if first:
+            snap.update(cache=_copy_cache(cache, dev), tok=tok.clone(),
+                        pos=pos.clone())
+        lg = fused.decode_step_fused(fp, tok, pos, cache, config,
+                                     staged_kv="uniform", attn_dots="i8")[0]
+        if first:
+            snap["after"] = _copy_cache(cache, dev)
+        return lg
+    rows1, logits1 = _par_greedy(torch, dev, step1, prefill1, prompts,
+                                 spec["steps"])
+    del cache
+
+    # (d) single-device: FastServingEngine on the requests (the logits of
+    # every token kept for the margins), one paged tick on 16-token pages
+    class Recording(TFE.FastServingEngine):
+        def _start(self, slot, req, logits):
+            self.rec.setdefault(req.uid, []).append(logits.float().cpu())
+            super()._start(slot, req, logits)
+
+        def _advance(self, logits):
+            lc = logits.float().cpu()
+            for s, st in self.slots.items():
+                self.rec.setdefault(st.req.uid, []).append(lc[s])
+            super()._advance(logits)
+
+    reqs = [dict(uid=i, prompt=p.numpy(), max_new_tokens=spec["new"])
+            for i, p in enumerate(_par_prompts(
+                torch, config, B, spec["new_lo"], spec["new_hi"], 43))]
+    eng = Recording(fp, config, max_slots=B, max_seq_len=T, flash_attn=True,
+                    device=dev)
+    eng.rec = {}
+    for r in reqs:
+        eng.submit(TE.Request(**r))
+    fast = {c.uid: list(c.tokens) for c in eng.run()}
+    fast_logits = eng.rec
+    del eng
+    pages = T // 16
+    tables = torch.arange(B * pages, dtype=torch.int32,
+                          device=dev).reshape(B, pages)
+    pool = paged.PagedQuantKVPool.create(config, B * pages + 1, 16,
+                                         device=dev)
+    for b, p in enumerate(prompts):
+        paged.paged_prefill_fused(fp, p.to(dev)[None], pool, tables[b],
+                                  config, flash=True)
+    pool_snap = _copy_cache(pool, dev)
+    ptok = torch.tensor([rows1[b][0] for b in range(B)], device=dev)
+    ppos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    paged_ref, pool = paged.paged_decode_step_fused(fp, ptok, ppos, pool,
+                                                    tables, config)
+
+    # (b) factor path "l" (row 6 on every projection: the fused groups
+    # column-parallel, o and down row-parallel with the global act_scale
+    # and the summed xr): the same weights, one single-device step from
+    # the cache before (b)'s first step
+    fpl = fused.quantize_factors_int8_fused(fused.fuse_stacked(sp),
+                                            fuse_factor_kernel="l")
+    cache_l = _copy_cache(snap["cache"], dev)
+    ref_l = fused.decode_step_fused(fpl, snap["tok"], snap["pos"], cache_l,
+                                    config, staged_kv="uniform",
+                                    attn_dots="i8")[0]
+    tpl = TPF.shard_fused_model_tp(fpl, mesh)
+    del fpl
+
+    # this rank's shard; the full params freed
+    tpp = TPF.shard_fused_model_tp(fp, mesh)
+    tp_engine = TTE.TPServingEngine(sp, config, mesh, max_slots=B,
+                                    max_seq_len=T, flash_attn=True,
+                                    device=dev)
+    del sp, fp
+    torch.cuda.empty_cache()
+    out["shard_gb"] = sum(t.numel() * t.element_size()
+                          for t in _leaves(tpp).values()
+                          if isinstance(t, torch.Tensor)) / 1e9
+    group = comm.axis_group(mesh, "tp")
+    checks = _ParChecks(torch)
+    counts = _par_counts()
+    for fn in counts.values():
+        fn.launches = 0
+
+    # (b) the "l" TP step from the same cache
+    c = TPF.shard_headmajor_cache_tp(snap["cache"], mesh)
+    lg = checks.run(lambda: TPF.decode_step_fused_tp(
+        tpl, snap["tok"], snap["pos"], c, config, mesh, attn_dots="i8")[0])
+    out["l_rel"] = _rel(torch, lg, ref_l)
+    out["l_argmax"] = _same_argmax(torch, lg, ref_l)
+    out["l_codes"] = _code_diff(torch, c,
+                                TPF.shard_headmajor_cache_tp(cache_l, mesh))
+    out["l_launches"] = {k: f.launches for k, f in counts.items()}
+    del c, tpl, cache_l
+    torch.cuda.empty_cache()
+    for fn in counts.values():
+        fn.launches = 0
+
+    # (b) one TP step from the single-device step's cache
+    c = TPF.shard_headmajor_cache_tp(snap["cache"], mesh)
+    lg = checks.run(lambda: TPF.decode_step_fused_tp(
+        tpp, snap["tok"], snap["pos"], c, config, mesh, attn_dots="i8")[0])
+    ref = torch.stack([logits1[b][1] for b in range(B)])
+    out["synced_rel"] = _rel(torch, lg, ref)
+    out["synced_argmax"] = _same_argmax(torch, lg, ref)
+    out["synced_codes"] = _code_diff(
+        torch, c, TPF.shard_headmajor_cache_tp(snap["after"], mesh))
+    del c
+
+    # (b) the TP run alone: prefill each row, greedy steps
+    ct = TPF.shard_headmajor_cache_tp(
+        llama.HeadMajorQuantKVCache.create(config, B, T, device=dev), mesh)
+
+    def prefill2(p, b):
+        return checks.run(lambda: TPF.prefill_into_slot_fused_tp(
+            tpp, p, b, ct, config, mesh, flash=True)[0])
+
+    def step2(tok, pos):
+        return TPF.decode_step_fused_tp(tpp, tok, pos, ct, config, mesh,
+                                        attn_dots="i8")[0]
+    rows2, _ = _par_greedy(torch, dev,
+                           lambda t, p: checks.run(lambda: step2(t, p)),
+                           prefill2, prompts, spec["steps"])
+    out["prompt_codes"] = _code_diff(
+        torch, _prompt_cols(ct, S),
+        _prompt_cols(TPF.shard_headmajor_cache_tp(snap["cache"], mesh), S))
+    agree, notes = _first_divergence(torch, rows2, rows1, logits1)
+    out["b_launches"] = {k: f.launches for k, f in counts.items()}
+    eager, busy, n = _time_steps(
+        torch, dev, step2, torch.tensor([r[-1] for r in rows2], device=dev),
+        torch.full((B,), S + spec["steps"], dtype=torch.int32, device=dev))
+    out["b"] = dict(agree=agree, total=B * (spec["steps"] + 1), notes=notes,
+                    eager_ms=eager, device_ms=busy, kernels=n)
+    tok_sum = float(sum(sum(r) for r in rows2))
+    out["tokens_equal_on_ranks"] = bool(float(comm.all_max(
+        torch.tensor([tok_sum], device=dev), group)[0]) == tok_sum == float(
+        -comm.all_max(torch.tensor([-tok_sum], device=dev), group)[0]))
+    del ct, snap
+
+    # (d) the TP engine on the same requests, then one paged TP tick from
+    # the single-device pool
+    for fn in counts.values():
+        fn.launches = 0
+    for r in reqs:
+        tp_engine.submit(TE.Request(**r))
+    t0 = time.perf_counter()
+    done = checks.run(tp_engine.run)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    tp_tokens = {c.uid: list(c.tokens) for c in done}
+    agree, notes = _first_divergence(
+        torch, [tp_tokens[i] for i in range(B)], [fast[i] for i in range(B)],
+        [fast_logits[i] for i in range(B)])
+    out["d"] = dict(agree=agree, total=B * spec["new"], notes=notes,
+                    wall=wall)
+    tpool = TPF.shard_paged_pool_tp(pool_snap, mesh)
+    lp = checks.run(lambda: TPF.paged_decode_step_fused_tp(
+        tpp, ptok, ppos, tpool, tables, config, mesh)[0])
+    out["d_launches"] = {k: f.launches for k, f in counts.items()}
+    out["paged_rel"] = _rel(torch, lp, paged_ref)
+    out["paged_argmax"] = _same_argmax(torch, lp, paged_ref)
+    out["paged_codes"] = _code_diff(
+        torch, tpool, TPF.shard_paged_pool_tp(pool, mesh))
+    out["checks"] = checks.summary()
+    out["bad"] = checks.bad
+    return out
+
+
+def _prompt_cols(cache, n):
+    """The cache's K/V codes of columns < ``n`` (the prompts')."""
+    return dataclasses.replace(cache, k=cache.k[:, :, :, :n],
+                               v=cache.v[:, :, :, :n])
+
+
+def _rank_pp(rank, spec):
+    """(c) on one rank of a four-rank world: pp=2 (two replicas, mesh
+    ("dp", "pp")) and pp=2 x tp=2 (mesh ("pp", "tp")) on ``spec``'s config
+    (Llama-2-7B widths cut to a few layers), each against the single-device
+    step."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.parallel import (
+        pp as PP)
+
+    dev = _rank_device(torch, spec)
+    config, B, T, S = spec["config"], spec["B"], spec["T"], spec["prompt"]
+    fp = _build_fused(config, dev, seed=0)
+    prompts = _par_prompts(torch, config, B, S, S, 41)
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    snap = {}
+
+    def prefill1(p, b):
+        return fused.prefill_into_slot_fused(fp, p, b, cache, config,
+                                             flash=True)[0]
+
+    def step1(tok, pos):
+        if not snap:
+            snap["cache"] = _copy_cache(cache, dev)
+            snap["tok"], snap["pos"] = tok.clone(), pos.clone()
+        return fused.decode_step_fused(fp, tok, pos, cache, config,
+                                       staged_kv=True, attn_dots="i8")[0]
+    rows1, logits1 = _par_greedy(torch, dev, step1, prefill1, prompts,
+                                 spec["pp_steps"])
+    ref = torch.stack([logits1[b][1] for b in range(B)])
+    meshes = {
+        "pp=2": (DeviceMesh(dev.type, torch.arange(4).reshape(2, 2).T
+                            .contiguous(), mesh_dim_names=("dp", "pp")),
+                 None),
+        "pp=2 x tp=2": (DeviceMesh(dev.type, torch.arange(4).reshape(2, 2),
+                                   mesh_dim_names=("pp", "tp")), "tp")}
+    out = dict(rank=rank)
+    counts = _par_counts()
+    for name, (mesh, tp_axis) in meshes.items():
+        if tp_axis is None:
+            params = PP.shard_fused_model_pp(fp, mesh)
+
+            def shard_cache(c):
+                return PP.shard_kv_cache_pp(c, mesh)
+        else:
+            params = PP.shard_fused_model_pp_tp(fp, mesh)
+
+            def shard_cache(c):
+                return PP.shard_headmajor_cache_pp_tp(c, mesh)
+        checks = _ParChecks(torch)
+        for fn in counts.values():
+            fn.launches = 0
+        c = shard_cache(snap["cache"])
+
+        def step(tok, pos):
+            return PP.decode_step_fused_pp(params, tok, pos, c, config, mesh,
+                                           tp_axis=tp_axis,
+                                           attn_dots="i8")[0]
+        lg = checks.run(lambda: step(snap["tok"], snap["pos"]))
+        synced = lg
+        res = dict(synced_rel=_rel(torch, lg, ref),
+                   synced_argmax=_same_argmax(torch, lg, ref))
+        # the free run: the prompts' K/V from the single-device prefill,
+        # then greedy steps through the pipeline
+        c = shard_cache(snap["cache"])
+        tok, pos = snap["tok"], snap["pos"]
+        rows2 = [[rows1[b][0]] for b in range(B)]
+        for _ in range(spec["pp_steps"]):
+            lg = checks.run(lambda: step(tok, pos))
+            tok = lg.argmax(-1)
+            for b in range(B):
+                rows2[b].append(int(tok[b]))
+            pos = pos + 1
+        agree, notes = _first_divergence(torch, rows2, rows1, logits1)
+        launches = {k: f.launches for k, f in counts.items()}
+        if tp_axis is None:
+            # where the pipeline's difference from the full step comes
+            # from: the single-device step on each microbatch's rows alone
+            # (M = B / 2, the stages' M), from the same cache rows
+            micro = []
+            for m in range(2):
+                rows = slice(m * B // 2, (m + 1) * B // 2)
+                cm = dataclasses.replace(snap["cache"], **{
+                    f.name: getattr(snap["cache"], f.name)[:, rows].clone()
+                    for f in dataclasses.fields(snap["cache"])})
+                lm = fused.decode_step_fused(
+                    fp, snap["tok"][rows], snap["pos"][rows], cm, config,
+                    staged_kv=True, attn_dots="i8")[0]
+                micro.append(dict(equal=bool(torch.equal(lm, synced[rows])),
+                                  rel=_rel(torch, synced[rows], lm)))
+                del cm
+            res["micro"] = micro
+        eager, busy, n = _time_steps(torch, dev, step, tok, pos)
+        res.update(agree=agree, total=B * (spec["pp_steps"] + 1), notes=notes,
+                   eager_ms=eager, device_ms=busy, kernels=n,
+                   checks=checks.summary(), bad=checks.bad,
+                   launches=launches)
+        out[name] = res
+        del params, c
+    return out
+
+
+def _qwen2_step(torch, dev, config=None, S=128):
+    """Qwen2-0.5B's whole fused step at full widths (qkv bias, tied head
+    made int8, K 896, vocab 151936, GQA 14 x 2, head_dim 64), B 8 from a
+    cache of ``S``-token prompts: every launch against its plain version,
+    the step against the plain versions' step from the same cache."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch import bench_params
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        QWEN2_0_5B)
+
+    config = config or QWEN2_0_5B
+    B, T = 8, 2 * S
+    sp = bench_params.build_compressed_llama_params(config, num_bits=4,
+                                                    rank=128, seed=0,
+                                                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lp = sp.layers
+    for name in ("q_proj", "k_proj", "v_proj"):
+        lin = getattr(lp, name)
+        lin.b = 0.02 * torch.randn(lin.packed.shape[:2], generator=gen,
+                                   device=dev)
+    sp = dataclasses.replace(sp, lm_head=None)          # tied
+    fp = fused.quantize_factors_int8_fused(fused.fuse_stacked(sp))
+    del sp
+    cache = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+    prompts = _par_prompts(torch, config, B, S, S, 47)
+    checks = _ParChecks(torch)
+    for b, p in enumerate(prompts):
+        checks.run(lambda: fused.prefill_into_slot_fused(
+            fp, p.to(dev)[None], b, cache, config, flash=True))
+    tok = torch.randint(0, config.vocab_size, (B,), generator=gen,
+                        device=dev)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    plain_cache = _copy_cache(cache, dev)
+    lk = checks.run(lambda: fused.decode_step_fused(
+        fp, tok, pos, cache, config, staged_kv="uniform",
+        attn_dots="i8")[0])
+    with _PlainKernels():
+        lpl = fused.decode_step_fused(fp, tok, pos, plain_cache, config,
+                                      staged_kv="uniform", attn_dots="i8")[0]
+    e = _rel(torch, lk, lpl)
+    codes, worst = _code_diff(torch, cache, plain_cache)
+    print(f"parallel (q) qwen2-0.5b whole fused step ({config.num_layers} "
+          f"layers, hidden {config.hidden_size}, qkv bias, tied int8 head "
+          f"{config.vocab_size} x {config.hidden_size}), B {B} from "
+          f"{S}-token prompts, staged, dots i8: against the plain versions' "
+          f"step rel-Frobenius {e:.3e} (bound {KERN_REL:g}), argmax equal "
+          f"{_same_argmax(torch, lk, lpl)}, {codes} K/V codes differ (by up "
+          f"to {worst}); launches against their plain versions "
+          f"{checks.summary()}", flush=True)
+    if checks.bad:
+        raise AssertionError(f"parallel (q) qwen2-0.5b: {checks.bad}")
+    if not (e <= KERN_REL and _same_argmax(torch, lk, lpl)):
+        raise AssertionError("parallel (q) qwen2-0.5b: the step disagrees "
+                             "with the plain versions")
+
+
+def _tp1_nccl(torch, dev):
+    """(a) A world of one rank on the card over NCCL: the TP step at tp=1
+    against ``decode_step_fused`` on phase 4's params and step, bit for
+    bit (logits and every cache tensor)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models import (
+        fused, llama)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    from ee274_convexcaldera_llm_quantization_tpu_torch.parallel import (
+        bootstrap, mesh as pm, tp_fused as TPF)
+
+    config, B, T = LLAMA2_7B, 8, 256
+    work = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        ok = bootstrap.initialize_distributed(
+            "file://" + os.path.join(work, "store"), 1, 0, backend="nccl")
+        assert ok and dist.get_backend() == "nccl"
+        params = _build_fused(config, dev, seed=0)
+        mesh = pm.make_mesh(1, 1)
+        tpp = TPF.shard_fused_model_tp(params, mesh)
+        c1 = llama.HeadMajorQuantKVCache.create(config, B, T, device=dev)
+        c2 = TPF.shard_headmajor_cache_tp(
+            llama.HeadMajorQuantKVCache.create(config, B, T, device=dev),
+            mesh)
+        gen = torch.Generator().manual_seed(4)
+        tok = torch.randint(0, config.vocab_size, (B,), generator=gen).to(dev)
+        equal = True
+        for step in range(4):
+            pos = torch.full((B,), step, dtype=torch.int32, device=dev)
+            l1, c1 = fused.decode_step_fused(params, tok, pos, c1, config,
+                                             staged_kv="uniform",
+                                             attn_dots="i8")
+            l2, c2 = TPF.decode_step_fused_tp(tpp, tok, pos, c2, config,
+                                              mesh, attn_dots="i8")
+            equal &= bool(torch.equal(l1, l2)) and all(
+                torch.equal(getattr(c1, f.name), getattr(c2, f.name))
+                for f in dataclasses.fields(c1))
+            tok = l1.argmax(-1)
+        print(f"parallel (a) tp=1 over nccl (a world of one on "
+              f"{torch.cuda.get_device_name(0)}): decode_step_fused_tp on "
+              f"phase 4's step (llama2-7b, 32 layers, B {B}, ctx {T}, dots "
+              f"i8), 4 steps: logits and cache bit-equal to "
+              f"decode_step_fused: {equal}", flush=True)
+        if not equal:
+            raise AssertionError("parallel (a): tp=1 differs from the "
+                                 "single-device step")
+        del params, tpp, c1, c2
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _print_tp2(tag, res, card):
+    for r in res:
+        b, d = r["b"], r["d"]
+        print(f"parallel {tag} rank {r['rank']} ({r['backend']}, "
+              f"{r['device']}; shard {r['shard_gb']:.2f} GB): the step from "
+              f"the single-device step's cache rel-Frobenius "
+              f"{r['synced_rel']:.3e} (bound {KERN_REL:g}), argmax equal "
+              f"{r['synced_argmax']}, {r['synced_codes'][0]} of its K/V "
+              f"codes differ (by up to {r['synced_codes'][1]}); the prompts' "
+              f"K/V codes against the single-device prefill's: "
+              f"{r['prompt_codes'][0]} differ (by up to "
+              f"{r['prompt_codes'][1]}; R6 flips of the f32 order of a "
+              f"two-partial sum); greedy tokens {b['agree']}/{b['total']} "
+              f"equal to "
+              f"single-device decode" + (f" ({'; '.join(b['notes'])})"
+                                          if b["notes"] else "")
+              + f"; launches {r['b_launches']}; eager step median "
+              f"{b['eager_ms']:.2f} ms, device time of one step "
+              f"{b['device_ms']} ms over {b['kernels']} kernels (two ranks "
+              f"time-share one card's SMs: not a scaling figure; {card})",
+              flush=True)
+        print(f"parallel {tag} rank {r['rank']}, factor path \"l\" (row 6 "
+              f"on every projection; o and down row-parallel with the "
+              f"global act_scale and the summed xr): the step from the "
+              f"single-device step's cache rel-Frobenius {r['l_rel']:.3e} "
+              f"(bound {KERN_REL:g}), argmax equal {r['l_argmax']}, "
+              f"{r['l_codes'][0]} of its K/V codes differ (by up to "
+              f"{r['l_codes'][1]}); launches {r['l_launches']}", flush=True)
+        print(f"parallel (d) rank {r['rank']}: TPServingEngine(tp=2, "
+              f"flash_attn=True), {PAR_B} requests of 16-200 prompt tokens, "
+              f"{PAR_NEW} new each: {d['agree']}/{d['total']} tokens equal "
+              f"to FastServingEngine's" + (f" ({'; '.join(d['notes'])})"
+                                           if d["notes"] else "")
+              + f"; wall {d['wall']:.2f} s with every launch checked; "
+              f"launches {r['d_launches']}; the "
+              f"paged tp step (16-token pages) from the single-device pool: "
+              f"rel-Frobenius {r['paged_rel']:.3e} (bound {KERN_REL:g}), "
+              f"argmax equal "
+              f"{r['paged_argmax']}, {r['paged_codes'][0]} K/V codes differ; "
+              f"every launch against its plain version {r['checks']}",
+              flush=True)
+        if r["bad"]:
+            raise AssertionError(f"parallel {tag}: {r['bad']}")
+        if not (r["synced_rel"] <= KERN_REL and r["synced_argmax"]
+                and r["l_rel"] <= KERN_REL and r["l_argmax"]
+                and r["l_launches"]["row 6"] > 0
+                and r["paged_rel"] <= KERN_REL and r["paged_argmax"]
+                and r["tokens_equal_on_ranks"]):
+            raise AssertionError(f"parallel {tag} rank {r['rank']}: a step "
+                                 "disagrees with the single-device step")
+
+
+def _par_kernel_times(torch, dev, card):
+    """Rows 2, 3, 9, 11, 13 and 14 at a tp=2 rank's local shapes
+    (Llama-2-7B): each launch against its plain version, its device time
+    (a CUDA graph of launches over weights or caches rotated past the L2),
+    the plain version's and the bound. PP stages run the single-device
+    shapes (phase 2)."""
+    from ee274_convexcaldera_llm_quantization_tpu_torch.ops import (
+        attention as AT, kernels as K)
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    M = 8
+    lines = []
+
+    def report(row, name, out, ref, how, ms, plain_ms, nbytes, ops,
+               rate=INT8_OPS_PER_S, lib_ms=None):
+        """``how``: "exact" (bit-equal), "i8" (phase 2's i8 decode bound) or
+        "f32" (phase 2's f32 bound)."""
+        exact = how == "exact"
+        ok = (torch.equal(out, ref) if exact
+              else _attn_ok(torch, out, ref, how)[0])
+        if not ok:
+            raise AssertionError(f"parallel (k) {row} {name}: the launch "
+                                 "disagrees with its plain version")
+        bound, by = _bound_ms(nbytes, ops, rate)
+        lines.append(f"row {row} {name}: {ms:.4f} ms, plain {plain_ms:.4f}, "
+                     f"bound {bound:.4f} ({by}; {bound / ms:.1%} of it)"
+                     + ("" if lib_ms is None else f", library {lib_ms:.4f}")
+                     + (", bit-equal" if exact else ""))
+
+    # rows 3 and 2: the W4A8 matmul on the local projections, M 8
+    for name, N, Kd in (("qkv", 6144, 4096), ("o", 4096, 2048),
+                        ("gate/up", 11008, 4096), ("down", 4096, 5504)):
+        Lk = max(2, math.ceil(200e6 / (N * Kd // 2)))
+        packed = torch.randint(0, 256, (Lk, N, Kd // 2), generator=gen,
+                               dtype=torch.uint8, device=dev)
+        scales = torch.rand((Lk, N, 1), generator=gen, device=dev) * 0.01
+        x = torch.randn((M, Kd), generator=gen, device=dev)
+        nbytes, ops = N * Kd // 2 + N * 4 + M * Kd + M * N * 4, 2 * M * N * Kd
+        out = K.quantized_matmul_w4a8_stacked(x, packed, scales, 1, 4)
+        ref = K.quantized_matmul_w4a8_stacked_plain(x, packed, scales, 1, 4)
+        report(3, f"{name} {N} x {Kd}", out, ref, "exact",
+               _time_ms(torch, lambda i: K.quantized_matmul_w4a8_stacked(
+                   x, packed, scales, i % Lk, 4), Lk),
+               _time_ms(torch, lambda i: K.quantized_matmul_w4a8_stacked_plain(
+                   x, packed, scales, i % Lk, 4), 3, reps=3), nbytes, ops)
+        if name in ("qkv", "o"):
+            # row 2, the flat entry: column-parallel q (2048 rows of 4096),
+            # row-parallel o (K 2048)
+            n2 = 2048 if name == "qkv" else N
+            flat = [packed[i, :n2].contiguous() for i in range(Lk)]
+            fsc = [scales[i, :n2].contiguous() for i in range(Lk)]
+            out = K.quantized_matmul_w4a8(x, flat[0], fsc[0], 4)
+            ref = K.quantized_matmul_w4a8_plain(x, flat[0], fsc[0], 4)
+            report(2, f"{'q' if name == 'qkv' else 'o'} {n2} x {Kd}", out,
+                   ref, "exact",
+                   _time_ms(torch, lambda i: K.quantized_matmul_w4a8(
+                       x, flat[i % Lk], fsc[i % Lk], 4), Lk),
+                   _time_ms(torch, lambda i: K.quantized_matmul_w4a8_plain(
+                       x, flat[i % Lk], fsc[i % Lk], 4), 3, reps=3),
+                   n2 * Kd // 2 + n2 * 4 + M * Kd + M * n2 * 4,
+                   2 * M * n2 * Kd)
+        del packed, scales
+    # row 9: the vocab-sharded int8 head, 16000 x 4096
+    V, Kd, Lk = 16000, 4096, 4
+    w8 = [torch.randint(-127, 128, (V, Kd), generator=gen, dtype=torch.int8,
+                        device=dev) for _ in range(Lk)]
+    sc = [torch.rand((V, 1), generator=gen, device=dev) * 0.01
+          for _ in range(Lk)]
+    x = torch.randn((M, Kd), generator=gen, device=dev)
+    report(9, f"head {V} x {Kd}", K.int8_matmul(x, w8[0], sc[0]),
+           K.int8_matmul_plain(x, w8[0], sc[0]), "exact",
+           _time_ms(torch, lambda i: K.int8_matmul(x, w8[i % Lk],
+                                                   sc[i % Lk]), Lk),
+           _time_ms(torch, lambda i: K.int8_matmul_plain(
+               x, w8[i % Lk], sc[i % Lk]), 3, reps=3),
+           V * Kd + V * 4 + M * Kd + M * V * 4, 2 * M * V * Kd)
+    del w8, sc
+    # row 11: staged decode over 16 heads, B 8, T 256 from position 128, i8
+    B, KVH, D, T, Lk = 8, 16, 128, 256, 24
+    q = torch.randn((B, KVH, 1, D), generator=gen, device=dev)
+    kc, vc = (torch.randint(-127, 128, (Lk, B, KVH, T, D), generator=gen,
+                            dtype=torch.int8, device=dev) for _ in range(2))
+    ks, vs = (torch.rand((Lk, B, KVH, T), generator=gen, device=dev) * 0.02
+              for _ in range(2))
+    kn, vn = (torch.randn((B, KVH, D), generator=gen, device=dev)
+              for _ in range(2))
+    pos = torch.full((B,), 128, dtype=torch.int32, device=dev)
+    live = B * 128
+    report(11, f"staged {KVH} heads B {B} T {T} pos 128 i8",
+           AT.flash_decode_q8_staged(q, kc, vc, ks, vs, kn, vn, 0, pos,
+                                     dots="i8"),
+           AT.flash_decode_q8_staged_plain(q, kc, vc, ks, vs, kn, vn, 0, pos,
+                                           dots="i8"), "i8",
+           _time_ms(torch, lambda i: AT.flash_decode_q8_staged(
+               q, kc, vc, ks, vs, kn, vn, i % Lk, pos, dots="i8"), Lk),
+           _time_ms(torch, lambda i: AT.flash_decode_q8_staged_plain(
+               q, kc, vc, ks, vs, kn, vn, i % Lk, pos, dots="i8"), 3, reps=3),
+           KVH * live * (2 * D + 8) + 4 * B * KVH * D * 4,
+           4 * live * KVH * D)
+    del kc, vc, ks, vs
+    # row 13: flash prefill of a 128-token prompt on 16 heads, beside SDPA
+    S = 128
+    qp, kp, vp = (torch.randn((1, S, KVH, D), generator=gen, device=dev)
+                  for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = _time_ms(torch, lambda i: sdpa(
+        qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
+        is_causal=True), 10)
+    report(13, f"prefill S {S}, {KVH} heads", AT.flash_prefill(qp, kp, vp),
+           AT.flash_prefill_plain(qp, kp, vp), "f32",
+           _time_ms(torch, lambda i: AT.flash_prefill(qp, kp, vp), 10),
+           _time_ms(torch, lambda i: AT.flash_prefill_plain(qp, kp, vp), 3,
+                    reps=3),
+           4 * S * KVH * D * 4, 2 * 2 * KVH * D * S * (S + 1) / 2 * 3,
+           rate=TF32_OPS_PER_S, lib_ms=lib_ms)
+    # row 14: paged decode, 16-token pages, 16 heads, ~2048 tokens a row
+    P, ctx, Lk = 16, 2048, 2
+    ppos = torch.tensor([0, 300, 777, 1024, 1500, 1801, 2047, 2048],
+                        dtype=torch.int32, device=dev)
+    NP = B * (ctx // P) + 8
+    k, v = (torch.randint(-127, 128, (Lk, NP, KVH, P, D), generator=gen,
+                          dtype=torch.int8, device=dev) for _ in range(2))
+    ks, vs = (torch.rand((Lk, NP, KVH, P), generator=gen, device=dev) * 0.02
+              for _ in range(2))
+    tables = torch.randperm(NP, generator=torch.Generator().manual_seed(P))[
+        :B * (ctx // P)].reshape(B, ctx // P).to(device=dev,
+                                                  dtype=torch.int32)
+    args = (q, k, v, ks, vs, kn, vn)
+    live = int(ppos.sum())
+    report(14, f"paged {KVH} heads B {B} 16-token pages ~{ctx} tokens i8",
+           AT.flash_decode_q8_paged(*args, 1, tables, ppos, dots="i8"),
+           AT.flash_decode_q8_paged_plain(*args, 1, tables, ppos, dots="i8"),
+           "i8",
+           _time_ms(torch, lambda i: AT._flash_decode_q8_paged(
+               *args, i % Lk, tables, ppos, dots="i8"), 50),
+           _time_ms(torch, lambda i: AT.flash_decode_q8_paged_plain(
+               *args, i % Lk, tables, ppos, dots="i8"), 3, reps=3),
+           KVH * live * (2 * D + 8) + 4 * B * KVH * D * 4,
+           4 * live * KVH * D)
+    print(f"parallel (k) kernels at a tp=2 rank's local shapes (llama2-7b, "
+          f"M {M}; {card}):\n  " + "\n  ".join(lines), flush=True)
+
+
+def phase_parallel(torch, dev, card):
+    """Phase 14: tensor- and pipeline-parallel serving, last. (q)
+    Qwen2-0.5B's whole step; (a) tp=1 over NCCL in this process; then
+    spawned worlds (``parallel.bootstrap.launch``, after the build, so no
+    two ranks build one library): (b) and (d) tp=2, two gloo ranks sharing
+    the card (NCCL refuses two ranks on one device); (c) pp=2 and pp=2 x
+    tp=2, four gloo ranks on the card, depth cut to ``PAR_PP_LAYERS``; (e)
+    (b) over NCCL, one rank a card, where there are two cards. (k) times
+    the kernels at the local shapes in this process."""
+    import tempfile
+
+    from ee274_convexcaldera_llm_quantization_tpu_torch.parallel import (
+        bootstrap)
+
+    t_phase = time.perf_counter()
+    _qwen2_step(torch, dev)
+    torch.cuda.empty_cache()
+    _tp1_nccl(torch, dev)
+    _par_kernel_times(torch, dev, card)
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def world(fn, n, args, backend):
+        work = tempfile.mkdtemp(dir=root)
+        try:
+            return bootstrap.launch(fn, n, work, args=args, backend=backend,
+                                    timeout=600)
+        finally:
+            import shutil
+            shutil.rmtree(work, ignore_errors=True)
+
+    from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
+        LLAMA2_7B)
+    spec = _par_spec(LLAMA2_7B)
+    t0 = time.perf_counter()
+    res = world(_rank_tp2, 2, ("gloo", spec), "gloo")
+    print(f"parallel (b)/(d) world of 2 gloo ranks on one card: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _print_tp2("(b)", res, card)
+    t0 = time.perf_counter()
+    res = world(_rank_pp, 4, (_par_spec(dataclasses.replace(
+        LLAMA2_7B, num_layers=PAR_PP_LAYERS)),), "gloo")
+    for r in res:
+        for name in ("pp=2", "pp=2 x tp=2"):
+            c = r[name]
+            print(f"parallel (c) {name} rank {r['rank']} (llama2-7b widths, "
+                  f"depth cut 32 -> {PAR_PP_LAYERS} layers, B {PAR_B}, "
+                  f"staged, dots i8): the step from the single-device "
+                  f"step's cache rel-Frobenius {c['synced_rel']:.3e} (bound "
+                  f"{KERN_REL:g}), argmax equal {c['synced_argmax']}; "
+                  f"greedy tokens {c['agree']}/{c['total']} equal"
+                  + (f" ({'; '.join(c['notes'])})" if c["notes"] else "")
+                  + (f"; each microbatch's logits against the single-"
+                     f"device step on its {PAR_B // 2} rows alone: "
+                     + ", ".join(f"bit-equal {x['equal']} (rel "
+                                 f"{x['rel']:.3e})" for x in c["micro"])
+                     if "micro" in c else "")
+                  + f"; launches {c['launches']}; every launch against its "
+                  f"plain version {c['checks']}; eager step median "
+                  f"{c['eager_ms']:.2f} ms, device {c['device_ms']} ms over "
+                  f"{c['kernels']} kernels (four ranks time-share one card; "
+                  f"{card})", flush=True)
+            if c["bad"]:
+                raise AssertionError(f"parallel (c) {name}: {c['bad']}")
+            if not (c["synced_rel"] <= KERN_REL and c["synced_argmax"]):
+                raise AssertionError(f"parallel (c) {name} rank {r['rank']}:"
+                                     " the step disagrees with the "
+                                     "single-device step")
+    print(f"parallel (c) world of 4 gloo ranks: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if torch.cuda.device_count() >= 2:
+        res = world(_rank_tp2, 2, ("nccl", spec), "nccl")
+        _print_tp2("(e)", res, card)
+    else:
+        print(f"parallel (e) did not run: NCCL tp=2 needs two cards, this "
+              f"machine has {torch.cuda.device_count()}", flush=True)
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6117,6 +6984,8 @@ def main() -> int:
                    dataclasses.replace(LLAMA2_7B, num_layers=2))
     torch.cuda.empty_cache()
     phase_mixed(torch, dev, card)
+    torch.cuda.empty_cache()
+    phase_parallel(torch, dev, card)
 
     for name, r in record.items():
         missing = [k for k in measured if r[k] is None]

@@ -23,6 +23,14 @@ and down one launch, ``attn_o_kernel`` fuses the decode attention with
 o_proj; ``proj_kernel="persistent"`` runs o and down on the persistent
 launch of the W4A8 kernel; ``attn_dots`` picks the decode kernels' dot
 mode ("f32", "bf16" or "i8").
+
+Under ``tp_axis`` (a ``torch.distributed`` group; ``parallel.tp_fused``) a
+step runs on the rank's shard, as the reference's does inside
+``shard_map``: qkv and gate/up column-parallel, o and down row-parallel,
+their activations quantized with the group's global row absmax (one
+``all_reduce`` MAX), the K-partial ``xr`` of their factor dots summed
+before its bf16 cast and kept on rank 0 only, and one ``all_reduce`` SUM of
+each output; the logits are the rank's vocabulary shard.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models.stacked import (
     StackedModelParams, _apply_w4a8)
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import attention as AT
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
+from ee274_convexcaldera_llm_quantization_tpu_torch.parallel import comm
 
 
 @dataclasses.dataclass
@@ -255,21 +264,42 @@ def _apply_fused(fp: FusedW4A8Linear, l: int, y: torch.Tensor):
 
 def _apply_plain(lin: CalderaLinear, l: int, y: torch.Tensor,
                  factor_kernel: str = "xla",
-                 proj_kernel: str = "grid") -> torch.Tensor:
+                 proj_kernel: str = "grid", tp_axis=None) -> torch.Tensor:
     """Layer ``l`` of a single stacked w4a8 projection on ``y`` (..., in).
     ``factor_kernel="l"`` with int8 factors adds the L half inside the
     packed kernel (a group of one; ``xr`` a torch dot) and ignores
     ``proj_kernel``, as the reference does; otherwise one stacked W4A8
     launch (on the persistent grid when ``proj_kernel="persistent"``) plus
-    the torch factor dots. Global scale and bias applied."""
+    the torch factor dots. Global scale and bias applied.
+
+    ``tp_axis`` (``y`` the rank's K-shard of a row-parallel input): the int8
+    activation scale is the group's global row absmax / 127 (one
+    ``all_reduce`` MAX), so every rank quantizes as the single-device step
+    does, and the factor dots' ``xr`` is summed over the group before its
+    bf16 cast and kept on rank 0 only, so that the caller's sum of the
+    outputs (:func:`_tp_sum`) counts it once."""
+    act_scale = xr_reduce = None
+    if tp_axis is not None:
+        absmax = y.reshape(-1, y.shape[-1]).float().abs().amax(
+            dim=1, keepdim=True).clamp_min(1e-12)
+        act_scale = comm.all_max(absmax, tp_axis) / 127.0
+
+        def xr_reduce(xr):
+            xr = comm.all_sum(xr, tp_axis)
+            return xr if comm.group_rank(tp_axis) == 0 else \
+                torch.zeros_like(xr)
+
     if factor_kernel != "l" or lin.L_scale is None:
-        return _apply_w4a8(lin, l, y, proj_kernel == "persistent")
+        return _apply_w4a8(lin, l, y, proj_kernel == "persistent",
+                           act_scale, xr_reduce)
     y2 = y.reshape(-1, y.shape[-1])
     xr = K.thin_xr(y2, lin.R[l], lin.R_scale[l])
+    if xr_reduce is not None:
+        xr = xr_reduce(xr)
     out = K.quantized_matmul_w4a8_l_stacked(
         y2, lin.packed, lin.scales, l, xr, lin.L, lin.L_scale,
         num_bits=lin.num_bits, rank=lin.L.shape[2],
-        splits=(lin.packed.shape[1],))
+        splits=(lin.packed.shape[1],), act_scale=act_scale)
     out = out * lin.global_scale[l]
     if lin.b is not None:
         out = out + lin.b[l][None, :]
@@ -321,9 +351,18 @@ def _attn_o_kernel_supported(params: FusedStackedParams,
                 config.head_dim, o.packed.shape[1], o.L.shape[2]))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"{item})")
+def _tp_sum(v: torch.Tensor, tp_axis) -> torch.Tensor:
+    """Complete a row-parallel partial product under tensor parallelism (a
+    no-op on one device)."""
+    return v if tp_axis is None else comm.all_sum(v, tp_axis)
+
+
+def _check_tp(params: FusedStackedParams, tp_axis) -> None:
+    """A row-parallel bias would be added on every rank of the group."""
+    if tp_axis is not None and (params.layers.o_proj.b is not None
+                                or params.layers.down_proj.b is not None):
+        raise ValueError("row-parallel o/down projections cannot carry a "
+                         "bias under tensor parallelism")
 
 
 def _check_cache(cache):
@@ -344,24 +383,28 @@ def _qkv(lp: FusedLayerStack, l: int, x: torch.Tensor, cos, sin,
 
 
 def _mlp(lp: FusedLayerStack, l: int, x: torch.Tensor, config: ModelConfig,
-         mlp_kernel: bool = False, proj_kernel: str = "grid") -> torch.Tensor:
+         mlp_kernel: bool = False, proj_kernel: str = "grid",
+         tp_axis=None) -> torch.Tensor:
     """RMSNorm, gate/up, SiLU and the down residual; ``mlp_kernel`` runs
     them as one whole-MLP kernel launch."""
     y = llama.rms_norm(x, lp.mlp_norm[l], config.rms_norm_eps)
     if mlp_kernel:
         return x + _apply_mlp_mega(lp, l, y)
     gate, up = _apply_fused(lp.gateup, l, y)
-    return x + _apply_plain(lp.down_proj, l, gate * torch.sigmoid(gate) * up,
-                            lp.qkv.factor_kernel, proj_kernel)
+    return x + _tp_sum(_apply_plain(
+        lp.down_proj, l, gate * torch.sigmoid(gate) * up,
+        lp.qkv.factor_kernel, proj_kernel, tp_axis), tp_axis)
 
 
 def _mlp_and_o(lp: FusedLayerStack, l: int, x: torch.Tensor,
-               attn: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+               attn: torch.Tensor, config: ModelConfig,
+               proj_kernel: str = "grid", tp_axis=None) -> torch.Tensor:
     """The rest of a layer: o_proj residual, RMSNorm, gate/up, SiLU, down
     residual (o and down on the qkv group's factor path, as the
     reference)."""
-    x = x + _apply_plain(lp.o_proj, l, attn, lp.qkv.factor_kernel)
-    return _mlp(lp, l, x, config)
+    x = x + _tp_sum(_apply_plain(lp.o_proj, l, attn, lp.qkv.factor_kernel,
+                                 proj_kernel, tp_axis), tp_axis)
+    return _mlp(lp, l, x, config, proj_kernel=proj_kernel, tp_axis=tp_axis)
 
 
 def _attn_o(o: CalderaLinear, l: int, qh, cache: HeadMajorQuantKVCache, kf,
@@ -375,14 +418,15 @@ def _attn_o(o: CalderaLinear, l: int, qh, cache: HeadMajorQuantKVCache, kf,
         num_bits=o.num_bits, rank=o.L.shape[2], staged=kf is not None)
 
 
-def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor):
-    """Write each row's staged K/V (all layers) at column ``pos[b]`` of the
-    cache, in place: one indexed write per cache tensor. Positions past the
-    end clamp to the last column, as the reference's dynamic_update_slice
-    does."""
+def _commit(cache: HeadMajorQuantKVCache, staging, pos: torch.Tensor,
+            row0: int = 0):
+    """Write each row's staged K/V (all layers) at column ``pos[b]`` of
+    cache row ``row0 + b``, in place: one indexed write per cache tensor.
+    Positions past the end clamp to the last column, as the reference's
+    dynamic_update_slice does."""
     sk, sks, sv, svs = staging                 # (L, B, KVH[, D])
     T = cache.k.shape[3]
-    rows = torch.arange(pos.shape[0], device=pos.device)
+    rows = row0 + torch.arange(pos.shape[0], device=pos.device)
     col = pos.long().clamp(0, T - 1)
     # advanced indices on dims 1 and 3 move to the front: (B, L, KVH[, D])
     cache.k[:, rows, :, col] = sk.transpose(0, 1)
@@ -405,7 +449,7 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
                       attn_dots: str = "f32",
                       head_pallas: bool = False,
                       attn_kernel: str = "row",
-                      tp_axis: Optional[str] = None,
+                      tp_axis=None,
                       proj_kernel: str = "grid"):
     """Batched decode step on the fused-projection W4A8 path.
 
@@ -434,16 +478,23 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
     where they take it (not inside ``attn_o_kernel`` or ``mlp_kernel``, not
     on factor path "l"); the output is the same bit for bit. ``head_pallas``
     is accepted and has no effect: the int8 head always runs the int8 matmul
-    kernel on the card and its plain version on the CPU. ``tp_axis`` is not
-    ported yet and raises.
+    kernel on the card and its plain version on the CPU. ``tp_axis``: a
+    ``torch.distributed`` group; ``params``, ``cache`` and ``config`` are the
+    rank's shard (``parallel.tp_fused``), o and down row-parallel (see the
+    module docstring), and the logits the rank's vocabulary shard; the
+    attention + o_proj and whole-MLP kernels and row-parallel biases are
+    refused, as the reference refuses them.
     """
     if attn_kernel not in ("row", "ab"):
         raise ValueError(f"unknown attn_kernel {attn_kernel!r}")
     if staged_kv not in (False, True, "uniform"):
         raise ValueError(f"unknown staged_kv {staged_kv!r}")
     _check_cache(cache)
-    if tp_axis is not None:
-        raise _not_ported("tp_axis", "Queue A item 19")
+    if tp_axis is not None and (attn_o_kernel or mlp_kernel):
+        raise ValueError("tp_axis does not support the attn_o/mlp "
+                         "megakernels (their fused o/down contraction "
+                         "would need an in-kernel all_reduce)")
+    _check_tp(params, tp_axis)
     head_major = isinstance(cache, HeadMajorQuantKVCache)
     if attn_kernel == "ab" and not head_major:
         raise ValueError("attn_kernel='ab' requires a HeadMajorQuantKVCache "
@@ -474,15 +525,33 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
         AT._check_dots(attn_dots)
     del head_pallas
     resolve_device(tokens.device)
-    lp = params.layers
-    B = tokens.shape[0]
+    x, cache = _decode_layers(params.layers, params.embed[tokens].float(),
+                              pos, cache, config, staged_kv, attn_kernel,
+                              attn_o_kernel, mlp_kernel, attn_dots,
+                              proj_kernel, tp_axis)
+    logits = llama._logits(x, params.embed, params.final_norm,
+                           params.lm_head, config)
+    return logits, cache
+
+
+def _decode_layers(lp: FusedLayerStack, x: torch.Tensor, pos: torch.Tensor,
+                   cache, config: ModelConfig, staged_kv, attn_kernel: str,
+                   attn_o_kernel: bool, mlp_kernel: bool, attn_dots: str,
+                   proj_kernel: str, tp_axis, row0: int = 0):
+    """The ``config.num_layers`` layers of a decode step on one-token rows
+    ``x`` (B, h), options as :func:`decode_step_fused` checked them; rows
+    ``b`` of ``x`` are cache rows ``row0 + b`` (the fused attention + o_proj
+    kernel reads the whole cache: ``row0`` 0 there). Returns ``(x, cache)``,
+    the cache written in place."""
+    B = x.shape[0]
     Lk, KVH, D = config.num_layers, config.num_kv_heads, config.head_dim
     kv_groups = config.num_heads // KVH
-    dev = tokens.device
+    dev = x.device
+    head_major = isinstance(cache, HeadMajorQuantKVCache)
     T = cache.k.shape[3] if head_major else cache.k.shape[2]
-    x = params.embed[tokens].float()
     cos, sin = llama.rope_tables(config, pos[:, None])
     rows = torch.arange(B, device=dev)
+    mb = slice(row0, row0 + B)
     col = pos.long()
     mask = None
     if not head_major:
@@ -500,70 +569,63 @@ def decode_step_fused(params: FusedStackedParams, tokens: torch.Tensor,
             kq, ksc = llama.quantize_kv(k[:, 0])
             vq, vsc = llama.quantize_kv(v[:, 0])
             qh = q[:, 0].reshape(B, KVH, kv_groups, D)
+            # layer l's block of the rows, contiguous: the decode kernels
+            # take it as a one-layer cache
+            kv = tuple(t[l:l + 1, mb] for t in (cache.k, cache.v,
+                                                cache.k_scale, cache.v_scale))
+            kf = vf = None
             if staged_kv:
                 for buf, val in zip(staging, (kq, ksc, vq, vsc)):
                     buf[l] = val
                 kf = kq.float() * ksc[..., None]
                 vf = vq.float() * vsc[..., None]
-                if attn_o_kernel:
-                    attn = _attn_o(lp.o_proj, l, qh, cache, kf, vf, pos)
-                elif attn_kernel == "ab":
-                    attn = AT.flash_decode_q8_ab(
-                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                        kf, vf, l, pos, staged=True, dots=attn_dots)
-                else:
-                    attn = AT.flash_decode_q8_staged(
-                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                        kf, vf, l, pos, dots=attn_dots)
             else:
                 # per-row write at pos[b] (clamped, as the reference's
                 # dynamic_update_slice), then attend tokens <= pos
                 ccol = col.clamp(0, T - 1)
-                cache.k[l][rows, :, ccol] = kq
-                cache.v[l][rows, :, ccol] = vq
-                cache.k_scale[l][rows, :, ccol] = ksc
-                cache.v_scale[l][rows, :, ccol] = vsc
-                if attn_o_kernel:
-                    attn = _attn_o(lp.o_proj, l, qh, cache, None, None, pos)
-                elif attn_kernel == "ab":
-                    attn = AT.flash_decode_q8_ab(
-                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                        None, None, l, pos, staged=False, dots=attn_dots)
-                else:
-                    attn = AT.flash_decode_q8(
-                        qh, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                        l, pos, dots=attn_dots)
+                for t, val in zip(kv, (kq, vq, ksc, vsc)):
+                    t[0][rows, :, ccol] = val
+            if attn_o_kernel:
+                attn = _attn_o(lp.o_proj, l, qh, cache, kf, vf, pos)
+            elif attn_kernel == "ab":
+                attn = AT.flash_decode_q8_ab(qh, *kv, kf, vf, 0, pos,
+                                             staged=bool(staged_kv),
+                                             dots=attn_dots)
+            elif staged_kv:
+                attn = AT.flash_decode_q8_staged(qh, *kv, kf, vf, 0, pos,
+                                                 dots=attn_dots)
+            else:
+                attn = AT.flash_decode_q8(qh, *kv, 0, pos, dots=attn_dots)
         elif isinstance(cache, QuantKVCache):
             kq, ksc = llama.quantize_kv(k[:, 0])
             vq, vsc = llama.quantize_kv(v[:, 0])
-            cache.k[l][rows, col] = kq
-            cache.v[l][rows, col] = vq
-            cache.k_scale[l][rows, col] = ksc
-            cache.v_scale[l][rows, col] = vsc
-            attn = llama._attention_q8(q, cache.k[l], cache.v[l],
-                                       cache.k_scale[l], cache.v_scale[l],
-                                       mask)
+            kv = tuple(t[l, mb] for t in (cache.k, cache.v, cache.k_scale,
+                                          cache.v_scale))
+            for t, val in zip(kv, (kq, vq, ksc, vsc)):
+                t[rows, col] = val
+            attn = llama._attention_q8(q, *kv, mask)
         else:
-            cache.k[l][rows, col] = k[:, 0].to(cache.k.dtype)
-            cache.v[l][rows, col] = v[:, 0].to(cache.v.dtype)
-            attn = llama._attention(q, cache.k[l], cache.v[l], mask)
+            ck, cv = cache.k[l, mb], cache.v[l, mb]
+            ck[rows, col] = k[:, 0].to(ck.dtype)
+            cv[rows, col] = v[:, 0].to(cv.dtype)
+            attn = llama._attention(q, ck, cv, mask)
         if attn_o_kernel:               # o_proj already applied
             x = x + attn * lp.o_proj.global_scale[l]
         else:
-            x = x + _apply_plain(lp.o_proj, l, attn.reshape(B, config.q_dim),
-                                 lp.qkv.factor_kernel, proj_kernel)
-        x = _mlp(lp, l, x, config, mlp_kernel, proj_kernel)
+            x = x + _tp_sum(_apply_plain(
+                lp.o_proj, l, attn.reshape(B, config.q_dim),
+                lp.qkv.factor_kernel, proj_kernel, tp_axis), tp_axis)
+        x = _mlp(lp, l, x, config, mlp_kernel, proj_kernel, tp_axis)
     if staged_kv:
-        _commit(cache, staging, pos)
-    logits = llama._logits(x, params.embed, params.final_norm,
-                           params.lm_head, config)
-    return logits, cache
+        _commit(cache, staging, pos, row0)
+    return x, cache
 
 
 def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
                             slot: int, cache, config: ModelConfig,
                             last_pos: Optional[int] = None,
-                            flash: bool = False, proj_kernel: str = "grid"):
+                            flash: bool = False, proj_kernel: str = "grid",
+                            tp_axis=None):
     """Prefill one (1, S) prompt into batch row ``slot`` of the cache, on
     the fused path.
 
@@ -574,11 +636,13 @@ def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
     columns ``0 .. S-1``, in place. Returns ``(logits (vocab,) f32 of row
     last_pos (the last row when None), cache)``. ``proj_kernel`` is accepted
     and not used, as in the reference: its prefill runs o and down on the
-    grid kernel whatever the flag.
+    grid kernel whatever the flag. ``tp_axis``: as in
+    :func:`decode_step_fused` (the logits the rank's vocabulary shard).
     """
     if proj_kernel not in ("grid", "persistent"):
         raise ValueError(f"unknown proj_kernel {proj_kernel!r}")
     _check_cache(cache)
+    _check_tp(params, tp_axis)
     resolve_device(tokens.device)
     lp = params.layers
     S = tokens.shape[1]
@@ -595,8 +659,33 @@ def prefill_into_slot_fused(params: FusedStackedParams, tokens: torch.Tensor,
         else:
             attn = llama._attention(q, k, v, mask)
         llama._write_prompt_kv(cache, l, slot, 0, k, v)
-        x = _mlp_and_o(lp, l, x, attn.reshape(S, config.q_dim), config)
+        x = _mlp_and_o(lp, l, x, attn.reshape(S, config.q_dim), config,
+                       tp_axis=tp_axis)
     return _last_logits(params, x, last_pos, config), cache
+
+
+def decode_layers_fused(lp: FusedLayerStack, x: torch.Tensor,
+                        pos: torch.Tensor, cache: HeadMajorQuantKVCache,
+                        config: ModelConfig, tp_axis=None,
+                        proj_kernel: str = "grid", attn_dots: str = "f32",
+                        row0: int = 0):
+    """Run ``config.num_layers`` fused W4A8 layers on one-token rows ``x``
+    (B, h) over a layer-stacked head-major int8 cache whose leading dim is
+    ``config.num_layers``: the layers of :func:`decode_step_fused` with
+    ``staged_kv=True`` on the row kernel (staged flash attention, one
+    per-row commit at the end), for the pipeline-parallel step
+    (``parallel.pp``), where each stage runs its slice of the layers. Rows
+    ``b`` of ``x`` are cache rows ``row0 + b`` (a stage's microbatch). The
+    embedding and the head stay with the caller. ``tp_axis``,
+    ``proj_kernel``, ``attn_dots``: as in :func:`decode_step_fused` (the
+    reference's layer body takes f32 dots). Returns ``(x, cache)``, the
+    cache written in place."""
+    if not isinstance(cache, HeadMajorQuantKVCache):
+        raise ValueError("decode_layers_fused requires a "
+                         f"HeadMajorQuantKVCache, got {type(cache).__name__}")
+    AT._check_dots(attn_dots)
+    return _decode_layers(lp, x, pos, cache, config, True, "row", False,
+                          False, attn_dots, proj_kernel, tp_axis, row0)
 
 
 def prefill_chunk_fused(params: FusedStackedParams, tokens: torch.Tensor,

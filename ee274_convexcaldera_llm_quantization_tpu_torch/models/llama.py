@@ -346,14 +346,32 @@ def forward(params: ModelParams, tokens: torch.Tensor,
             config: ModelConfig) -> torch.Tensor:
     """Full-sequence forward (perplexity eval). ``tokens`` (B, S) on the
     params' device; returns logits (B, S, vocab) f32."""
+    tokens = on_mesh(tokens, params.embed)
     B, S = tokens.shape
     dev = tokens.device
     x = params.embed[tokens].float()
-    cos, sin = rope_tables(config, torch.arange(S, device=dev)[None])
-    mask = _causal(S, dev)
+    cos, sin = (on_mesh(t, params.embed) for t in rope_tables(
+        config, torch.arange(S, device=dev)[None]))
+    mask = on_mesh(_causal(S, dev), params.embed)
     for lp in params.layers:
         x = _layer(x, lp, config, cos, sin, mask)
     return _head(params, x, config)
+
+
+def on_mesh(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` as a DTensor replicated over ``like``'s device mesh when
+    ``like`` is a DTensor (params placed by ``parallel.mesh.shard_params``)
+    and ``t`` is a plain tensor, the same on every rank; else ``t``. A
+    DTensor op refuses plain tensor operands, so the tensors a model
+    function makes itself (positions, RoPE tables, masks, given tokens) join
+    the params' mesh here."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def prefill(params: ModelParams, tokens: torch.Tensor, cache: KVCache,

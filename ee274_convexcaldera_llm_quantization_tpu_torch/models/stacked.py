@@ -15,7 +15,11 @@ index into them (a view, never a copy).
   its layer (a pointer offset into the stack) plus the factor dots, over a
   bf16 :class:`llama.KVCache` or an int8 :class:`llama.QuantKVCache`.
 
-Tensor parallelism (``tp_axis``) is not ported yet and raises.
+Under ``tp_axis`` (a ``torch.distributed`` group; ``parallel.tp_decode``)
+``config`` and the params are the rank's shard: q/k/v/gate/up
+column-parallel, o/down row-parallel with their outputs summed over the
+group, each rank's int8 activation scale its own (the reference's
+``_row_out``), and the logits the rank's vocabulary shard.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
 from ee274_convexcaldera_llm_quantization_tpu_torch.models.llama import (
     KVCache, LayerParams, ModelParams, QuantKVCache)
 from ee274_convexcaldera_llm_quantization_tpu_torch.ops import kernels as K
+from ee274_convexcaldera_llm_quantization_tpu_torch.parallel import comm
 
 _PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
          "down_proj")
@@ -144,41 +149,62 @@ def prefill(params: StackedModelParams, tokens: torch.Tensor, cache: KVCache,
 
 # The fast W4A8 path.
 
-def _low_rank_layer(lin: CalderaLinear, l: int, y: torch.Tensor):
+def _low_rank_layer(lin: CalderaLinear, l: int, y: torch.Tensor,
+                    xr_reduce=None):
     """Low-rank contribution ``y @ (L[l] @ R[l]).T`` for a stacked
     CalderaLinear (bf16 or int8 factors)."""
     return K.low_rank_matmul(
         y, lin.L[l], lin.R[l],
         None if lin.L_scale is None else lin.L_scale[l],
-        None if lin.R_scale is None else lin.R_scale[l])
+        None if lin.R_scale is None else lin.R_scale[l],
+        xr_reduce=xr_reduce)
 
 
 def _apply_w4a8(lin: CalderaLinear, l: int, y: torch.Tensor,
-                persistent: bool = False):
+                persistent: bool = False, act_scale=None, xr_reduce=None):
     """Layer ``l`` of a stacked w4a8 projection on ``y`` (..., in): one
     stacked W4A8 launch (on the persistent grid when ``persistent``) plus
-    the low-rank term, global scale and bias."""
+    the low-rank term, global scale and bias. ``act_scale`` (rows, 1)
+    replaces the activations' per-row int8 scale; ``xr_reduce`` maps the
+    factor dots' ``xr`` (``ops.kernels.low_rank_matmul``)."""
     y2 = y.reshape(-1, y.shape[-1])
     qmm = (K.quantized_matmul_w4a8_stacked_persistent if persistent
            else K.quantized_matmul_w4a8_stacked)
-    out = (qmm(y2, lin.packed, lin.scales, l, lin.num_bits)
-           + _low_rank_layer(lin, l, y2))
+    out = (qmm(y2, lin.packed, lin.scales, l, lin.num_bits,
+               act_scale=act_scale)
+           + _low_rank_layer(lin, l, y2, xr_reduce))
     out = out * lin.global_scale[l]
     if lin.b is not None:
         out = out + lin.b[l][None, :]
     return out.reshape(*y.shape[:-1], out.shape[-1])
 
 
-def _w4a8_linears(lp: LayerParams, l: int):
+def _row_out(out: torch.Tensor, lin, tp_axis) -> torch.Tensor:
+    """Complete a row-parallel (input-feature-sharded) projection under
+    tensor parallelism: each rank's ``out`` is a partial product over its
+    K-range, and a sum over the tp group finishes it. A bias would be added
+    on every rank, so row-parallel projections must be bias-free."""
+    if tp_axis is None:
+        return out
+    if lin.b is not None:
+        raise ValueError("row-parallel projection cannot carry a bias")
+    return comm.all_sum(out, tp_axis)
+
+
+def _w4a8_linears(lp: LayerParams, l: int, tp_axis=None):
     """``lin(name, y)`` of layer ``l`` on the stacked W4A8 path (see
-    ``llama._linears``)."""
-    return lambda name, y: _apply_w4a8(getattr(lp, name), l, y)
+    ``llama._linears``); under ``tp_axis`` o and down are row-parallel,
+    their outputs summed over the group (the activations' int8 scale stays
+    each rank's own, as the reference's)."""
+    def lin(name, y):
+        out = _apply_w4a8(getattr(lp, name), l, y)
+        if name in ("o_proj", "down_proj"):
+            out = _row_out(out, getattr(lp, name), tp_axis)
+        return out
+    return lin
 
 
-def _check_w4a8(lp: LayerParams, tp_axis) -> None:
-    if tp_axis is not None:
-        raise NotImplementedError("tp_axis is not ported yet (ROADMAP.md, "
-                                  "Queue A item 19)")
+def _check_w4a8(lp: LayerParams) -> None:
     for name in _PROJ:
         lin = getattr(lp, name)
         if not isinstance(lin, CalderaLinear) or lin.mode != "w4a8":
@@ -195,13 +221,14 @@ def _check_cache(cache) -> None:
 
 def decode_layers_w4a8(lp: LayerParams, x: torch.Tensor, pos: torch.Tensor,
                        cache, config: ModelConfig,
-                       tp_axis: Optional[str] = None):
+                       tp_axis=None, row0: int = 0):
     """Run ``config.num_layers`` stacked w4a8 layers on one-token rows ``x``
-    (B, h), writing row ``b``'s K/V at ``[l, b, pos[b]]`` (in place,
+    (B, h), writing row ``b``'s K/V at ``[l, row0 + b, pos[b]]`` (in place,
     int8-quantized for a :class:`llama.QuantKVCache`) and attending tokens
-    ``<= pos[b]``. The block is ``models.llama``'s, each projection one
+    ``<= pos[b]`` of cache row ``row0 + b`` (``row0``: a pipeline stage's
+    microbatch). The block is ``models.llama``'s, each projection one
     stacked W4A8 launch. Returns ``(x, cache)``."""
-    _check_w4a8(lp, tp_axis)
+    _check_w4a8(lp)
     _check_cache(cache)
     B = x.shape[0]
     dev = x.device
@@ -212,24 +239,25 @@ def decode_layers_w4a8(lp: LayerParams, x: torch.Tensor, pos: torch.Tensor,
     mask = llama._mask(valid)[:, None, None, None, :]
     rows = torch.arange(B, device=dev)
     col = pos.long()
+    mb = slice(row0, row0 + B)
     for l in range(config.num_layers):
-        lin = _w4a8_linears(lp, l)
+        lin = _w4a8_linears(lp, l, tp_axis)
         y = llama.rms_norm(x, lp.attn_norm[l], config.rms_norm_eps)
         q, k, v = llama._project_qkv(lin, y, config, cos, sin)
+        ck, cv = cache.k[l, mb], cache.v[l, mb]
         if isinstance(cache, QuantKVCache):
             kq, ksc = llama.quantize_kv(k[:, 0])
             vq, vsc = llama.quantize_kv(v[:, 0])
-            cache.k[l][rows, col] = kq
-            cache.v[l][rows, col] = vq
-            cache.k_scale[l][rows, col] = ksc
-            cache.v_scale[l][rows, col] = vsc
-            attn = llama._attention_q8(q, cache.k[l], cache.v[l],
-                                       cache.k_scale[l], cache.v_scale[l],
-                                       mask)
+            cks, cvs = cache.k_scale[l, mb], cache.v_scale[l, mb]
+            ck[rows, col] = kq
+            cv[rows, col] = vq
+            cks[rows, col] = ksc
+            cvs[rows, col] = vsc
+            attn = llama._attention_q8(q, ck, cv, cks, cvs, mask)
         else:
-            cache.k[l][rows, col] = k[:, 0].to(cache.k.dtype)
-            cache.v[l][rows, col] = v[:, 0].to(cache.v.dtype)
-            attn = llama._attention(q, cache.k[l], cache.v[l], mask)
+            ck[rows, col] = k[:, 0].to(cache.k.dtype)
+            cv[rows, col] = v[:, 0].to(cache.v.dtype)
+            attn = llama._attention(q, ck, cv, mask)
         x = llama._mlp_and_o(lin, x, attn.reshape(B, 1, config.q_dim),
                              lp.mlp_norm[l], config)
     return x[:, 0], cache
@@ -237,12 +265,13 @@ def decode_layers_w4a8(lp: LayerParams, x: torch.Tensor, pos: torch.Tensor,
 
 def decode_step_w4a8(params: StackedModelParams, tokens: torch.Tensor,
                      pos: torch.Tensor, cache, config: ModelConfig,
-                     tp_axis: Optional[str] = None):
+                     tp_axis=None):
     """Decode step on the stacked W4A8 path: ``tokens`` (B,), ``pos`` (B,)
     on the params' device; every projection must be a stacked w4a8
     :class:`CalderaLinear`. The cache (bf16 :class:`llama.KVCache` or int8
     :class:`llama.QuantKVCache`) is updated in place. Returns ``(logits
-    (B, vocab) f32, cache)``."""
+    (B, vocab) f32, cache)``; under ``tp_axis`` the rank's vocabulary
+    shard of them."""
     x = params.embed[tokens].float()
     x, cache = decode_layers_w4a8(params.layers, x, pos, cache, config,
                                   tp_axis)
@@ -251,13 +280,13 @@ def decode_step_w4a8(params: StackedModelParams, tokens: torch.Tensor,
 
 def prefill_into_slot_w4a8(params: StackedModelParams, tokens: torch.Tensor,
                            slot: int, cache, config: ModelConfig,
-                           last_pos=None, tp_axis: Optional[str] = None):
+                           last_pos=None, tp_axis=None):
     """Prefill one prompt (1, S) into batch row ``slot`` on the stacked W4A8
     path (the W4A8 kernel takes the S rows at once). The prompt attends its
     own f32 K/V causally; the cache write is int8-quantized for a
     :class:`llama.QuantKVCache`. ``last_pos`` as in
     ``llama.prefill_into_slot``. Returns ``(logits (vocab,), cache)``."""
-    _check_w4a8(params.layers, tp_axis)
+    _check_w4a8(params.layers)
     _check_cache(cache)
     lp = params.layers
     S = tokens.shape[1]
@@ -266,7 +295,7 @@ def prefill_into_slot_w4a8(params: StackedModelParams, tokens: torch.Tensor,
     cos, sin = llama.rope_tables(config, torch.arange(S, device=dev)[None])
     mask = llama._causal(S, dev)
     for l in range(config.num_layers):
-        lin = _w4a8_linears(lp, l)
+        lin = _w4a8_linears(lp, l, tp_axis)
         y = llama.rms_norm(x, lp.attn_norm[l], config.rms_norm_eps)
         q, k, v = llama._project_qkv(lin, y, config, cos, sin)
         attn = llama._attention(q, k, v, mask)

@@ -30,6 +30,7 @@ from ee274_convexcaldera_llm_quantization_tpu_torch.models.config import (
 def lm_loss(params, tokens: torch.Tensor, config: ModelConfig
             ) -> torch.Tensor:
     """Mean next-token cross entropy (nats) over (B, S) tokens."""
+    tokens = llama.on_mesh(tokens, params.embed)
     logits = llama.forward(params, tokens, config)
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].long()
@@ -108,13 +109,26 @@ class AdamW:
             return (one - torch.tensor(b, dtype=torch.float32,
                                        device=p.device) ** count).to(dt)
 
-        g = g.to(dt)
+        g = _like(g, p).to(dt)
         mu = s(1 - self.b1) * g + s(self.b1) * mu
         nu = s(1 - self.b2) * (g * g) + s(self.b2) * nu
         u = (mu / correction(self.b1)) / (torch.sqrt(nu / correction(
             self.b2)) + s(self.eps))
         u = s(-self.lr) * (u + s(self.weight_decay) * p)
         return p + u, mu, nu
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient (params placed by ``parallel.mesh.shard_params``)
+    in its parameter's placements: a gradient over a dp-sharded batch comes
+    back as per-rank partial sums, which must be summed before the update's
+    nonlinear steps run on them (the reference's gradients take their
+    params' shardings)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @dataclasses.dataclass

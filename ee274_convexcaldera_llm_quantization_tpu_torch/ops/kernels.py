@@ -148,7 +148,10 @@ def unpack_codes(packed: torch.Tensor, num_bits: int) -> torch.Tensor:
     """Offset-binary codes (..., K) as uint8 from packed (..., K/f) bytes."""
     f = _pack_factor(num_bits)
     mask = (1 << num_bits) - 1
-    planes = [(packed >> (num_bits * (f - 1 - p))) & mask for p in range(f)]
+    # torch.bitwise_right_shift, not ``>>``: a DTensor (parallel.mesh)
+    # returns its input unchanged from ``>>`` with a Python int
+    planes = [torch.bitwise_right_shift(packed, num_bits * (f - 1 - p)) & mask
+              for p in range(f)]
     return torch.cat(planes, dim=-1) if f > 1 else planes[0]
 
 
@@ -1764,13 +1767,16 @@ bf16_matmul_stacked.launches = 0
 
 def low_rank_matmul(x2: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
                     L_scale: Optional[torch.Tensor] = None,
-                    R_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    R_scale: Optional[torch.Tensor] = None,
+                    xr_reduce=None) -> torch.Tensor:
     """``x2 @ (L @ R).T`` as two thin dots, factors bf16 or int8 codes.
 
     As in the reference, ``x2`` and ``xr`` round to bf16 before each dot and
     the dots accumulate in f32 (operands upcast, exact for bf16 values);
     int8 factors dequantize as rank-1 column rescales. ``L`` (N, r), ``R``
-    (r, K), scales (N, 1) / (r, 1).
+    (r, K), scales (N, 1) / (r, 1). ``xr_reduce``, when given, maps the f32
+    ``xr`` before its bf16 cast: a tensor-parallel caller sums the K-shards'
+    partial ``xr`` there, so the cast sees the full-K value.
     """
     def bf16(t):
         return t.to(torch.bfloat16).float()
@@ -1778,6 +1784,8 @@ def low_rank_matmul(x2: torch.Tensor, L: torch.Tensor, R: torch.Tensor,
     xr = bf16(x2) @ bf16(R).T
     if R_scale is not None:
         xr = xr * R_scale[:, 0][None, :]
+    if xr_reduce is not None:
+        xr = xr_reduce(xr)
     ylr = bf16(xr) @ bf16(L).T
     if L_scale is not None:
         ylr = ylr * L_scale[:, 0][None, :]

@@ -63,7 +63,7 @@ class FastServingEngine(ServingEngine):
             raise ValueError("flash_attn and prefill_chunk require fused "
                              "params (fused.fuse_stacked)")
         if isinstance(params, stacked.StackedModelParams):
-            stacked._check_w4a8(params.layers, None)
+            stacked._check_w4a8(params.layers)
         elif not self._fused:
             raise ValueError("FastServingEngine takes fused params "
                              "(fused.fuse_stacked) or w4a8 stacked params, "

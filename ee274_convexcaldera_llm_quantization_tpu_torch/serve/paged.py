@@ -254,7 +254,7 @@ def paged_decode_step_fused(params: fused.FusedStackedParams,
                             page_tables: torch.Tensor, config: ModelConfig,
                             active: Optional[torch.Tensor] = None,
                             scratch_page: Optional[int] = None,
-                            tp_axis: Optional[str] = None,
+                            tp_axis=None,
                             attn_dots: str = "f32"
                             ) -> Tuple[torch.Tensor, PagedQuantKVPool]:
     """One decode step on the fused W4A8 path over the paged pool.
@@ -268,11 +268,13 @@ def paged_decode_step_fused(params: fused.FusedStackedParams,
     ``active`` (B,) bool masks unused rows, whose commits go to
     ``scratch_page`` (a pool page the allocator never hands out); it
     requires ``scratch_page``. ``attn_dots``: "f32" (the reference's
-    default), "bf16" or "i8". Returns (logits (B, vocab), pool), the pool
-    written in place.
+    default), "bf16" or "i8". ``tp_axis``: a ``torch.distributed`` group;
+    params, pool and config are the rank's shard (``parallel.tp_fused``), o
+    and down row-parallel as in ``fused.decode_step_fused``, and the logits
+    the rank's vocabulary shard. Returns (logits (B, vocab), pool), the
+    pool written in place.
     """
-    if tp_axis is not None:
-        raise fused._not_ported("tp_axis", "Queue A item 19")
+    fused._check_tp(params, tp_axis)
     if active is not None and scratch_page is None:
         raise ValueError("active masking requires scratch_page (size the "
                          "pool with one page the allocator never uses)")
@@ -302,7 +304,8 @@ def paged_decode_step_fused(params: fused.FusedStackedParams,
             pool.k_scale, pool.v_scale, kq.float() * ksc[..., None],
             vq.float() * vsc[..., None], l, page_tables, pos,
             dots=attn_dots)
-        x = fused._mlp_and_o(lp, l, x, attn.reshape(B, config.q_dim), config)
+        x = fused._mlp_and_o(lp, l, x, attn.reshape(B, config.q_dim), config,
+                             tp_axis=tp_axis)
     _commit(pool, staging, page_tables, pos, active, scratch_page)
     return llama._logits(x, params.embed, params.final_norm, params.lm_head,
                          config), pool
@@ -324,15 +327,15 @@ def _write_pages(pool: PagedQuantKVPool, l: int, pages, offs, k, v) -> None:
 def paged_prefill_fused(params: fused.FusedStackedParams,
                         tokens: torch.Tensor, pool: PagedQuantKVPool,
                         page_table: torch.Tensor, config: ModelConfig,
-                        flash: bool = False, tp_axis: Optional[str] = None
+                        flash: bool = False, tp_axis=None
                         ) -> Tuple[torch.Tensor, PagedQuantKVPool]:
     """Prefill one (1, S) prompt on the fused path, writing its quantized
     K/V into the sequence's pages (``page_table`` (max_pages,)). The
     attention is the prompt's own, on its f32 K/V: the flash prefill kernel
-    when ``flash``, else the plain causal attention. Returns (last-position
-    logits (vocab,), pool)."""
-    if tp_axis is not None:
-        raise fused._not_ported("tp_axis", "Queue A item 19")
+    when ``flash``, else the plain causal attention. ``tp_axis``: as in
+    :func:`paged_decode_step_fused`. Returns (last-position logits
+    (vocab,), pool)."""
+    fused._check_tp(params, tp_axis)
     resolve_device(tokens.device)
     lp = params.layers
     S = tokens.shape[1]
@@ -349,7 +352,8 @@ def paged_prefill_fused(params: fused.FusedStackedParams,
         else:
             attn = llama._attention(q, k, v, mask)
         _write_pages(pool, l, pages, offs, k, v)
-        x = fused._mlp_and_o(lp, l, x, attn.reshape(S, config.q_dim), config)
+        x = fused._mlp_and_o(lp, l, x, attn.reshape(S, config.q_dim), config,
+                             tp_axis=tp_axis)
     return fused._last_logits(params, x, None, config), pool
 
 

@@ -138,6 +138,11 @@ def test_engine_caches_and_rules():
 PPL_REL = {"grouped": 1e-3, "w4a8": 1e-4}
 
 
+class _TpOnlyMesh:
+    """A device mesh's dim names, with no "dp" dim."""
+    mesh_dim_names = ("tp",)
+
+
 @pytest.mark.parametrize("mode", ["grouped", "w4a8"])
 def test_evaluate_perplexity_matches_reference(mode):
     # five 16-token windows in batches of two (the last batch padded); the
@@ -167,6 +172,8 @@ def test_evaluate_perplexity_matches_reference(mode):
         assert np.isfinite(got) and rel <= PPL_REL[mode], (seed, rel)
     print(f"\nperplexity {mode}: rel difference per stream "
           f"{', '.join(readings)} (bound {PPL_REL[mode]:g})")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh without the batch axis is refused before any collective (the
+    # sharded harness itself: tests/test_torch_pp.py)
+    with pytest.raises(ValueError, match="no dim 'dp'"):
         TP.evaluate_perplexity(tp, stream, _port_config(config),
-                               device="cpu", mesh=object(), **kw)
+                               device="cpu", mesh=_TpOnlyMesh(), **kw)

@@ -593,11 +593,12 @@ class TestPortSurface:
                                              attn_dots="bf16"),
         dict(attn_dots="bf16")])
     def test_unported_flags_raise(self, flag):
-        # tp_axis is the one flag left unported and raises; the others were
-        # ported since (their parity with the reference is in
-        # tests/test_torch_proj_options.py and test_torch_bf16_dots.py) and
-        # now run: the persistent launch gives the grid launch's logits bit
-        # for bit, bf16 dots finite logits of the step's shape
+        # every flag is ported now (their parity with the reference is in
+        # tests/test_torch_proj_options.py, test_torch_bf16_dots.py and, for
+        # tp_axis, test_torch_parallel.py): the persistent launch gives the
+        # grid launch's logits bit for bit, bf16 dots finite logits of the
+        # step's shape; tp_axis, which takes a process group, refuses the
+        # megakernels before any collective, as the reference refuses them
         _, _, tparams = _params("tiny")
 
         def step(**kw):
@@ -608,8 +609,8 @@ class TestPortSurface:
                 torch.tensor([0], dtype=torch.int32), cache, TC.TINY,
                 **kw)[0]
         if "tp_axis" in flag:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                step(**flag)
+            with pytest.raises(ValueError, match="megakernels"):
+                step(mlp_kernel=True, **flag)
             return
         logits = step(**flag)
         assert logits.shape == (1, TC.TINY.vocab_size)

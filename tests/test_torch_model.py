@@ -448,8 +448,15 @@ class TestStacked:
         with pytest.raises(ValueError, match="w4a8"):
             TS.decode_step_w4a8(ts, tok, pos, cache, cfg)
         _, _, tw = _stacked("tiny", "w4a8")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TS.decode_step_w4a8(tw, tok, pos, cache, cfg, tp_axis="tp")
+        # tp_axis (a process group; tests/test_torch_parallel.py) refuses a
+        # row-parallel bias before its first collective, as the reference's
+        # _row_out does
+        biased = dataclasses.replace(tw, layers=dataclasses.replace(
+            tw.layers, o_proj=dataclasses.replace(
+                tw.layers.o_proj,
+                b=torch.zeros(tw.layers.o_proj.packed.shape[:2]))))
+        with pytest.raises(ValueError, match="bias"):
+            TS.decode_step_w4a8(biased, tok, pos, cache, cfg, tp_axis="tp")
         with pytest.raises(TypeError, match="KVCache"):
             TS.decode_step_w4a8(tw, tok, pos, TL.HeadMajorQuantKVCache.create(
                 cfg, 1, 8, device="cpu"), cfg)

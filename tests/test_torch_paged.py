@@ -393,10 +393,16 @@ class TestPagedFusedStep:
                 pool, torch.tensor([[0, 1]], dtype=torch.int32), cfg)
         with pytest.raises(ValueError, match="scratch_page"):
             TP.paged_decode_step_fused(*args, active=torch.tensor([True]))
-        with pytest.raises(NotImplementedError, match="Queue A item 19"):
-            TP.paged_decode_step_fused(*args, tp_axis="tp")
-        with pytest.raises(NotImplementedError, match="Queue A item 19"):
-            TP.paged_prefill_fused(tparams, torch.tensor([[1, 2]]), pool,
+        # tp_axis (a process group; tests/test_torch_parallel.py) refuses a
+        # row-parallel bias before any collective, as the reference does
+        lp = tparams.layers
+        biased = dataclasses.replace(tparams, layers=dataclasses.replace(
+            lp, o_proj=dataclasses.replace(
+                lp.o_proj, b=torch.zeros(lp.o_proj.packed.shape[:2]))))
+        with pytest.raises(ValueError, match="bias"):
+            TP.paged_decode_step_fused(biased, *args[1:], tp_axis="tp")
+        with pytest.raises(ValueError, match="bias"):
+            TP.paged_prefill_fused(biased, torch.tensor([[1, 2]]), pool,
                                    torch.tensor([0, 1]), cfg, tp_axis="tp")
         # attn_dots="bf16" raised until it was ported; an unknown mode raises
         with pytest.raises(ValueError, match="unknown dots"):
